@@ -9,23 +9,39 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
   3. K1 (csrc/halfpel.cu) against its plain torch version on the card:
      edge-padded 720p planes (784x1344, random and frame 0 of
      tests/data/synth720p.264) and odd sizes. Exact (torch.equal).
-  4. K2 (csrc/deblock.cu) against its plain version on the card: random
-     planes and symbol planes on 9x4 .. 80x45 MBs x 2 seeds. Exact.
+  4. K2 (csrc/deblock.cu) against its plain version on the card: block
+     noise planes and random symbol planes on 9x4 .. 80x45 MBs x 2
+     seeds, and 120x68 (1080p), 4x150 (more MB rows than SMs), 1x9 and
+     2x7; 20 launches per case, each exact against the plain result.
   5. decode: all 25 frames of synth720p with TorchDecoder(device="cuda");
      every frame's CRC32 of Y|U|V must equal the committed NpDecoder
-     goldens (tests/data/synth720p_np_crc.json), and both kernels'
-     launch counters must rise during the decode.
-  6. times: K1 and K2 against their plain versions at 720p (CUDA
-     events), a per-stage breakdown of every frame, and torch.profiler
-     windows (P frames 1-3, intra frame 10) with the device busy share.
+     goldens (tests/data/synth720p_np_crc.json), K1 must launch, and K2
+     must launch exactly once per frame that is deblocked.
+  6. times: K1 (both entries) and K2 against their plain versions at
+     720p (CUDA events) beside their bounds, a per-stage breakdown of
+     every frame (deblock split into edge parameters, K2 and crop), and
+     torch.profiler windows (P frames 1-3, intra frame 10) with the
+     device busy share.
 
 The line before the last is the kernel report
 {"kernels": [{"name", "route", "source", "replaces", "launches",
-"max_abs_err", "ms", "plain_ms"}, ...]}, preceded by the card line; the
-last line is {"ok": true, "device": {"platform": "gpu", ...}}. Without a
+"launches_per_decode", "max_abs_err", "ms", "plain_ms", "bound_ms",
+"bound_by", "library_ms"}, ...]}, preceded by the card line. K1's `ms`
+and `bound_ms` are its int32 entry's, and `ms_uint8_entry` and
+`bound_ms_uint8_entry` those of the uint8 entry that the decode path
+calls; K2's `ms` is its wrapper (packing, plane copies, launch) and
+`kernel_ms` the bare C entry, each launch on fresh planes. The last
+line is {"ok": true, "device": {"platform": "gpu", ...}}. Without a
 GPU, or without the package beside it, the script exits non-zero and
 prints no result.
+
+Bounds: the larger of the bytes each kernel must move (every input read
+once, every output written once) over 3.35 TB/s, and its integer
+operations over 33.5 TOP/s (the H100 SXM's 67 TFLOP/s float32 rate
+outside the tensor cores, halved: an SM has half as many int32 lanes as
+float32 lanes). Both kernels are bound by bytes.
 """
+import ctypes
 import json
 import os
 import subprocess
@@ -39,6 +55,8 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 STREAM = os.path.join(ROOT, "tests", "data", "synth720p.264")
 GOLDEN = os.path.join(ROOT, "tests", "data", "synth720p_np_crc.json")
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
+INT32_OPS_PER_S = 33.5e12     # see the module docstring
 
 
 def log(*a):
@@ -71,37 +89,64 @@ def max_abs_err(x, y):
     return int((x.to(torch.int64) - y.to(torch.int64)).abs().max().item())
 
 
-def random_deblock_case(mb_w, mb_h, seed, device):
-    """Random WPAD-padded planes and symbol planes (the recipe of
-    tests/test_deblock_impls.py), as _edge_params inputs on `device`."""
+def bound_ms(n_bytes, n_ops):
+    """(the least time the card could take, what bounds it)."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / INT32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def cuda_ms_each(fns, warmup=2):
+    """Mean device time of one call of each of fns, called in turn, by
+    CUDA events around all calls after the first `warmup`. For a kernel
+    that works in place, each fn holds its own copy of the inputs, so
+    every timed launch sees the inputs the parity check saw."""
+    for fn in fns[:warmup]:
+        fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for fn in fns[warmup:]:
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / (len(fns) - warmup)
+
+
+def k2_launcher(lib, mb_w, mb_h, planes, P, dev):
+    """A no-argument call of lib's pip_deblock_frame (the bare K2 entry)
+    on `planes`, in place, with the packed parameter rows P."""
+    from losslessh264_tpu_torch import _build
+    Y, U, V = planes
+    sync = torch.empty(1 + 2 * mb_h, dtype=torch.int32, device=dev)
+    args = [ctypes.c_void_p(a.data_ptr()) for a in (Y, U, V)] + [
+        Y.stride(0), U.stride(0), ctypes.c_void_p(P.data_ptr()),
+        ctypes.c_void_p(sync.data_ptr()), mb_w, mb_h, _build.stream(dev)]
+
+    def run(keep=(planes, P, sync)):
+        _build.check(lib.pip_deblock_frame(*args), "deblock")
+    return run
+
+
+def k2_bytes(mb_w, mb_h):
+    """Bytes K2 must move: the picture's pixels of Y, U and V (int32)
+    read and written once, and the parameter lanes of each MB's packed
+    row read once. Edges on the picture's border are never filtered, so
+    the WPAD padding around the planes and the padding lanes of a packed
+    row (tdb.PACK_WIDTH is wider than the fields) are not needed."""
     from losslessh264_tpu_torch.ops import deblock as tdb
-    rng = np.random.RandomState(seed)
-    n = mb_w * mb_h
-    H, W = mb_h * 16, mb_w * 16
-    P = tdb.WPAD
-    planes = [rng.randint(0, 256, s).astype(np.int32) for s in
-              ((H + 2 * P, W + 2 * P), (H // 2 + 2 * P, W // 2 + 2 * P),
-               (H // 2 + 2 * P, W // 2 + 2 * P))]
-    sym = dict(
-        cls=rng.randint(0, 9, (n,)), qp=rng.randint(10, 52, (n,)),
-        nnz=rng.randint(0, 3, (n, 16)), mv=rng.randint(-16, 17, (n, 16, 2)),
-        ref_idx=rng.randint(0, 2, (n, 16)),
-        slice_id=np.arange(n) // (mb_w * 2), deblock_idc=np.zeros(n),
-        alpha_off=np.zeros(n), beta_off=np.zeros(n),
-        transform8=rng.randint(0, 2, (n,)))
-    t = {k: torch.as_tensor(np.asarray(v, np.int32), device=device)
-         for k, v in sym.items()}
-    params = tdb._edge_params(
-        mb_w, mb_h, t["cls"], t["qp"], t["nnz"], t["mv"], t["ref_idx"],
-        t["slice_id"], t["deblock_idc"], t["alpha_off"], t["beta_off"],
-        t["transform8"], 0)
-    return [torch.as_tensor(a, device=device) for a in planes], params
+    pixels = 16 * mb_w * 16 * mb_h * 3 // 2
+    lanes = sum(w for _, w in tdb._PACK_FIELDS)
+    return 2 * 4 * pixels + 4 * mb_w * mb_h * lanes
 
 
 def stage_decode(data, device):
     """One decode of the stream with a synchronised timer around every
-    stage of TorchDecoder._decode_one; returns per-frame rows."""
+    stage of TorchDecoder._decode_one (deblock split into _edge_params,
+    the K2 wrapper and the crop); returns per-frame rows."""
     from losslessh264_tpu_torch import decoder_torch as dt
+    from losslessh264_tpu_torch.ops import deblock as tdb
     dec = dt.TorchDecoder(data, device=device)
     rows = []
 
@@ -128,19 +173,30 @@ def stage_decode(data, device):
             Yw, Uw, Vw = dt._intra_scan(mb_w, mb_h, Yw, Uw, Vw, ry, ru, rv,
                                         p, dt.diagonals(mb_w, mb_h))
         t3 = now()
-        if dec._needs_deblock(f, planes_np["nnz"]):
-            Y, U, V = dt._deblock_crop(mb_w, mb_h, Yw, Uw, Vw, p)
+        deblocked = dec._needs_deblock(f, planes_np["nnz"])
+        if deblocked:   # decoder_torch._deblock_crop, stage by stage
+            params = tdb._edge_params(
+                mb_w, mb_h, p["mb_class"], p["qp"], p["nnz"], p["mv"],
+                p["ref_idx"], p["slice_id"], p["deblock_idc"],
+                p["alpha_off"], p["beta_off"], p["transform8"],
+                p["chroma_qp_offset"])
+            t3a = now()
+            Yw, Uw, Vw = tdb.deblock_wavefront(mb_w, mb_h, Yw, Uw, Vw,
+                                               params)
+            t3b = now()
         else:
-            Y, U, V = dt._crop(mb_w, mb_h, Yw, Uw, Vw)
+            t3a = t3b = t3
+        Y, U, V = dt._crop(mb_w, mb_h, Yw, Uw, Vw)
         t4 = now()
         dec._finish_frame(f, Y, U, V, False)
         t5 = now()
         rows.append(dict(
             frame=len(rows), n_intra=int(sum(
                 (f["mb_class"] == c).sum() for c in (0, 1, 2))),
-            mc_fast=bool(planes_np["mc_fast"]),
+            mc_fast=bool(planes_np["mc_fast"]), deblocked=bool(deblocked),
             host_ms=(t1 - t0) * 1e3, residual_inter_ms=(t2 - t1) * 1e3,
-            intra_ms=(t3 - t2) * 1e3, deblock_ms=(t4 - t3) * 1e3,
+            intra_ms=(t3 - t2) * 1e3, edge_params_ms=(t3a - t3) * 1e3,
+            k2_ms=(t3b - t3a) * 1e3, crop_ms=(t4 - t3b) * 1e3,
             store_ms=(t5 - t4) * 1e3))
 
 
@@ -194,6 +250,8 @@ def main():
                  "check needs an NVIDIA GPU")
     from losslessh264_tpu_torch import _build
     from losslessh264_tpu_torch import decoder_torch as dt
+    from losslessh264_tpu_torch import native
+    from losslessh264_tpu_torch.cases import random_deblock_case
     from losslessh264_tpu_torch.ops import deblock as tdb
     from losslessh264_tpu_torch.ops import mc as tmc
 
@@ -246,23 +304,29 @@ def main():
                              f"{k1_err}")
         log(f"K1 halfpel == plain: {name} {tuple(x.shape)}")
 
-    # ---- 4. K2 against its plain version ----
+    # ---- 4. K2 against its plain version, 20 launches per case ----
     k2_err = 0
-    for mb_w, mb_h in ((9, 4), (12, 7), (22, 18), (45, 30), (80, 45)):
-        for seed in (0, 1):
-            (Yw, Uw, Vw), params = random_deblock_case(mb_w, mb_h, seed, dev)
-            want = tdb.deblock_wavefront_plain(mb_w, mb_h, Yw, Uw, Vw,
-                                               params)
+    cases = [(w, h, seed) for w, h in ((9, 4), (12, 7), (22, 18), (45, 30),
+                                       (80, 45)) for seed in (0, 1)]
+    cases += [(120, 68, 2), (4, 150, 3), (1, 9, 4), (2, 7, 5)]
+    for mb_w, mb_h, seed in cases:
+        (Yw, Uw, Vw), _, params = random_deblock_case(mb_w, mb_h, seed,
+                                                      dev)
+        want = tdb.deblock_wavefront_plain(mb_w, mb_h, Yw, Uw, Vw, params)
+        for rep in range(20):
             got = tdb.deblock_wavefront(mb_w, mb_h, Yw, Uw, Vw, params)
             torch.cuda.synchronize()
             for g, w, pl in zip(got, want, "YUV"):
                 k2_err = max(k2_err, max_abs_err(g, w))
                 if not torch.equal(g, w):
                     raise SystemExit(f"K2 deblock mismatch {mb_w}x{mb_h} "
-                                     f"seed {seed} plane {pl}")
-            log(f"K2 deblock == plain: {mb_w}x{mb_h} MBs seed {seed}")
+                                     f"seed {seed} launch {rep} plane {pl}")
+        log(f"K2 deblock == plain: {mb_w}x{mb_h} MBs seed {seed}, "
+            f"20 launches")
 
     # ---- 5. decode the stream on the card ----
+    deblocked = sum(bool(dt.TorchDecoder._needs_deblock(
+        f, dt.TorchDecoder._nnz_plane(f))) for f in native.SymbolDecoder(data))
     tmc.halfpel_planes.launches = 0
     tdb.deblock_wavefront.launches = 0
     torch.cuda.synchronize()
@@ -288,31 +352,60 @@ def main():
         f"CRCs; {decode_s:.3f} s = {len(frames) / decode_s:.3f} fps "
         f"(incl. host symbol decode) on {card}")
     log(f"launches during decode: K1 halfpel {k1_launches}, "
-        f"K2 deblock {k2_launches}")
+        f"K2 deblock {k2_launches} for {deblocked} deblocked frames")
     if k1_launches <= 0 or k2_launches <= 0:
         raise SystemExit("a kernel of the decode path was never launched")
+    if k2_launches != deblocked:
+        raise SystemExit(f"K2 launched {k2_launches} times for {deblocked} "
+                         "deblocked frames; one launch per frame expected")
 
     # ---- 6. times ----
+    # K1 at the padded 720p reference: the int32 entry (`ms`) and the
+    # uint8 entry that the decode path calls (mc_bucketed)
     x = k1_inputs[1][1]
     k1_ms = cuda_ms(lambda: tmc.halfpel_planes(x), 50)
     k1u8_ms = cuda_ms(lambda: tmc._halfpel_planes_u8(x), 50)
     k1_plain_ms = cuda_ms(lambda: tmc.halfpel_planes_plain(x), 50)
-    log(f"time K1 halfpel 784x1344 -> int32: kernel {k1_ms:.4f} ms, "
-        f"uint8 entry {k1u8_ms:.4f} ms, plain torch {k1_plain_ms:.4f} ms "
-        f"on {card}")
-    (Yw, Uw, Vw), params = random_deblock_case(80, 45, 0, dev)
-    k2_ms = cuda_ms(lambda: tdb.deblock_wavefront(80, 45, Yw, Uw, Vw,
-                                                  params), 10)
+    Hp, Wp = x.shape
+    n_out = 4 * (Hp - 5) * (Wp - 5)
+    # 3 six-taps (b, h, j) of 11 ops, 3 round-and-clamps of 4 ops and
+    # the j pass over the b sums: ~50 int32 ops per output position
+    k1_ops = 50 * (Hp - 5) * (Wp - 5)
+    k1_bound, k1_by = bound_ms(Hp * Wp + 4 * n_out, k1_ops)
+    k1_bound8, _ = bound_ms(Hp * Wp + n_out, k1_ops)
+    log(f"time K1 halfpel {Hp}x{Wp}: int32 entry {k1_ms:.4f} ms (bound "
+        f"{k1_bound:.4f} ms by {k1_by}, {Hp * Wp + 4 * n_out} bytes), "
+        f"uint8 entry {k1u8_ms:.4f} ms (bound {k1_bound8:.4f} ms, "
+        f"{Hp * Wp + n_out} bytes), plain torch {k1_plain_ms:.4f} ms on "
+        f"{card}")
+    # K2 at 80x45 MBs on the parity inputs of 80x45 seed 0: `ms` is the
+    # wrapper (packing, int32 copies of the planes, the launch);
+    # `kernel_ms` the bare C entry on packed rows, each timed launch on
+    # its own fresh copy of the planes
+    (Yw, Uw, Vw), _, params = random_deblock_case(80, 45, 0, dev)
+    k2_ms = cuda_ms(lambda: tdb.deblock_wavefront(
+        80, 45, Yw, Uw, Vw, params), 20)
+    P = tdb._pack_params(params).contiguous()
+    k2_kernel_ms = cuda_ms_each([
+        k2_launcher(_build.lib(), 80, 45, [a.clone() for a in (Yw, Uw, Vw)],
+                    P, dev) for _ in range(22)])
     k2_plain_ms = cuda_ms(lambda: tdb.deblock_wavefront_plain(
         80, 45, Yw, Uw, Vw, params), 3, warmup=1)
-    log(f"time K2 deblock 80x45 MBs per frame: kernel {k2_ms:.4f} ms, "
-        f"plain torch {k2_plain_ms:.4f} ms on {card}")
+    # ~40 int32 ops per luma line of an edge (16 lines x 8 edges per MB)
+    # and ~20 per chroma line (8 lines x 4 edges x 2 planes)
+    k2_b = k2_bytes(80, 45)
+    k2_bound, k2_by = bound_ms(k2_b, 80 * 45 * (128 * 40 + 64 * 20))
+    log(f"time K2 deblock 80x45 MBs per frame: wrapper (packing, copies, "
+        f"kernel) {k2_ms:.4f} ms, kernel alone {k2_kernel_ms:.4f} ms = "
+        f"{k2_kernel_ms * 1e3 / (2 * 44 + 80):.3f} us per step of the "
+        f"{2 * 44 + 80}-MB chain; bound {k2_bound:.4f} ms by {k2_by} "
+        f"({k2_b} bytes); plain torch {k2_plain_ms:.4f} ms on {card}")
     rows = stage_decode(data, dev)
     for r in rows:
         log("stage " + json.dumps({k: (round(v, 3) if isinstance(v, float)
                                        else v) for k, v in r.items()}))
-    for key in ("host_ms", "residual_inter_ms", "intra_ms", "deblock_ms",
-                "store_ms"):
+    for key in ("host_ms", "residual_inter_ms", "intra_ms", "edge_params_ms",
+                "k2_ms", "crop_ms", "store_ms"):
         log(f"stage total {key}: {sum(r[key] for r in rows):.3f} ms over "
             f"{len(rows)} frames on {card}")
     profile_windows(data, dev, card)
@@ -321,13 +414,17 @@ def main():
         {"name": "halfpel_planes", "route": "cuda",
          "source": "losslessh264_tpu_torch/csrc/halfpel.cu",
          "replaces": "losslessh264_tpu/ops/mc.py:144",
-         "launches": k1_launches, "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain_ms},
+         "launches": k1_launches, "launches_per_decode": k1_launches,
+         "max_abs_err": k1_err, "ms": k1_ms, "ms_uint8_entry": k1u8_ms,
+         "plain_ms": k1_plain_ms, "bound_ms": k1_bound, "bound_by": k1_by,
+         "bound_ms_uint8_entry": k1_bound8, "library_ms": None},
         {"name": "deblock_wavefront", "route": "cuda",
          "source": "losslessh264_tpu_torch/csrc/deblock.cu",
          "replaces": "losslessh264_tpu/ops/deblock_pallas.py:199",
-         "launches": k2_launches, "max_abs_err": k2_err,
-         "ms": k2_ms, "plain_ms": k2_plain_ms},
+         "launches": k2_launches, "launches_per_decode": k2_launches,
+         "max_abs_err": k2_err, "ms": k2_ms, "kernel_ms": k2_kernel_ms,
+         "plain_ms": k2_plain_ms,
+         "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": None},
     ]}))
     log(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -26,9 +26,8 @@ def main(argv=None):
                     help="print frame count and rate to stderr")
     args = ap.parse_args(argv)
 
-    from losslessh264_tpu import decoder_np as dnp
-
     from .decoder_torch import TorchDecoder
+    from .ref_np import crop_yuv
 
     with open(args.input, "rb") as fh:
         data = fh.read()
@@ -38,7 +37,7 @@ def main(argv=None):
     with open(args.output, "wb") as fh:
         for yuv in dec.frames():
             yuv = tuple(p.cpu().numpy() for p in yuv)
-            for plane in dnp.crop_yuv(yuv, dec.crop_px):
+            for plane in crop_yuv(yuv, dec.crop_px):
                 fh.write(plane.tobytes())
             n_frames += 1
     if args.stats:

@@ -32,9 +32,9 @@ _SIGNATURES = {
     # (src, dst, Hp, Wp, stream)
     "pip_halfpel_i32": [_P, _P, _I, _I, _P],
     "pip_halfpel_u8": [_P, _P, _I, _I, _P],
-    # (Y, U, V, y_stride, c_stride, params, diag_mbs, diag_off (host),
-    #  n_diags, mb_w, stream)
-    "pip_deblock_wavefront": [_P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _P],
+    # (Y, U, V, y_stride, c_stride, params, sync scratch [1 + 2*mb_h],
+    #  mb_w, mb_h, stream)
+    "pip_deblock_frame": [_P, _P, _P, _I, _I, _P, _P, _I, _I, _P],
 }
 
 _lib = None

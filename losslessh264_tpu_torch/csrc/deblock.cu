@@ -1,33 +1,62 @@
 // K2: the H.264 in-loop deblocking filter (spec 8.7) over a whole frame,
-// as a wavefront over the slope-2 MB diagonals (2*mb_y + mb_x = d).
+// as one persistent launch that walks the MB rows.
 //
 // Replaces the Pallas kernel deblock_wavefront / _kernel
 // (losslessh264_tpu/ops/deblock_pallas.py:57-258). Plain torch version:
 // losslessh264_tpu_torch/ops/deblock.py deblock_wavefront_plain.
 //
 // Layout: int32 working planes padded by WPAD = 8 on every side (luma
-// [H+16, W+16], chroma [H/2+16, W/2+16]), so MB (my, mx)'s 24x24 luma
-// window starts at plane row 16*my, column 16*mx, and its 16x16 chroma
-// windows at 8*my, 8*mx. Per-MB filter parameters (bS, alpha, beta,
-// tc0 per edge) come packed in one [n, 384] int32 row per MB, the
-// layout of the TPU kernel's _pack_params (offsets below).
+// [H+16, W+16], chroma [H/2+16, W/2+16]), so MB (r, x)'s 24x24 luma
+// window (the MB with the 8 rows above and the 8 columns left of it)
+// starts at plane row 16*r, column 16*x, and its 16x16 chroma windows at
+// 8*r, 8*x. Per-MB filter parameters (bS, alpha, beta, tc0 per edge) come
+// packed in one [n, 384] int32 row per MB, the layout of the TPU kernel's
+// _pack_params (offsets below; lanes 344-383 are padding).
 //
-// What bounds it on the H100: latency, not bytes or operations. A 720p
-// frame is 168 diagonals of at most 40 MBs; each MB moves ~4.4 KB and
-// runs 8 luma + 2x4 chroma edge steps that must stay in order (later
-// edges read filtered samples, 8.7). The card has 132 SMs, so one
-// diagonal fills at most a third of it, and the diagonals run one after
-// another: the frame costs ~168 dependent launches.
-// Design: one launch per diagonal from a host loop (so the stream
-// orders the diagonals), one CTA per MB of the diagonal. Windows of one
-// diagonal are disjoint (consecutive members are 2 MBs apart across
-// and 1 up), so CTAs of a launch need no synchronisation. A CTA stages
-// its luma and chroma windows and parameter row in shared memory, runs
-// the edges with one thread per line of an edge (16 luma threads, 8
-// per chroma plane; luma and chroma planes are independent, so they
-// step together) and a __syncthreads() between edges, then writes the
-// windows back. A persistent single launch (grid sync or per-row
-// progress flags) would remove the launch chain; that is later work.
+// What bounds it on the H100:
+// - bytes: at 720p (80x45 MBs) the picture's int32 pixels (Y 720x1280,
+//   U and V 360x640) read and written once are 11.06 MB, and the 344
+//   used lanes of each MB's parameter row read once 4.95 MB: ~16.0 MB,
+//   ~4.8 us at 3.35 TB/s. Edges on the picture's border are never
+//   filtered, so the padding of the planes and of the rows is not needed
+//   (chip_smoke.k2_bytes).
+// - dependencies: MB (r, x) reads pixels that MBs (r-1, x-1..x+1) and
+//   (r, x-1) modify, so a frame is a chain of 2*(mb_h-1)+mb_w dependent
+//   MB steps (168 at 720p). Each step is 2x4 ordered edges and a hand-off
+//   between SMs (a flag seen, the rows above read from L2, the MB's
+//   stores made visible). That chain, at microseconds per step, bounds
+//   the kernel, not the bytes.
+// What the design does about each:
+// - one launch per frame and no host schedule. A CTA is one warp. It
+//   claims the next work item, one MB row of luma or of chroma (U and V
+//   together), from a device counter (atomicAdd) and walks it left to
+//   right. Before the part of MB (r, x) that reads row r-1, lane 0 waits,
+//   with ld.acquire.gpu, until row r-1 of its plane kind has finished MBs
+//   0..min(x+1, mb_w-1); after the MB the warp publishes progress = x+1
+//   (__threadfence, then st.release.gpu). Items are claimed in order by
+//   CTAs that are already running, so a CTA only ever waits on a row that
+//   a running CTA holds: no deadlock at any residency, and no
+//   cooperative launch. The C entry zeroes the counters on the stream.
+// - a short step. Luma and chroma are separate chains on separate SMs:
+//   in one warp they would diverge and run one after the other. The
+//   vertical edges of an MB read and write only its own pixel rows, which
+//   no MB of row r-1 touches, so they run before the wait; only the
+//   horizontal edges, which read the rows above, come after it. The MB's
+//   interior and parameter row are modified by no MB that runs before it,
+//   so cp.async fetches them (16 bytes at a time) one MB ahead. The rows
+//   above come through L2 (__ldcg) straight into registers. The columns
+//   left of the MB are the ones this CTA has just filtered: shared memory
+//   holds the row of MBs as a ring of columns (64 luma, 32 chroma), so
+//   they stay where they are and nothing is copied. Each lane filters one
+//   line (16 luma lines; 8 of U and 8 of V) through all of its edges in
+//   registers, so the only sync between edges is the one between the
+//   vertical and the horizontal pass; each lane then stores its line
+//   straight to device memory.
+// - the bytes: every pixel is loaded about once per window that holds
+//   it and each parameter row once; against the chain they cost little.
+#include <atomic>
+
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -51,7 +80,7 @@ constexpr int OFF_BCV = 338;
 constexpr int OFF_ACH = 340;
 constexpr int OFF_BCH = 342;
 constexpr int PW = 384;
-constexpr int NTHREADS = 64;
+constexpr int NTHREADS = 32;   // one warp
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return min(max(v, lo), hi);
@@ -59,12 +88,22 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
 
 __device__ __forceinline__ int iabs(int v) { return v < 0 ? -v : v; }
 
-// One luma line across an edge: p[0..3] / q[0..3] nearest first.
-// Writes back p0..p2, q0..q2 (same math as ops/deblock.filter_luma).
-__device__ void filter_luma_line(int* pp[4], int* qq[4], int bs, int alpha,
-                                 int beta, int tc0) {
-  const int p0 = *pp[0], p1 = *pp[1], p2 = *pp[2], p3 = *pp[3];
-  const int q0 = *qq[0], q1 = *qq[1], q2 = *qq[2], q3 = *qq[3];
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.b32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.release.gpu.b32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+
+// One luma line across an edge, p0/q0 nearest to it; filters p0..p2,
+// q0..q2 in place (same math as ops/deblock.filter_luma).
+__device__ __forceinline__ void luma_line(int p3, int& p2, int& p1, int& p0,
+                                          int& q0, int& q1, int& q2, int q3,
+                                          int bs, int alpha, int beta,
+                                          int tc0) {
   const bool filt = bs > 0 && iabs(p0 - q0) < alpha &&
                     iabs(p1 - p0) < beta && iabs(q1 - q0) < beta;
   if (!filt) return;
@@ -96,130 +135,305 @@ __device__ void filter_luma_line(int* pp[4], int* qq[4], int bs, int alpha,
       nq0 = (2 * q1 + q0 + p1 + 2) >> 2;
     }
   }
-  *pp[0] = np0; *pp[1] = np1; *pp[2] = np2;
-  *qq[0] = nq0; *qq[1] = nq1; *qq[2] = nq2;
+  p0 = np0; p1 = np1; p2 = np2;
+  q0 = nq0; q1 = nq1; q2 = nq2;
 }
 
-// One chroma line across an edge (ops/deblock.filter_chroma).
-__device__ void filter_chroma_line(int* pp0, int* pp1, int* qq0, int* qq1,
-                                   int bs, int alpha, int beta, int tc0) {
-  const int p0 = *pp0, p1 = *pp1, q0 = *qq0, q1 = *qq1;
+// One chroma line across an edge; filters p0, q0 in place
+// (ops/deblock.filter_chroma).
+__device__ __forceinline__ void chroma_line(int p1, int& p0, int& q0, int q1,
+                                            int bs, int alpha, int beta,
+                                            int tc0) {
   const bool filt = bs > 0 && iabs(p0 - q0) < alpha &&
                     iabs(p1 - p0) < beta && iabs(q1 - q0) < beta;
   if (!filt) return;
   if (bs < 4) {
     const int tc = tc0 + 1;
     const int delta = clampi((((q0 - p0) * 4) + (p1 - q1) + 4) >> 3, -tc, tc);
-    *pp0 = clampi(p0 + delta, 0, 255);
-    *qq0 = clampi(q0 - delta, 0, 255);
+    const int np0 = clampi(p0 + delta, 0, 255);
+    q0 = clampi(q0 - delta, 0, 255);
+    p0 = np0;
   } else if (bs == 4) {
-    *pp0 = (2 * p1 + p0 + q1 + 2) >> 2;
-    *qq0 = (2 * q1 + q0 + p1 + 2) >> 2;
+    const int np0 = (2 * p1 + p0 + q1 + 2) >> 2;
+    q0 = (2 * q1 + q0 + p1 + 2) >> 2;
+    p0 = np0;
   }
 }
 
-__global__ void __launch_bounds__(NTHREADS)
-deblock_diag_kernel(int* __restrict__ Y, int* __restrict__ U,
-                    int* __restrict__ V, int ys, int cs,
-                    const int* __restrict__ P, const int* __restrict__ mbs,
-                    int mb_w) {
-  __shared__ int sy[24][24];
-  __shared__ int sc[2][16][16];
-  __shared__ int prm[PW];
-  const int mb = mbs[blockIdx.x];
-  const int my = mb / mb_w, mx = mb % mb_w;
-  const int tid = threadIdx.x;
-  int* const luma = Y + (size_t)(16 * my) * ys + 16 * mx;
-  int* const cu = U + (size_t)(8 * my) * cs + 8 * mx;
-  int* const cv = V + (size_t)(8 * my) * cs + 8 * mx;
+// A luma line of window samples 4..23 across the MB (v[i] = sample
+// 4+i): its 4 edges, edge k between samples 7+4k and 8+4k. `bs`/`tc`
+// point at the line's lane of edge 0 in a [4, 16] parameter block.
+__device__ __forceinline__ void luma_edges(int (&v)[20], const int* bs,
+                                           const int* tc, const int* al,
+                                           const int* be) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    luma_line(v[4 * k], v[4 * k + 1], v[4 * k + 2], v[4 * k + 3],
+              v[4 * k + 4], v[4 * k + 5], v[4 * k + 6], v[4 * k + 7],
+              bs[16 * k], al[k], be[k], tc[16 * k]);
+}
 
-  for (int i = tid; i < PW; i += NTHREADS) prm[i] = P[(size_t)mb * PW + i];
-  for (int i = tid; i < 24 * 24; i += NTHREADS)
-    sy[i / 24][i % 24] = luma[(size_t)(i / 24) * ys + i % 24];
-  for (int i = tid; i < 16 * 16; i += NTHREADS) {
-    sc[0][i / 16][i % 16] = cu[(size_t)(i / 16) * cs + i % 16];
-    sc[1][i / 16][i % 16] = cv[(size_t)(i / 16) * cs + i % 16];
-  }
-  __syncthreads();
+// A chroma line of window samples 6..13 (v[i] = sample 6+i): its 2
+// edges, edge j between samples 7+4j and 8+4j; [2, 8] parameter block.
+template <int N>
+__device__ __forceinline__ void chroma_edges(int (&v)[N], const int* bs,
+                                             const int* tc, const int* al,
+                                             const int* be) {
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+    chroma_line(v[4 * j], v[4 * j + 1], v[4 * j + 2], v[4 * j + 3],
+                bs[8 * j], al[j], be[j], tc[8 * j]);
+}
 
-  // edge steps: luma 4 vertical then 4 horizontal (threads 0-15, one
-  // line each); each chroma plane 2 vertical then 2 horizontal (threads
-  // 16-23 U, 24-31 V) alongside the first four luma steps
-  for (int s = 0; s < 8; ++s) {
-    if (tid < 16) {
-      const int t = tid;
-      int* pp[4];
-      int* qq[4];
-      int bs, al, be, tc0;
-      if (s < 4) {
-        const int ex = 8 + 4 * s, row = 8 + t;
-        for (int i = 0; i < 4; ++i) {
-          pp[i] = &sy[row][ex - 1 - i];
-          qq[i] = &sy[row][ex + i];
-        }
-        bs = prm[OFF_BSV + s * 16 + t];
-        tc0 = prm[OFF_TCV + s * 16 + t];
-        al = prm[OFF_AV + s];
-        be = prm[OFF_BV + s];
-      } else {
-        const int k = s - 4, ey = 8 + 4 * k, col = 8 + t;
-        for (int i = 0; i < 4; ++i) {
-          pp[i] = &sy[ey - 1 - i][col];
-          qq[i] = &sy[ey + i][col];
-        }
-        bs = prm[OFF_BSH + k * 16 + t];
-        tc0 = prm[OFF_TCH + k * 16 + t];
-        al = prm[OFF_AH + k];
-        be = prm[OFF_BH + k];
-      }
-      filter_luma_line(pp, qq, bs, al, be, tc0);
-    } else if (tid < 32 && s < 4) {
-      const int c = (tid - 16) / 8, t = (tid - 16) % 8;
-      int (*w)[16] = sc[c];
-      if (s < 2) {
-        const int ex = 8 + 4 * s, row = 8 + t;
-        filter_chroma_line(&w[row][ex - 1], &w[row][ex - 2], &w[row][ex],
-                           &w[row][ex + 1], prm[OFF_BSCV + s * 8 + t],
-                           prm[OFF_ACV + s], prm[OFF_BCV + s],
-                           prm[OFF_TCCV + s * 8 + t]);
-      } else {
-        const int j = s - 2, ey = 8 + 4 * j, col = 8 + t;
-        filter_chroma_line(&w[ey - 1][col], &w[ey - 2][col], &w[ey][col],
-                           &w[ey + 1][col], prm[OFF_BSCH + j * 8 + t],
-                           prm[OFF_ACH + j], prm[OFF_BCH + j],
-                           prm[OFF_TCCH + j * 8 + t]);
-      }
+// One warp walks one MB row of one plane kind. Window coordinates: MB
+// (r, x)'s luma window row i, column j is plane element (16r + i,
+// 16x + j), the MB itself rows and columns 8..23 (chroma: 8r, 8x and
+// 8..15). Shared memory holds the plane's MB rows (window rows 8..23 /
+// 8..15) as a ring of columns: window column j of MB x sits at ring
+// column (16x + j) & 63 ((8x + j) & 31), so MB x+1's columns 0..7 are
+// MB x's columns 16..23. Rows are 16-byte aligned for cp.async.
+constexpr int LRS = 68;     // luma ring row: 64 columns
+constexpr int CRS = 36;     // chroma ring row: 32 columns
+constexpr int LPW = 272;    // luma lanes of a parameter row
+constexpr int CPW = 72;     // chroma lanes (from OFF_BSCV on)
+
+struct Smem {
+  __align__(16) int prm[2][LPW];   // MB x's parameters in prm[x & 1]
+  __align__(16) int y[16][LRS];
+  __align__(16) int c[2][8][CRS];
+};
+
+// wait until `prog` (the row above) has reached `need`; lane 0 polls
+__device__ __forceinline__ void wait_row(const int* prog, int need,
+                                         int& seen, int lane) {
+  if (lane == 0)
+    while (seen < need) seen = ld_acquire(prog);
+  __syncwarp();
+}
+
+// publish `done` MBs of this row once every lane's stores are visible
+__device__ __forceinline__ void publish(int* prog, int done, int lane) {
+  __threadfence();
+  __syncwarp();
+  if (lane == 0) st_release(prog, done);
+}
+
+__device__ void luma_row(Smem& sm, int* Y, int ys, const int* P,
+                         int* prog, int r, int mb_w, int lane) {
+  int* const yrow = Y + (size_t)(16 * r) * ys;
+  const int t = lane;  // lanes 0-15: one line each
+  // the interior (window rows and columns 8..23) and the parameter row
+  // of MB x, 16 bytes at a time
+  auto prefetch = [&](int x) {
+    int* const win = yrow + 16 * x;
+    for (int i = lane; i < 16 * 4; i += 32) {
+      const int row = i / 4, col = 8 + 4 * (i % 4);
+      __pipeline_memcpy_async(&sm.y[row][(16 * x + col) & 63],
+                              win + (size_t)(8 + row) * ys + col, 16);
     }
-    __syncthreads();
+    const int* const src = P + (size_t)(r * mb_w + x) * PW;
+    for (int i = lane; i < LPW / 4; i += 32)
+      __pipeline_memcpy_async(&sm.prm[x & 1][4 * i], src + 4 * i, 16);
+  };
+  // MB 0's left columns 4..7 are the plane's padding
+  if (lane < 16)
+    __pipeline_memcpy_async(&sm.y[lane][4], yrow + (size_t)(8 + lane) * ys + 4,
+                            16);
+  prefetch(0);
+  __pipeline_commit();
+  int seen = 0;
+  for (int x = 0; x < mb_w; ++x) {
+    __pipeline_wait_prior(0);
+    __syncwarp();
+    if (x + 1 < mb_w) {
+      prefetch(x + 1);
+      __pipeline_commit();
+    }
+    const int* const pr = sm.prm[x & 1];
+    const int by = (16 * x) & 63;
+    int* const win = yrow + 16 * x;
+    // (1) vertical edges, one window row per lane: they touch only this
+    // MB row, so they run before the wait
+    if (t < 16) {
+      int v[20];
+      int* const s = sm.y[t];
+#pragma unroll
+      for (int i = 0; i < 20; ++i) v[i] = s[(by + 4 + i) & 63];
+      luma_edges(v, pr + OFF_BSV + t, pr + OFF_TCV + t, pr + OFF_AV,
+                 pr + OFF_BV);
+#pragma unroll
+      for (int i = 1; i < 19; ++i) s[(by + 4 + i) & 63] = v[i];
+      // columns 5..7 (the left MB's pixels) are final now
+#pragma unroll
+      for (int i = 1; i < 4; ++i) win[(size_t)(8 + t) * ys + 4 + i] = v[i];
+    }
+    __syncwarp();
+    // (2) wait until row r-1 has finished MBs 0..min(x+1, mb_w-1)
+    if (r > 0) wait_row(prog - 1, min(x + 2, mb_w), seen, lane);
+    // (3) horizontal edges, one window column per lane; the 4 rows above
+    // the MB come through L2. Each lane stores its column to the ring
+    // (the next MB's left columns) and to the plane
+    if (t < 16) {
+      const int col = 8 + t, rc = (by + col) & 63;
+      int v[20];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        v[i] = __ldcg(win + (size_t)(4 + i) * ys + col);
+#pragma unroll
+      for (int i = 0; i < 16; ++i) v[4 + i] = sm.y[i][rc];
+      luma_edges(v, pr + OFF_BSH + t, pr + OFF_TCH + t, pr + OFF_AH,
+                 pr + OFF_BH);
+#pragma unroll
+      for (int i = 4; i < 19; ++i) sm.y[i - 4][rc] = v[i];
+#pragma unroll
+      for (int i = 1; i < 20; ++i) win[(size_t)(4 + i) * ys + col] = v[i];
+    }
+    publish(prog, x + 1, lane);
   }
+}
 
-  for (int i = tid; i < 24 * 24; i += NTHREADS)
-    luma[(size_t)(i / 24) * ys + i % 24] = sy[i / 24][i % 24];
-  for (int i = tid; i < 16 * 16; i += NTHREADS) {
-    cu[(size_t)(i / 16) * cs + i % 16] = sc[0][i / 16][i % 16];
-    cv[(size_t)(i / 16) * cs + i % 16] = sc[1][i / 16][i % 16];
+__device__ void chroma_row(Smem& sm, int* U, int* V, int cs, const int* P,
+                           int* prog, int r, int mb_w, int lane) {
+  int* const urow = U + (size_t)(8 * r) * cs;
+  int* const vrow = V + (size_t)(8 * r) * cs;
+  const int pl = (lane >> 3) & 1, t = lane & 7;   // lanes 0-7 U, 8-15 V
+  int* const prow = pl ? vrow : urow;
+  auto prefetch = [&](int x) {
+    // 2 planes x 8 rows x 2 chunks of 4, one per lane
+    const int p = lane / 16, row = (lane / 2) % 8, col = 8 + 4 * (lane % 2);
+    __pipeline_memcpy_async(&sm.c[p][row][(8 * x + col) & 31],
+                            (p ? vrow : urow) + 8 * x +
+                                (size_t)(8 + row) * cs + col,
+                            16);
+    const int* const src = P + (size_t)(r * mb_w + x) * PW + OFF_BSCV;
+    if (lane < CPW / 4)
+      __pipeline_memcpy_async(&sm.prm[x & 1][4 * lane], src + 4 * lane, 16);
+  };
+  // MB 0's left columns 4..7 are the plane's padding
+  if (lane < 16)
+    __pipeline_memcpy_async(&sm.c[lane / 8][lane % 8][4],
+                            (lane / 8 ? vrow : urow) +
+                                (size_t)(8 + lane % 8) * cs + 4,
+                            16);
+  prefetch(0);
+  __pipeline_commit();
+  int seen = 0;
+  for (int x = 0; x < mb_w; ++x) {
+    __pipeline_wait_prior(0);
+    __syncwarp();
+    if (x + 1 < mb_w) {
+      prefetch(x + 1);
+      __pipeline_commit();
+    }
+    // prm holds the chroma part of the parameter row (from OFF_BSCV on)
+    const int* const pr = sm.prm[x & 1];
+    auto at = [pr](int off) { return pr + (off - OFF_BSCV); };
+    const int bc = (8 * x) & 31;
+    int* const win = prow + 8 * x;
+    // (1) vertical edges, one window row per lane, before the wait
+    if (lane < 16) {
+      int v[8];
+      int* const s = sm.c[pl][t];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) v[i] = s[(bc + 6 + i) & 31];
+      chroma_edges(v, at(OFF_BSCV) + t, at(OFF_TCCV) + t, at(OFF_ACV),
+                   at(OFF_BCV));
+#pragma unroll
+      for (int i = 1; i < 7; ++i) s[(bc + 6 + i) & 31] = v[i];
+      win[(size_t)(8 + t) * cs + 7] = v[1];
+    }
+    __syncwarp();
+    // (2) wait until row r-1 has finished MBs 0..min(x+1, mb_w-1)
+    if (r > 0) wait_row(prog - 1, min(x + 2, mb_w), seen, lane);
+    // (3) horizontal edges, one window column per lane
+    if (lane < 16) {
+      const int col = 8 + t, rc = (bc + col) & 31;
+      int v[10];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        v[i] = __ldcg(win + (size_t)(6 + i) * cs + col);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) v[2 + i] = sm.c[pl][i][rc];
+      chroma_edges(v, at(OFF_BSCH) + t, at(OFF_TCCH) + t, at(OFF_ACH),
+                   at(OFF_BCH));
+#pragma unroll
+      for (int i = 2; i < 7; ++i) sm.c[pl][i - 2][rc] = v[i];
+#pragma unroll
+      for (int i = 1; i < 10; ++i) win[(size_t)(6 + i) * cs + col] = v[i];
+    }
+    publish(prog, x + 1, lane);
+  }
+}
+
+// sync[0]: the next work item; item i is MB row i / 2 of luma (i even)
+// or of chroma (i odd). sync[1 + r] / sync[1 + mb_h + r]: MBs of luma /
+// chroma row r finished. Items are claimed in order, and a row waits
+// only on the row above of its own plane kind, claimed two items
+// earlier.
+__global__ void __launch_bounds__(NTHREADS)
+deblock_rows_kernel(int* __restrict__ Y, int* __restrict__ U,
+                    int* __restrict__ V, int ys, int cs,
+                    const int* __restrict__ P, int* __restrict__ sync,
+                    int mb_w, int mb_h) {
+  __shared__ Smem sm;
+  const int lane = threadIdx.x;
+  for (;;) {
+    int item = 0;
+    if (lane == 0) item = atomicAdd(sync, 1);
+    item = __shfl_sync(0xffffffffu, item, 0);
+    if (item >= 2 * mb_h) return;
+    const int r = item >> 1;
+    if (item & 1)
+      chroma_row(sm, U, V, cs, P, sync + 1 + mb_h + r, r, mb_w, lane);
+    else
+      luma_row(sm, Y, ys, P, sync + 1 + r, r, mb_w, lane);
+    __syncwarp();
   }
 }
 
 }  // namespace
 
 // Y/U/V: int32 working planes (row strides ys, cs elements), filtered in
-// place. P: [n, 384] packed params. mbs: the live MBs of every diagonal,
-// concatenated in diagonal order (device). off: host array of n_diags+1
-// offsets into mbs. Launches one kernel per non-empty diagonal on
-// `stream`, in order.
-extern "C" int pip_deblock_wavefront(void* Y, void* U, void* V, int ys,
-                                     int cs, const void* P, const void* mbs,
-                                     const int* off, int n_diags, int mb_w,
-                                     void* stream) {
-  for (int d = 0; d < n_diags; ++d) {
-    const int cnt = off[d + 1] - off[d];
-    if (cnt <= 0) continue;
-    deblock_diag_kernel<<<cnt, NTHREADS, 0, (cudaStream_t)stream>>>(
-        (int*)Y, (int*)U, (int*)V, ys, cs, (const int*)P,
-        (const int*)mbs + off[d], mb_w);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
+// place; rows 16-byte aligned (ys, cs multiples of 4). P: [mb_w*mb_h,
+// 384] packed params, 16-byte aligned. sync: device scratch of
+// 1 + 2*mb_h int32, zeroed here on `stream` before the launch. Launches
+// one kernel of min(2*mb_h, SMs x resident CTAs per SM) one-warp CTAs on
+// `stream`.
+// The number of CTAs that the card `dev` holds at once: SMs times
+// resident CTAs per SM, asked once per device and cached.
+static cudaError_t resident_ctas(int dev, int* out) {
+  constexpr int MAX_DEVICES = 64;
+  static std::atomic<int> cache[MAX_DEVICES];   // 0: not asked yet
+  if (dev >= 0 && dev < MAX_DEVICES) {
+    *out = cache[dev].load(std::memory_order_relaxed);
+    if (*out > 0) return cudaSuccess;
   }
+  int sms = 0, per_sm = 0;
+  cudaError_t err =
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, deblock_rows_kernel, NTHREADS, 0);
+  if (err != cudaSuccess) return err;
+  *out = max(sms * per_sm, 1);
+  if (dev >= 0 && dev < MAX_DEVICES)
+    cache[dev].store(*out, std::memory_order_relaxed);
+  return cudaSuccess;
+}
+
+extern "C" int pip_deblock_frame(void* Y, void* U, void* V, int ys, int cs,
+                                 const void* P, void* sync, int mb_w,
+                                 int mb_h, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  int dev = 0, resident = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = resident_ctas(dev, &resident);
+  if (err == cudaSuccess)
+    err = cudaMemsetAsync(sync, 0, sizeof(int) * (size_t)(1 + 2 * mb_h), st);
+  if (err != cudaSuccess) return (int)err;
+  const int grid = min(2 * mb_h, resident);
+  deblock_rows_kernel<<<grid, NTHREADS, 0, st>>>(
+      (int*)Y, (int*)U, (int*)V, ys, cs, (const int*)P, (int*)sync, mb_w,
+      mb_h);
   return (int)cudaGetLastError();
 }

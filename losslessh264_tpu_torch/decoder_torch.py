@@ -20,9 +20,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from losslessh264_tpu import decoder_np as dn
-from losslessh264_tpu import native
-
+from . import native
+from . import ref_np
 from .ops import deblock as tdb
 from .ops import intra as tintra
 from .ops import mc as tmc
@@ -512,7 +511,7 @@ class TorchDecoder:
         # error concealment matches NpDecoder: MV-copy with freeze-output
         # by default (the reference h264dec default, decoder_core.cpp
         # bFreezeOutput); the per-MB policy runs on the host via
-        # decoder_np.conceal_undecoded over fetched planes
+        # ref_np.conceal_undecoded over fetched planes
         self._ec = error_concealment
         self._ec_mode = ec_mode if error_concealment else None
         self._frozen = error_concealment and ec_mode == "mv_copy_freeze"
@@ -581,7 +580,7 @@ class TorchDecoder:
             prev = self._fetch_output(self.out_idx - 1, mb_w, mb_h)
             yuv = tuple(a.cpu().numpy() for a in (Y, U, V))
             Y, U, V = (torch.from_numpy(np.ascontiguousarray(a))
-                       .to(self.device) for a in dn.conceal_undecoded(
+                       .to(self.device) for a in ref_np.conceal_undecoded(
                            f, yuv, prev, self.out_idx - 1, self._ec_mode))
         out = self._finish_frame(f, Y, U, V, damaged)
         if out is not None:
@@ -666,8 +665,8 @@ class TorchDecoder:
             "chroma_qp_offset": np.int32(f["chroma_qp_offset"]),
             "second_chroma_qp_offset":
                 np.int32(f["second_chroma_qp_offset"]),
-            "w4": [dn._weights4(f["scaling4"][i]) for i in range(6)],
-            "w8": [dn._weights8(f["scaling8"][i]) for i in range(2)],
+            "w4": [ref_np.weights4(f["scaling4"][i]) for i in range(6)],
+            "w8": [ref_np.weights8(f["scaling8"][i]) for i in range(2)],
             "nnz": self._nnz_plane(f),
         }
         # planes the frame does not use are omitted (transform-8x8, PCM,

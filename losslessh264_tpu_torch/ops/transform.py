@@ -9,14 +9,13 @@ WelsLumaDcDequantIdct, decode_slice.cpp WelsChromaDcIdct.
 """
 from __future__ import annotations
 
-import numpy as np
 import torch
 
-from losslessh264_tpu import decoder_np as _np_ref
+from .. import ref_np
 
-DEQ4_V = np.asarray(_np_ref._V4[:, _np_ref._POS4], np.int32)      # [6,4,4]
-DEQ8_V = np.asarray(_np_ref._V8[:, _np_ref._POS8], np.int32)      # [6,8,8]
-CHROMA_QP = np.asarray(_np_ref.CHROMA_QP, np.int32)
+DEQ4_V = ref_np.V4[:, ref_np.POS4]      # [6,4,4]
+DEQ8_V = ref_np.V8[:, ref_np.POS8]      # [6,8,8]
+CHROMA_QP = ref_np.CHROMA_QP
 
 
 def _round_shift(c, shift):

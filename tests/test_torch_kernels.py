@@ -20,12 +20,12 @@ import pytest
 import torch
 
 from losslessh264_tpu_torch import decoder_torch as dt
+from losslessh264_tpu_torch import native
+from losslessh264_tpu_torch.cases import random_deblock_case
 from losslessh264_tpu_torch.ops import deblock as tdb
 from losslessh264_tpu_torch.ops import mc as tmc
 
 DATA = os.path.join(os.path.dirname(__file__), "data")
-KEYS = ("cls", "qp", "nnz", "mv", "ref_idx", "slice_id", "deblock_idc",
-        "alpha_off", "beta_off", "transform8")
 
 
 @pytest.fixture
@@ -35,37 +35,11 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _random_case(mb_w, mb_h, seed, device):
-    """Random WPAD-padded planes and _edge_params of random symbols
-    (the recipe of tests/test_deblock_impls.py)."""
-    rng = np.random.RandomState(seed)
-    n = mb_w * mb_h
-    H, W = mb_h * 16, mb_w * 16
-    P = tdb.WPAD
-    planes = [torch.as_tensor(rng.randint(0, 256, s).astype(np.int32),
-                              device=device)
-              for s in ((H + 2 * P, W + 2 * P),
-                        (H // 2 + 2 * P, W // 2 + 2 * P),
-                        (H // 2 + 2 * P, W // 2 + 2 * P))]
-    sym = dict(
-        cls=rng.randint(0, 9, (n,)), qp=rng.randint(10, 52, (n,)),
-        nnz=rng.randint(0, 3, (n, 16)), mv=rng.randint(-16, 17, (n, 16, 2)),
-        ref_idx=rng.randint(0, 2, (n, 16)),
-        slice_id=np.arange(n) // (mb_w * 2),
-        deblock_idc=rng.choice([0, 0, 0, 1, 2], (n,)),
-        alpha_off=rng.randint(-6, 7, (n,)) * 2,
-        beta_off=rng.randint(-6, 7, (n,)) * 2,
-        transform8=rng.randint(0, 2, (n,)))
-    sym = [torch.as_tensor(np.asarray(sym[k], np.int32), device=device)
-           for k in KEYS]
-    return planes, sym, tdb._edge_params(mb_w, mb_h, *sym, seed)
-
-
 def test_wrappers_take_plain_version_on_cpu():
     x = torch.as_tensor(np.random.default_rng(0).integers(
         0, 256, (40, 52), dtype=np.uint8))
     assert torch.equal(tmc.halfpel_planes(x), tmc.halfpel_planes_plain(x))
-    planes, sym, params = _random_case(5, 4, 2, "cpu")
+    planes, sym, params = random_deblock_case(5, 4, 2, "cpu")
     got = tdb.deblock_frame(5, 4, *planes, *sym, 2)
     want = tdb.deblock_wavefront_plain(5, 4, *planes, params)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
@@ -76,7 +50,7 @@ def test_kernel_entries_refuse_cpu_tensors():
     x = torch.zeros((40, 52), dtype=torch.uint8)
     with pytest.raises(ValueError, match="CUDA"):
         tmc._halfpel_launch(x, torch.int32)
-    planes, _, params = _random_case(3, 2, 0, "cpu")
+    planes, _, params = random_deblock_case(3, 2, 0, "cpu")
     with pytest.raises(ValueError, match="CUDA"):
         tdb.deblock_wavefront(3, 2, *planes, params)
 
@@ -92,25 +66,91 @@ def test_halfpel_kernel_on_card(cuda_device):
         assert torch.equal(tmc._halfpel_planes_u8(x), want.to(torch.uint8))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("mb_w,mb_h,seed", [(9, 4, 0), (22, 18, 1),
-                                            (80, 45, 2)])
-def test_deblock_kernel_on_card(cuda_device, mb_w, mb_h, seed):
-    planes, _, params = _random_case(mb_w, mb_h, seed, cuda_device)
+def _deblock_raster(mb_w, mb_h, planes, params):
+    """Deblock in the reference decoder's serial order (WelsDeblockingMb):
+    one MB per step, in raster order."""
+    planes = tuple(planes)
+    for mb in range(mb_w * mb_h):
+        planes = tdb.deblock_mbs_plain(mb_w, *planes, params,
+                                       torch.tensor([mb]))
+    return planes
+
+
+@pytest.mark.parametrize("mb_w,mb_h,seed", [(1, 6, 0), (2, 7, 1), (5, 4, 2)])
+def test_raster_order_matches_wavefront(mb_w, mb_h, seed):
+    """K2 may run an MB as soon as its left, above-left, above and
+    above-right neighbours are done; the plain wavefront and the serial
+    raster order are the two extremes of such orders, and agree."""
+    planes, _, params = random_deblock_case(mb_w, mb_h, seed, "cpu")
     want = tdb.deblock_wavefront_plain(mb_w, mb_h, *planes, params)
-    got = tdb.deblock_wavefront(mb_w, mb_h, *planes, params)
+    got = _deblock_raster(mb_w, mb_h, planes, params)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+    assert not torch.equal(got[0], planes[0])   # the filter fired
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mb_w,mb_h,seed", [
+    (9, 4, 0), (22, 18, 1), (80, 45, 2),
+    (120, 68, 3),    # 1080p
+    (4, 150, 4),     # more MB rows than the card has SMs
+    (1, 9, 5), (2, 7, 6)])   # "x+1" runs off a row of 1 or 2 MBs
+def test_deblock_kernel_on_card(cuda_device, mb_w, mb_h, seed):
+    """20 launches per case, each equal to the plain version: a race on
+    the row progress flags would show as a launch that differs."""
+    planes, _, params = random_deblock_case(mb_w, mb_h, seed, cuda_device)
+    want = tdb.deblock_wavefront_plain(mb_w, mb_h, *planes, params)
+    for _ in range(20):
+        got = tdb.deblock_wavefront(mb_w, mb_h, *planes, params)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_deblock_frame_is_one_launch(cuda_device):
+    planes, sym, _ = random_deblock_case(80, 45, 7, cuda_device)
+    before = tdb.deblock_wavefront.launches
+    tdb.deblock_frame(80, 45, *planes, *sym, 7)
+    torch.cuda.synchronize()
+    assert tdb.deblock_wavefront.launches == before + 1
 
 
 @pytest.mark.cuda
 def test_synth720p_on_card(cuda_device):
+    """All 25 frames equal the NpDecoder CRCs; K2 launches once for each
+    frame that is deblocked."""
     gold = json.load(open(os.path.join(DATA, "synth720p_np_crc.json")))
-    k1, k2 = tmc.halfpel_planes.launches, tdb.deblock_wavefront.launches
     with open(os.path.join(DATA, "synth720p.264"), "rb") as fh:
-        dec = dt.TorchDecoder(fh.read(), device=cuda_device)
+        data = fh.read()
+    deblocked = sum(
+        bool(dt.TorchDecoder._needs_deblock(f, dt.TorchDecoder._nnz_plane(f)))
+        for f in native.SymbolDecoder(data))
+    k1, k2 = tmc.halfpel_planes.launches, tdb.deblock_wavefront.launches
+    dec = dt.TorchDecoder(data, device=cuda_device)
     crcs = [zlib.crc32(b"".join(a.cpu().numpy().tobytes() for a in yuv))
             for yuv in dec.frames()]
     assert crcs == gold["synth720p"]["crc32"]
     assert tmc.halfpel_planes.launches > k1
-    assert tdb.deblock_wavefront.launches > k2
+    assert tdb.deblock_wavefront.launches - k2 == deblocked > 0
+
+
+def test_deblock_ignores_the_padding():
+    """Edges on the picture's border are never filtered, so the WPAD
+    padding neither changes the picture nor is changed: K2 needs only
+    the picture's pixels (the byte count of its bound)."""
+    planes, _, params = random_deblock_case(4, 3, 1, "cpu")
+    want = tdb.deblock_wavefront_plain(4, 3, *planes, params)
+    P = tdb.WPAD
+    noisy = []
+    for a in planes:
+        b = torch.randint(0, 256, a.shape, dtype=torch.int32,
+                          generator=torch.Generator().manual_seed(5))
+        b[P:-P, P:-P] = a[P:-P, P:-P]
+        noisy.append(b)
+    got = tdb.deblock_wavefront_plain(4, 3, *noisy, params)
+    for g, w, b in zip(got, want, noisy):
+        assert torch.equal(g[P:-P, P:-P], w[P:-P, P:-P])
+        pad = torch.ones_like(g, dtype=torch.bool)
+        pad[P:-P, P:-P] = False
+        assert torch.equal(g[pad], b[pad])
+    assert not torch.equal(want[0], planes[0])   # the filter fired
