@@ -6,9 +6,14 @@
 Phases (any failure exits non-zero; no phase is caught and skipped):
   1. device: the card's name and power limit (nvidia-smi), torch's name.
   2. build: nvcc compiles losslessh264_tpu_torch/csrc/*.cu for sm_90a.
-  3. K1 (csrc/halfpel.cu) against its plain torch version on the card:
-     edge-padded 720p planes (784x1344, random and frame 0 of
-     tests/data/synth720p.264) and odd sizes. Exact (torch.equal).
+  3. K1 (csrc/halfpel.cu) against its plain torch version on the card,
+     both entries, exact (torch.equal): edge-padded 720p planes
+     (784x1344, random and frame 0 of tests/data/synth720p.264), 1080p
+     (1152x1984) and 2160p (2224x3904) planes, a misaligned pointer and
+     widths around one 128-column strip (Wp 132-134) that take the
+     kernel's byte loads, a ragged aligned width and odd sizes; the uint8
+     entry must hand back the 16-byte row pitch. The conv2d yardstick
+     (k1_conv2d) must equal the plain version at the three sizes.
   4. K2 (csrc/deblock.cu) against its plain version on the card: block
      noise planes and random symbol planes on 9x4 .. 80x45 MBs x 2
      seeds, and 120x68 (1080p), 4x150 (more MB rows than SMs), 1x9 and
@@ -17,23 +22,36 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
      every frame's CRC32 of Y|U|V must equal the committed NpDecoder
      goldens (tests/data/synth720p_np_crc.json), K1 must launch, and K2
      must launch exactly once per frame that is deblocked.
-  6. times: K1 (both entries) and K2 against their plain versions at
-     720p (CUDA events) beside their bounds, a per-stage breakdown of
-     every frame (deblock split into edge parameters, K2 and crop), and
-     torch.profiler windows (P frames 1-3, intra frame 10) with the
-     device busy share.
+  6. times: K1 at 720p, 1080p and 2160p, both entries, wrapper and
+     kernel alone, beside their bounds, its plain version and the conv2d
+     yardstick; K2 against its plain version at 720p (CUDA events); a
+     per-stage breakdown of every frame (deblock split into edge
+     parameters, K2 and crop); then torch.profiler windows (P frames
+     1-3, intra frame 10) with the device busy share. A profiler session
+     slows the host's launches after it, so the windows come last.
 
 The line before the last is the kernel report
 {"kernels": [{"name", "route", "source", "replaces", "launches",
 "launches_per_decode", "max_abs_err", "ms", "plain_ms", "bound_ms",
-"bound_by", "library_ms"}, ...]}, preceded by the card line. K1's `ms`
-and `bound_ms` are its int32 entry's, and `ms_uint8_entry` and
+"bound_by", "library_ms"}, ...]}, preceded by the card line. For K1:
+`ms`, `kernel_ms`, `bound_ms` and `bound_by` are its int32 entry's at
+720p, and `ms_uint8_entry`, `kernel_ms_uint8_entry` and
 `bound_ms_uint8_entry` those of the uint8 entry that the decode path
-calls; K2's `ms` is its wrapper (packing, plane copies, launch) and
-`kernel_ms` the bare C entry, each launch on fresh planes. The last
-line is {"ok": true, "device": {"platform": "gpu", ...}}. Without a
-GPU, or without the package beside it, the script exits non-zero and
-prints no result.
+calls. `ms` is the wrapper, timed by CUDA events around 50 back-to-back
+calls (the host's issue rate enters it); `kernel_ms` is the kernel
+alone: CUDA events around the replays of a CUDA graph of at least 30
+captured launches of the bare C entry, each on buffers that are no
+longer in L2 (kernel_device_ms, k1_calls), so it holds the graph's gap
+between two kernels but not the host. `library_ms` is the conv2d
+yardstick at 720p (k1_conv2d: F.conv2d in float32 with TF32 off, then a
+rounding pass). `sizes` holds, for "720p", "1080p" and "2160p", `ms_i32`,
+`ms_u8`, `kernel_ms_i32`, `kernel_ms_u8`, `bytes_*`, `bound_ms_*`,
+`bound_by_*`, `bound_share_*` (bound over kernel time), `plain_ms` and
+`library_ms`. K2's `ms` is its wrapper (packing, plane copies, launch)
+and `kernel_ms` the bare C entry by CUDA events, each launch on fresh
+planes. The last line is {"ok": true, "device": {"platform": "gpu",
+...}}. Without a GPU, or without the package beside it, the script
+exits non-zero and prints no result.
 
 Bounds: the larger of the bytes each kernel must move (every input read
 once, every output written once) over 3.35 TB/s, and its integer
@@ -57,6 +75,13 @@ STREAM = os.path.join(ROOT, "tests", "data", "synth720p.264")
 GOLDEN = os.path.join(ROOT, "tests", "data", "synth720p_np_crc.json")
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 INT32_OPS_PER_S = 33.5e12     # see the module docstring
+# K1's timed sizes: the edge-padded (PAD = 32) luma reference of 720p,
+# 1080p (1088 coded rows) and 2160p
+K1_SIZES = {"720p": (784, 1344), "1080p": (1152, 1984),
+            "2160p": (2224, 3904)}
+# 3 six-taps (b, h, j) of 11 ops, 3 round-and-clamps of 4 ops and the j
+# pass over the b sums: ~50 int32 ops per output position
+K1_OPS_PER_POSITION = 50
 
 
 def log(*a):
@@ -112,6 +137,97 @@ def cuda_ms_each(fns, warmup=2):
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / (len(fns) - warmup)
+
+
+def kernel_device_ms(calls, launches=30, replays=5):
+    """Mean device time of one kernel launch: `calls` (no-argument
+    launches of a bare C entry on the current stream, one kernel each)
+    are captured in turn into one CUDA graph, whole turns and at least
+    `launches` of them, and CUDA events time `replays` replays of it.
+    The host's issue rate does not enter this number, as it does CUDA
+    events around back-to-back wrapper calls; the gap the graph leaves
+    between two kernels does."""
+    for call in calls:
+        call()
+    torch.cuda.synchronize()
+    n = len(calls) * -(-launches // len(calls))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for k in range(n):
+            calls[k % len(calls)]()
+    graph.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(replays):
+        graph.replay()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / (replays * n)
+
+
+def k1_launcher(lib, x, entry):
+    """(a no-argument call of lib's bare K1 entry on plane x, launched on
+    the stream current at the call, the [4, Ho, Wo] view of its output).
+    entry "i32" is pip_halfpel_i32, "u8" pip_halfpel_u8_pitched."""
+    from losslessh264_tpu_torch import _build
+    from losslessh264_tpu_torch.ops import mc as tmc
+    P, I = ctypes.c_void_p, ctypes.c_int
+    Hp, Wp = x.shape
+    Ho, Wo = Hp - 5, Wp - 5
+    if entry == "i32":
+        out = torch.empty((4, Ho, Wo), dtype=torch.int32, device=x.device)
+        fn = lib.pip_halfpel_i32
+        args = [P(x.data_ptr()), P(out.data_ptr()), Hp, Wp]
+    else:
+        out = torch.empty((4, Ho, tmc._pitch(Wo)), dtype=torch.uint8,
+                          device=x.device)
+        fn = lib.pip_halfpel_u8_pitched
+        args = [P(x.data_ptr()), P(out.data_ptr()), Hp, Wp, out.stride(1)]
+    fn.argtypes = [P, P] + [I] * (len(args) - 2) + [P]
+    fn.restype = I
+
+    def run(keep=(x, out)):
+        _build.check(fn(*args, _build.stream(x.device)), "halfpel")
+    return run, out[..., :Wo]
+
+
+def k1_bytes(Hp, Wp, entry):
+    """Bytes K1 must move: the plane read once, four output planes of
+    [Hp-5, Wp-5] written once (the pitch's padding is not needed)."""
+    return Hp * Wp + 4 * (Hp - 5) * (Wp - 5) * (4 if entry == "i32" else 1)
+
+
+def k1_calls(lib, x, entry, cold_bytes=100e6, launcher=k1_launcher):
+    """Launchers of lib's bare K1 entry (made by `launcher`) over enough
+    copies of plane x, each with its own output, that one turn through
+    them moves more than `cold_bytes` (twice the H100's 50 MB L2): every
+    launch reads and writes buffers the cache no longer holds, as a
+    decode's reference plane has left it."""
+    Hp, Wp = x.shape
+    n = int(min(32, max(2, -(-cold_bytes // k1_bytes(Hp, Wp, entry)))))
+    return [launcher(lib, x.clone(), entry)[0] for _ in range(n)]
+
+
+def k1_conv2d(x):
+    """The library yardstick of K1 (chip_smoke only; the port never calls
+    it): one float32 F.conv2d of the plane with a [3, 1, 6, 6] weight
+    (the tap as row 2 for b, as column 2 for h, their outer product for
+    j), then a rounding pass (round, offset, scale, floor, clamp) and the
+    G slice, as uint8 [4, Hp-5, Wp-5]. Exact: every sum is an integer
+    below 2^24, and main() turns TF32 off for cuDNN."""
+    tap = torch.tensor([1., -5., 20., 20., -5., 1.], device=x.device)
+    w = torch.zeros((3, 1, 6, 6), device=x.device)
+    w[0, 0, 2, :] = tap
+    w[1, 0, :, 2] = tap
+    w[2, 0] = tap[:, None] * tap[None, :]
+    off = torch.tensor([16., 16., 512.], device=x.device)[:, None, None]
+    scale = torch.tensor([1 / 32, 1 / 32, 1 / 1024],
+                         device=x.device)[:, None, None]
+    f = torch.nn.functional.conv2d(x.float()[None, None], w)[0]
+    bhj = ((f.round() + off) * scale).floor().clamp(0, 255)
+    return torch.cat([x[None, 2:-3, 2:-3], bhj.to(torch.uint8)])
 
 
 def k2_launcher(lib, mb_w, mb_h, planes, P, dev):
@@ -245,6 +361,10 @@ def main():
     # LTO plugin the Makefile's -flto link cannot run; build with the
     # compiler the Makefile names itself (g++ on the PATH).
     os.environ["CXX"] = "g++"
+    # cuDNN runs float32 convolutions in TF32 unless told not to; the
+    # conv2d yardstick of K1 must be exact
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: torch.cuda.is_available() is False; this "
                  "check needs an NVIDIA GPU")
@@ -278,17 +398,28 @@ def main():
     rng = np.random.default_rng(0)
     dec0 = dt.TorchDecoder(data, device=dev)
     Y0 = next(dec0.frames())[0]
+
+    def rand_plane(Hp, Wp):
+        return torch.as_tensor(rng.integers(0, 256, (Hp, Wp), dtype=np.uint8),
+                               device=dev)
+    misaligned = torch.empty(784 * 1344 + 1, dtype=torch.uint8,
+                             device=dev)[1:].view(784, 1344)
+    misaligned.copy_(rand_plane(784, 1344))
     k1_inputs = [
-        ("random 784x1344", torch.as_tensor(
-            rng.integers(0, 256, (784, 1344), dtype=np.uint8), device=dev)),
+        ("random 784x1344", rand_plane(784, 1344)),
         ("synth720p frame 0 padded", dt._edge_pad(Y0, dt.PAD)),
-        ("odd 42x58", torch.as_tensor(
-            rng.integers(0, 256, (37 + 5, 53 + 5), dtype=np.uint8),
-            device=dev)),
-        ("odd 6x6", torch.as_tensor(
-            rng.integers(0, 256, (6, 6), dtype=np.uint8), device=dev)),
-        ("odd 101x77", torch.as_tensor(
-            rng.integers(0, 256, (101, 77), dtype=np.uint8), device=dev)),
+        ("random 1152x1984 (1080p)", rand_plane(1152, 1984)),
+        ("random 2224x3904 (2160p)", rand_plane(2224, 3904)),
+        ("misaligned pointer 784x1344 (byte loads)", misaligned),
+        # one 128-column strip exactly, and one column more or less
+        ("Wp 133 (byte loads)", rand_plane(133, 133)),
+        ("Wp 134 (byte loads)", rand_plane(70, 134)),
+        ("Wp 132 (byte loads)", rand_plane(300, 132)),
+        ("Wp 400, Wo 395 ragged", rand_plane(262, 400)),
+        ("odd 781x1351", rand_plane(781, 1351)),
+        ("odd 42x58", rand_plane(37 + 5, 53 + 5)),
+        ("odd 6x6", rand_plane(6, 6)),
+        ("odd 101x77", rand_plane(101, 77)),
     ]
     k1_err = 0
     for name, x in k1_inputs:
@@ -302,7 +433,16 @@ def main():
                 and torch.equal(got8, want.to(torch.uint8))):
             raise SystemExit(f"K1 halfpel mismatch on {name}: max abs err "
                              f"{k1_err}")
+        if got8.stride(1) != tmc._pitch(x.shape[1] - 5):
+            raise SystemExit(f"K1 uint8 entry on {name}: row stride "
+                             f"{got8.stride(1)}, not the 16-byte pitch")
         log(f"K1 halfpel == plain: {name} {tuple(x.shape)}")
+    for name, x in k1_inputs[1:4]:
+        if not torch.equal(k1_conv2d(x),
+                           tmc.halfpel_planes_plain(x).to(torch.uint8)):
+            raise SystemExit(f"K1 conv2d yardstick differs from the plain "
+                             f"version on {name}")
+    log("K1 conv2d yardstick == plain at 720p, 1080p and 2160p")
 
     # ---- 4. K2 against its plain version, 20 launches per case ----
     k2_err = 0
@@ -360,24 +500,43 @@ def main():
                          "deblocked frames; one launch per frame expected")
 
     # ---- 6. times ----
-    # K1 at the padded 720p reference: the int32 entry (`ms`) and the
-    # uint8 entry that the decode path calls (mc_bucketed)
-    x = k1_inputs[1][1]
-    k1_ms = cuda_ms(lambda: tmc.halfpel_planes(x), 50)
-    k1u8_ms = cuda_ms(lambda: tmc._halfpel_planes_u8(x), 50)
-    k1_plain_ms = cuda_ms(lambda: tmc.halfpel_planes_plain(x), 50)
-    Hp, Wp = x.shape
-    n_out = 4 * (Hp - 5) * (Wp - 5)
-    # 3 six-taps (b, h, j) of 11 ops, 3 round-and-clamps of 4 ops and
-    # the j pass over the b sums: ~50 int32 ops per output position
-    k1_ops = 50 * (Hp - 5) * (Wp - 5)
-    k1_bound, k1_by = bound_ms(Hp * Wp + 4 * n_out, k1_ops)
-    k1_bound8, _ = bound_ms(Hp * Wp + n_out, k1_ops)
-    log(f"time K1 halfpel {Hp}x{Wp}: int32 entry {k1_ms:.4f} ms (bound "
-        f"{k1_bound:.4f} ms by {k1_by}, {Hp * Wp + 4 * n_out} bytes), "
-        f"uint8 entry {k1u8_ms:.4f} ms (bound {k1_bound8:.4f} ms, "
-        f"{Hp * Wp + n_out} bytes), plain torch {k1_plain_ms:.4f} ms on "
-        f"{card}")
+    # K1 at each size, both entries: `ms` the wrapper by CUDA events over
+    # back-to-back calls, `kernel_ms` the bare C entry's kernel alone (a
+    # CUDA graph's replays, cold L2), beside the bound, the plain version
+    # and the conv2d yardstick. 720p is the decode path's reference plane
+    # (frame 0 of synth720p, padded), the others random planes.
+    k1_sizes = {}
+    k1_planes = dict(zip(K1_SIZES, (k1_inputs[1][1], k1_inputs[2][1],
+                                    k1_inputs[3][1])))
+    for size, x in k1_planes.items():
+        Hp, Wp = x.shape
+        if (Hp, Wp) != K1_SIZES[size]:
+            raise SystemExit(f"K1 {size} input is {Hp}x{Wp}")
+        ops = K1_OPS_PER_POSITION * (Hp - 5) * (Wp - 5)
+        row = {}
+        for entry, wrapper in (("i32", tmc.halfpel_planes),
+                               ("u8", tmc._halfpel_planes_u8)):
+            n_bytes = k1_bytes(Hp, Wp, entry)
+            row[f"ms_{entry}"] = cuda_ms(lambda: wrapper(x), 50)
+            row[f"kernel_ms_{entry}"] = kernel_device_ms(
+                k1_calls(_build.lib(), x, entry))
+            row[f"bytes_{entry}"] = n_bytes
+            row[f"bound_ms_{entry}"], row[f"bound_by_{entry}"] = bound_ms(
+                n_bytes, ops)
+            row[f"bound_share_{entry}"] = row[f"bound_ms_{entry}"] / \
+                row[f"kernel_ms_{entry}"]
+        row["plain_ms"] = cuda_ms(lambda: tmc.halfpel_planes_plain(x), 5,
+                                  warmup=1)
+        row["library_ms"] = cuda_ms(lambda: k1_conv2d(x), 20)
+        k1_sizes[size] = row
+        log(f"time K1 halfpel {size} {Hp}x{Wp}: "
+            + "; ".join(
+                f"{e} entry kernel {row[f'kernel_ms_{e}']:.5f} ms, wrapper "
+                f"{row[f'ms_{e}']:.4f} ms, bound {row[f'bound_ms_{e}']:.5f} "
+                f"ms by {row[f'bound_by_{e}']} ({row[f'bytes_{e}']} bytes),"
+                f" share {row[f'bound_share_{e}']:.3f}" for e in ("i32", "u8"))
+            + f"; plain torch {row['plain_ms']:.4f} ms, conv2d + rounding "
+            f"pass {row['library_ms']:.4f} ms on {card}")
     # K2 at 80x45 MBs on the parity inputs of 80x45 seed 0: `ms` is the
     # wrapper (packing, int32 copies of the planes, the launch);
     # `kernel_ms` the bare C entry on packed rows, each timed launch on
@@ -408,6 +567,7 @@ def main():
                 "k2_ms", "crop_ms", "store_ms"):
         log(f"stage total {key}: {sum(r[key] for r in rows):.3f} ms over "
             f"{len(rows)} frames on {card}")
+    k1 = k1_sizes["720p"]
     profile_windows(data, dev, card)
 
     log(json.dumps({"kernels": [
@@ -415,9 +575,13 @@ def main():
          "source": "losslessh264_tpu_torch/csrc/halfpel.cu",
          "replaces": "losslessh264_tpu/ops/mc.py:144",
          "launches": k1_launches, "launches_per_decode": k1_launches,
-         "max_abs_err": k1_err, "ms": k1_ms, "ms_uint8_entry": k1u8_ms,
-         "plain_ms": k1_plain_ms, "bound_ms": k1_bound, "bound_by": k1_by,
-         "bound_ms_uint8_entry": k1_bound8, "library_ms": None},
+         "max_abs_err": k1_err, "ms": k1["ms_i32"],
+         "ms_uint8_entry": k1["ms_u8"], "kernel_ms": k1["kernel_ms_i32"],
+         "kernel_ms_uint8_entry": k1["kernel_ms_u8"],
+         "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms_i32"],
+         "bound_by": k1["bound_by_i32"],
+         "bound_ms_uint8_entry": k1["bound_ms_u8"],
+         "library_ms": k1["library_ms"], "sizes": k1_sizes},
         {"name": "deblock_wavefront", "route": "cuda",
          "source": "losslessh264_tpu_torch/csrc/deblock.cu",
          "replaces": "losslessh264_tpu/ops/deblock_pallas.py:199",

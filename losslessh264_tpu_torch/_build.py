@@ -22,8 +22,10 @@ _PKG = os.path.dirname(os.path.abspath(__file__))
 _SRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 LIB_PATH = os.path.join(BUILD_DIR, "libpip_kernels.so")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+COMPILE_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+                 "-O3", "-Xcompiler", "-fPIC"]
+# one source (or the objects) straight to a shared library
+NVCC_FLAGS = COMPILE_FLAGS + ["-shared"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -31,7 +33,8 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # (src, dst, Hp, Wp, stream)
     "pip_halfpel_i32": [_P, _P, _I, _I, _P],
-    "pip_halfpel_u8": [_P, _P, _I, _I, _P],
+    # (src, dst, Hp, Wp, pitch, stream)
+    "pip_halfpel_u8_pitched": [_P, _P, _I, _I, _I, _P],
     # (Y, U, V, y_stride, c_stride, params, sync scratch [1 + 2*mb_h],
     #  mb_w, mb_h, stream)
     "pip_deblock_frame": [_P, _P, _P, _I, _I, _P, _P, _I, _I, _P],
@@ -63,17 +66,40 @@ def needs_build():
 
 
 def build():
-    """Compile csrc/*.cu for sm_90a into LIB_PATH; returns nvcc's
-    output (register and spill report included)."""
+    """Compile csrc/*.cu for sm_90a, one nvcc per source, all at once,
+    and link them into LIB_PATH; returns nvcc's output (register and
+    spill report included)."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
-    cmd = [_nvcc()] + NVCC_FLAGS + ["-Xptxas", "-v", "-o", tmp] + sources()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError("nvcc failed:\n" + " ".join(cmd) + "\n"
-                           + res.stdout + res.stderr)
+    nvcc = _nvcc()
+    jobs = []
+    try:
+        for src in sources():
+            obj = os.path.join(BUILD_DIR, f"{os.path.basename(src)}."
+                               f"{os.getpid()}.o")
+            cmd = [nvcc] + COMPILE_FLAGS + ["-Xptxas", "-v", "-c", "-o",
+                                            obj, src]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        outs = [(cmd, proc.communicate()[0], proc.returncode)
+                for cmd, _, proc in jobs]
+        for cmd, out, rc in outs:
+            if rc != 0:
+                raise RuntimeError("nvcc failed:\n" + " ".join(cmd) + "\n"
+                                   + out)
+        tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
+        cmd = [nvcc] + NVCC_FLAGS + ["-o", tmp] + [o for _, o, _ in jobs]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError("nvcc link failed:\n" + " ".join(cmd) + "\n"
+                               + res.stdout + res.stderr)
+    finally:
+        for _, obj, proc in jobs:
+            proc.wait()
+            if os.path.exists(obj):
+                os.remove(obj)
     os.replace(tmp, LIB_PATH)
-    return res.stdout + res.stderr
+    return "".join(out for _, out, _ in outs) + res.stdout + res.stderr
 
 
 def lib():

@@ -1,6 +1,6 @@
 """Seeded random inputs for holding K2 (csrc/deblock.cu) against its
 plain version: used by tests/test_torch_kernels.py, chip_smoke.py and
-tools/k2_ab.py, so that all three check and time the same cases."""
+tools/kernel_ab.py, so that all three check and time the same cases."""
 import numpy as np
 import torch
 

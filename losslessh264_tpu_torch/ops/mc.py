@@ -143,6 +143,12 @@ def halfpel_planes_plain(ref_pad):
     return torch.stack([r[2:-3, 2:-3], b[2:-3, :], h[:, 2:-3], j])
 
 
+def _pitch(Wo):
+    """Row pitch of the uint8 planes: Wo rounded up to 16 bytes, so the
+    kernel stores aligned words."""
+    return (Wo + 15) // 16 * 16
+
+
 def _halfpel_launch(ref_pad, out_dtype):
     if ref_pad.device.type != "cuda":
         raise ValueError("halfpel kernel takes CUDA tensors, got "
@@ -154,13 +160,21 @@ def _halfpel_launch(ref_pad, out_dtype):
     if Hp < 6 or Wp < 6:
         raise ValueError(f"plane {Hp}x{Wp} is smaller than the 6-tap")
     src = ref_pad.contiguous()
-    out = torch.empty((4, Hp - 5, Wp - 5), dtype=out_dtype,
-                      device=src.device)
-    fn = (_build.lib().pip_halfpel_i32 if out_dtype == torch.int32
-          else _build.lib().pip_halfpel_u8)
-    _build.check(fn(ctypes.c_void_p(src.data_ptr()),
-                    ctypes.c_void_p(out.data_ptr()), Hp, Wp,
-                    _build.stream(src.device)), "halfpel")
+    Ho, Wo = Hp - 5, Wp - 5
+    P = ctypes.c_void_p
+    if out_dtype == torch.int32:
+        out = torch.empty((4, Ho, Wo), dtype=torch.int32, device=src.device)
+        rc = _build.lib().pip_halfpel_i32(
+            P(src.data_ptr()), P(out.data_ptr()), Hp, Wp,
+            _build.stream(src.device))
+    else:
+        out = torch.empty((4, Ho, _pitch(Wo)), dtype=torch.uint8,
+                          device=src.device)
+        rc = _build.lib().pip_halfpel_u8_pitched(
+            P(src.data_ptr()), P(out.data_ptr()), Hp, Wp, out.stride(1),
+            _build.stream(src.device))
+        out = out[..., :Wo]
+    _build.check(rc, "halfpel")
     halfpel_planes.launches += 1
     return out
 
@@ -179,9 +193,14 @@ halfpel_planes.launches = 0
 
 def _halfpel_planes_u8(ref_pad):
     """The same planes as uint8 (every value is 0..255): the internal
-    entry mc_bucketed uses, a quarter of the int32 output's bytes."""
+    entry mc_bucketed uses, a quarter of the int32 output's bytes. The
+    result is the [4, Hp-5, Wp-5] view of [4, Hp-5, pitch] planes whose
+    rows are padded to 16 bytes (_pitch), on the CPU as on the card."""
     if ref_pad.device.type == "cpu":
-        return halfpel_planes_plain(ref_pad).to(torch.uint8)
+        Hp, Wp = ref_pad.shape
+        out = torch.empty((4, Hp - 5, _pitch(Wp - 5)), dtype=torch.uint8)
+        out[..., :Wp - 5] = halfpel_planes_plain(ref_pad)
+        return out[..., :Wp - 5]
     return _halfpel_launch(ref_pad, torch.uint8)
 
 

@@ -185,6 +185,22 @@ def test_stream_matches_golden(name, fname):
     assert [_crc(f) for f in got] == gold["crc32"]
 
 
+def test_ltr_long_gap_matches_npdecoder():
+    """The recipe of tests/test_decode_parity.py::
+    test_jax_ltr_long_gap_eviction on the port: a long-term reference
+    marked at frame 1 and recovered at frame 23, more frames back than
+    the 18-slot reference ring holds, must survive eviction. The stream
+    is committed (tools/gen_ltr_stream.py), so nothing is encoded here."""
+    data = _read("ltr_gap_64x48.264")
+    want = list(decoder_np.NpDecoder(data, error_concealment=False).frames())
+    got = []
+    for yuv in dt.TorchDecoder(data, device="cpu",
+                               error_concealment=False).frames():
+        got.append(tuple(a.cpu().numpy() for a in yuv))
+    assert len(want) == 24
+    _assert_frames_equal(got, want)
+
+
 def test_cli_decode(tmp_path, tiny_stream):
     src = tmp_path / "tiny.264"
     out = tmp_path / "tiny.yuv"

@@ -55,15 +55,41 @@ def test_kernel_entries_refuse_cpu_tensors():
         tdb.deblock_wavefront(3, 2, *planes, params)
 
 
+# The decode path's edge-padded luma references (720p, 1080p, 2160p),
+# widths around one 128-column strip of the kernel (Wp 132-134, not
+# multiples of 16: byte loads), a ragged aligned width and odd sizes.
+K1_SHAPES = [(784, 1344), (1152, 1984), (2224, 3904), (133, 133), (70, 134),
+             (300, 132), (262, 400), (781, 1351), (42, 58), (6, 6), (101, 77)]
+
+
 @pytest.mark.cuda
-def test_halfpel_kernel_on_card(cuda_device):
-    rng = np.random.default_rng(3)
-    for shape in ((784, 1344), (42, 58), (6, 6), (101, 77)):
-        x = torch.as_tensor(rng.integers(0, 256, shape, dtype=np.uint8),
-                            device=cuda_device)
-        want = tmc.halfpel_planes_plain(x)
+@pytest.mark.parametrize("shape", K1_SHAPES)
+def test_halfpel_kernel_on_card(cuda_device, shape):
+    """Both entries, 10 launches each, equal the plain version; the
+    uint8 entry hands back rows padded to the 16-byte pitch."""
+    x = torch.as_tensor(np.random.default_rng(sum(shape)).integers(
+        0, 256, shape, dtype=np.uint8), device=cuda_device)
+    want = tmc.halfpel_planes_plain(x)
+    before = tmc.halfpel_planes.launches
+    for _ in range(10):
         assert torch.equal(tmc.halfpel_planes(x), want)
-        assert torch.equal(tmc._halfpel_planes_u8(x), want.to(torch.uint8))
+        got8 = tmc._halfpel_planes_u8(x)
+        assert torch.equal(got8, want.to(torch.uint8))
+        assert got8.stride(1) == tmc._pitch(shape[1] - 5)
+    assert tmc.halfpel_planes.launches == before + 20
+
+
+@pytest.mark.cuda
+def test_halfpel_kernel_misaligned_plane(cuda_device):
+    """A plane whose pointer is not 16-byte aligned takes the kernel's
+    byte loads."""
+    buf = torch.empty(784 * 1344 + 1, dtype=torch.uint8, device=cuda_device)
+    x = buf[1:].view(784, 1344)
+    x.copy_(torch.as_tensor(np.random.default_rng(9).integers(
+        0, 256, (784, 1344), dtype=np.uint8)))
+    want = tmc.halfpel_planes_plain(x)
+    assert torch.equal(tmc.halfpel_planes(x), want)
+    assert torch.equal(tmc._halfpel_planes_u8(x), want.to(torch.uint8))
 
 
 def _deblock_raster(mb_w, mb_h, planes, params):

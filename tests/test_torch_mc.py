@@ -41,6 +41,23 @@ def test_halfpel_planes(shape):
                                   want.astype(np.uint8))
 
 
+@pytest.mark.parametrize("shape", [(6, 6), (101, 77), (84, 133),
+                                   (112, 144)])
+def test_halfpel_u8_is_pitched(shape):
+    """The uint8 entry mc_bucketed reads hands back, on the CPU as on the
+    card, the [4, Hp-5, Wp-5] view of planes whose rows are padded to a
+    multiple of 16 bytes, with the JAX planes' values."""
+    ref = np.random.default_rng(shape[0]).integers(0, 256, shape,
+                                                   dtype=np.uint8)
+    got = tmc._halfpel_planes_u8(T(ref))
+    Ho, Wo = shape[0] - 5, shape[1] - 5
+    assert got.shape == (4, Ho, Wo) and got.dtype == torch.uint8
+    pitch = (Wo + 15) // 16 * 16
+    assert got.stride() == (Ho * pitch, pitch, 1)
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(jmc.halfpel_planes(ref)).astype(np.uint8))
+
+
 def _cells(seed, H, W, pad, B, mv_span):
     rng = np.random.default_rng(seed)
     R = 3

@@ -1,17 +1,17 @@
 #!/usr/bin/env python3
 """Write diagnostic builds of K2 (csrc/deblock.cu), each with one part
-of the per-MB step taken out, for tools/k2_ab.py to time beside the
+of the per-MB step taken out, for tools/kernel_ab.py (k2) to time beside the
 whole kernel (run from the repo root):
 
     python3 tools/k2_variants.py
-    python3 tools/k2_ab.py build/k2_noedge.cu build/k2_nofence.cu \\
+    python3 tools/kernel_ab.py k2 build/k2_noedge.cu build/k2_nofence.cu \\
         build/k2_noldcg.cu
 
   noedge   the edge filters return at once: no edge arithmetic
   nofence  publish() stores the progress flag without __threadfence
   noldcg   the rows above are read with plain loads, not through L2
 
-They are not exact (k2_ab.py reports that and times them all the same):
+They are not exact (kernel_ab.py reports that and times them all the same):
 their times split a step of the MB chain into its parts.
 """
 import os
