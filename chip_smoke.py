@@ -22,29 +22,44 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
      every frame's CRC32 of Y|U|V must equal the committed NpDecoder
      goldens (tests/data/synth720p_np_crc.json), K1 must launch, and K2
      must launch exactly once per frame that is deblocked.
-  6. times: K1 at 720p, 1080p and 2160p, both entries, wrapper and
-     kernel alone, beside their bounds, its plain version and the conv2d
-     yardstick; K2 against its plain version at 720p (CUDA events); a
-     per-stage breakdown of every frame (deblock split into edge
-     parameters, K2 and crop); then torch.profiler windows (P frames
-     1-3, intra frame 10) with the device busy share. A profiler session
-     slows the host's launches after it, so the windows come last.
+  6. encode: TorchEncoder(device="cuda") at 1280x720 on the first frames
+     of phase 5's decode, in the two configurations of
+     tests/data/synth720p_enc_golden.json (written with JaxEncoder on the
+     CPU by tools/gen_enc_golden.py): A (qp=28, gop=0: an IDR and 3 P
+     frames) and B (qp=28, refs=2, cabac=True: an IDR and 2 P frames, K1
+     on the 784x2688 concatenated reference, the CABAC writer). Every
+     frame's SHA-256 and recon CRC32 must equal the golden; TorchDecoder
+     on the card must decode each stream to the encoder's recon after
+     every frame; K1 must launch once per P frame and K2 once per frame.
+     A first pass gives encode fps, a second the per-stage wall times of
+     every frame (encoder_torch.StageTimer).
+  7. times: K1 at 720p, 1080p, 2160p and on the encoder's refs=2 plane
+     (784x2688), both entries, wrapper and kernel alone, beside their
+     bounds, its plain version and the conv2d yardstick; K2 against its
+     plain version at 720p (CUDA events); a per-stage breakdown of every
+     decoded frame (deblock split into edge parameters, K2 and crop);
+     then torch.profiler windows (decode: P frames 1-3, intra frame 10;
+     encode A: P frames 1-3) with the device busy share. A profiler
+     session slows the host's launches after it, so the windows come
+     last.
 
 The line before the last is the kernel report
 {"kernels": [{"name", "route", "source", "replaces", "launches",
-"launches_per_decode", "max_abs_err", "ms", "plain_ms", "bound_ms",
-"bound_by", "library_ms"}, ...]}, preceded by the card line. For K1:
+"launches_per_decode", "launches_per_encode", "max_abs_err", "ms",
+"plain_ms", "bound_ms", "bound_by", "library_ms"}, ...]}, preceded by the
+card line; `launches` counts phases 5 and 6 (decode and encode). For K1:
 `ms`, `kernel_ms`, `bound_ms` and `bound_by` are its int32 entry's at
 720p, and `ms_uint8_entry`, `kernel_ms_uint8_entry` and
-`bound_ms_uint8_entry` those of the uint8 entry that the decode path
-calls. `ms` is the wrapper, timed by CUDA events around 50 back-to-back
-calls (the host's issue rate enters it); `kernel_ms` is the kernel
-alone: CUDA events around the replays of a CUDA graph of at least 30
-captured launches of the bare C entry, each on buffers that are no
+`bound_ms_uint8_entry` those of the uint8 entry that the decode and
+encode paths call. `ms` is the wrapper, timed by CUDA events around 50
+back-to-back calls (the host's issue rate enters it); `kernel_ms` is the
+kernel alone: CUDA events around the replays of a CUDA graph of at least
+30 captured launches of the bare C entry, each on buffers that are no
 longer in L2 (kernel_device_ms, k1_calls), so it holds the graph's gap
 between two kernels but not the host. `library_ms` is the conv2d
 yardstick at 720p (k1_conv2d: F.conv2d in float32 with TF32 off, then a
-rounding pass). `sizes` holds, for "720p", "1080p" and "2160p", `ms_i32`,
+rounding pass). `sizes` holds, for "720p", "1080p", "2160p" and
+"720p_refs2" (the encoder's two references side by side), `ms_i32`,
 `ms_u8`, `kernel_ms_i32`, `kernel_ms_u8`, `bytes_*`, `bound_ms_*`,
 `bound_by_*`, `bound_share_*` (bound over kernel time), `plain_ms` and
 `library_ms`. K2's `ms` is its wrapper (packing, plane copies, launch)
@@ -73,12 +88,17 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 STREAM = os.path.join(ROOT, "tests", "data", "synth720p.264")
 GOLDEN = os.path.join(ROOT, "tests", "data", "synth720p_np_crc.json")
+ENC_GOLDEN = os.path.join(ROOT, "tests", "data", "synth720p_enc_golden.json")
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 INT32_OPS_PER_S = 33.5e12     # see the module docstring
 # K1's timed sizes: the edge-padded (PAD = 32) luma reference of 720p,
-# 1080p (1088 coded rows) and 2160p
+# 1080p (1088 coded rows) and 2160p, and the encoder's two 720p
+# references side by side (refs=2)
 K1_SIZES = {"720p": (784, 1344), "1080p": (1152, 1984),
-            "2160p": (2224, 3904)}
+            "2160p": (2224, 3904), "720p_refs2": (784, 2688)}
+# the encoder's per-frame stages (encoder_torch.StageTimer), in order
+ENC_STAGES = ("upload", "dense_search", "subpel_k1", "residual", "fetch",
+              "intra", "deblock_edge_params", "deblock_k2", "write")
 # 3 six-taps (b, h, j) of 11 ops, 3 round-and-clamps of 4 ops and the j
 # pass over the b sums: ~50 int32 ops per output position
 K1_OPS_PER_POSITION = 50
@@ -316,13 +336,136 @@ def stage_decode(data, device):
             store_ms=(t5 - t4) * 1e3))
 
 
-def profile_windows(data, device, card):
-    """torch.profiler over two windows of one decode: P frames 1-3 (the
-    steady state of the stream) and frame 10 (3374 of 3600 MBs intra).
-    Prints wall time against the summed device time of every kernel and
-    copy, and the kernels that take the most of it."""
+def encode_phase(frames, dev, card):
+    """Phase 6: configurations A and B of the encode golden on the card.
+    `frames` are phase 5's decoded frames (host tensors), which that
+    phase held to the NpDecoder CRCs the golden's source frames also
+    match. Returns the K1 / K2 launches of the encode pass and the
+    number of frames encoded."""
+    import hashlib
+    from losslessh264_tpu_torch import decoder_torch as dt
+    from losslessh264_tpu_torch import encoder_torch as et
+    from losslessh264_tpu_torch import native
+    from losslessh264_tpu_torch.ops import deblock as tdb
+    from losslessh264_tpu_torch.ops import mc as tmc
+    gold = json.load(open(ENC_GOLDEN))
+    W, H = gold["source"]["width"], gold["source"]["height"]
+    configs = [(name, gold[name]) for name in ("A", "B")]
+    src = [tuple(np.ascontiguousarray(p.numpy()) for p in f)
+           for f in frames[:max(len(c["frames"]) for _, c in configs)]]
+
+    def encode(cfg, stages):
+        """(per-frame bytes, per-frame recon on the card, wall s, stage
+        rows) of one encode of cfg's frames."""
+        enc = et.TorchEncoder(W, H, device=dev, **cfg["kwargs"])
+        out, recon, rows = [], [], []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for f in src[:len(cfg["frames"])]:
+            if stages:
+                enc.stages = et.StageTimer(dev)
+            out.append(enc.encode_frame(*f))
+            recon.append(tuple(p.clone() for p in enc.ref))
+            if stages:
+                rows.append(enc.stages.ms)
+        torch.cuda.synchronize()
+        return out, recon, time.perf_counter() - t0, rows
+
+    def check(name, cfg, out, recon):
+        for i, (data, rec, g) in enumerate(zip(out, recon, cfg["frames"])):
+            sha = hashlib.sha256(data).hexdigest()
+            crc = zlib.crc32(b"".join(p.cpu().numpy().tobytes()
+                                      for p in rec))
+            if (len(data), sha, crc) != (g["bytes"], g["sha256"],
+                                         g["recon_crc32"]):
+                raise SystemExit(
+                    f"encode {name} frame {i}: {len(data)} bytes sha256 "
+                    f"{sha[:16]} recon crc {crc}, golden {g['bytes']} bytes "
+                    f"{g['sha256'][:16]} crc {g['recon_crc32']}")
+
+    # pass 1: encode fps, the golden, the launch counts
+    tmc.halfpel_planes.launches = 0
+    tdb.deblock_wavefront.launches = 0
+    streams, n_frames, n_p = {}, 0, 0
+    for name, cfg in configs:
+        out, recon, wall, _ = encode(cfg, False)
+        check(name, cfg, out, recon)
+        streams[name] = (out, recon)
+        n_frames += len(out)
+        syms = list(native.SymbolDecoder(b"".join(out)))
+        n_p += sum(not f["is_idr"] for f in syms)
+        intra = [int(np.isin(f["mb_class"], (0, 1, 2)).sum()) for f in syms]
+        log(f"encode {name} {cfg['kwargs']}: {len(out)} frames {W}x{H} "
+            f"match the JaxEncoder golden (SHA-256 and recon CRC32); "
+            f"{wall:.3f} s = {len(out) / wall:.4f} fps on {card}; bytes "
+            f"{[len(d) for d in out]}, intra MBs {intra}")
+    launches = {"K1": tmc.halfpel_planes.launches,
+                "K2": tdb.deblock_wavefront.launches}
+    log(f"launches during encode: K1 halfpel {launches['K1']} for {n_p} P "
+        f"frames, K2 deblock {launches['K2']} for {n_frames} frames")
+    if launches["K1"] != n_p or launches["K2"] != n_frames or n_p == 0:
+        raise SystemExit("encode: K1 must launch once per P frame and K2 "
+                         "once per frame")
+
+    # closed loop: the port's decoder on the card reconstructs the
+    # encoder's recon from the encoder's bytes
+    for name, (out, recon) in streams.items():
+        dec = dt.TorchDecoder(b"".join(out), device=dev,
+                              error_concealment=False)
+        n = 0
+        for i, yuv in enumerate(dec.frames()):
+            if not all(torch.equal(a, b) for a, b in zip(yuv, recon[i])):
+                raise SystemExit(f"encode {name} frame {i}: the decoded "
+                                 "frame differs from the encoder's recon")
+            n += 1
+        if n != len(out):
+            raise SystemExit(f"encode {name}: decoded {n} of {len(out)} "
+                             "frames")
+        log(f"encode {name}: TorchDecoder on the card reproduces the "
+            f"encoder's recon of all {n} frames")
+
+    # pass 2: per-stage wall times of every frame (a synchronize ends
+    # each stage)
+    for name, cfg in configs:
+        out, recon, wall, rows = encode(cfg, True)
+        check(name, cfg, out, recon)
+        for i, ms in enumerate(rows):
+            unknown = set(ms) - set(ENC_STAGES)
+            if unknown:
+                raise SystemExit(f"encode: unlisted stages {unknown}")
+            log(f"encode stage {name} frame {i}: " + json.dumps(
+                {k: round(ms.get(k, 0.0), 3) for k in ENC_STAGES})
+                + f" total {sum(ms.values()):.3f} ms on {card}")
+        log(f"encode stage {name}: {wall:.3f} s for {len(out)} frames with "
+            f"stage timing on {card}")
+    return launches, n_frames
+
+
+def profile_report(prof, wall_ms, what, card):
+    """Wall time against the summed device time of every kernel and copy
+    of one torch.profiler window, and the kernels that take the most."""
+    # device-side events only (kernels, memcpy): a CPU op's own device
+    # total repeats its kernels' time
+    evs = [(e.self_device_time_total / 1e3, e.count, e.key)
+           for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e[0] for e in evs)
+    log(f"profile {what}: wall {wall_ms:.3f} ms, summed device time "
+        f"{busy_ms:.3f} ms, device busy share {busy_ms / wall_ms:.4f} on "
+        f"{card}")
+    for ms, count, key in sorted(evs, reverse=True)[:6]:
+        log(f"  profile {ms:.3f} ms x{count} {key[:90]}")
+
+
+def profile_windows(data, device, card, enc_src):
+    """torch.profiler over two windows of one decode, P frames 1-3 (the
+    steady state of the stream) and frame 10 (3374 of 3600 MBs intra),
+    and over the P frames 1-3 of encode configuration A (`enc_src`: its
+    four source frames; the IDR is encoded outside the window)."""
     from torch.profiler import ProfilerActivity, profile
     from losslessh264_tpu_torch import decoder_torch as dt
+    from losslessh264_tpu_torch import encoder_torch as et
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     frames = dt.TorchDecoder(data, device=device).frames()
     done = 0
     for first, last in ((1, 3), (10, 10)):
@@ -330,25 +473,26 @@ def profile_windows(data, device, card):
             next(frames)
             done += 1
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=acts) as prof:
             t0 = time.perf_counter()
             while done <= last:
                 next(frames)
                 done += 1
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-        # device-side events only (kernels, memcpy): a CPU op's own
-        # device total repeats its kernels' time
-        evs = [(e.self_device_time_total / 1e3, e.count, e.key)
-               for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-        busy_ms = sum(e[0] for e in evs)
-        log(f"profile frames {first}-{last}: wall {wall_ms:.3f} ms, summed "
-            f"device time {busy_ms:.3f} ms, device busy share "
-            f"{busy_ms / wall_ms:.4f} on {card}")
-        for ms, count, key in sorted(evs, reverse=True)[:6]:
-            log(f"  profile {ms:.3f} ms x{count} {key[:90]}")
+        profile_report(prof, wall_ms, f"decode frames {first}-{last}", card)
+    gold = json.load(open(ENC_GOLDEN))
+    enc = et.TorchEncoder(gold["source"]["width"], gold["source"]["height"],
+                          device=device, **gold["A"]["kwargs"])
+    enc.encode_frame(*enc_src[0])
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for f in enc_src[1:4]:
+            enc.encode_frame(*f)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    profile_report(prof, wall_ms, "encode A P frames 1-3", card)
 
 
 def main():
@@ -410,6 +554,7 @@ def main():
         ("synth720p frame 0 padded", dt._edge_pad(Y0, dt.PAD)),
         ("random 1152x1984 (1080p)", rand_plane(1152, 1984)),
         ("random 2224x3904 (2160p)", rand_plane(2224, 3904)),
+        ("random 784x2688 (encoder, refs=2)", rand_plane(784, 2688)),
         ("misaligned pointer 784x1344 (byte loads)", misaligned),
         # one 128-column strip exactly, and one column more or less
         ("Wp 133 (byte loads)", rand_plane(133, 133)),
@@ -499,15 +644,17 @@ def main():
         raise SystemExit(f"K2 launched {k2_launches} times for {deblocked} "
                          "deblocked frames; one launch per frame expected")
 
-    # ---- 6. times ----
+    # ---- 6. encode on the card ----
+    enc_launches, enc_frames = encode_phase(frames, dev, card)
+
+    # ---- 7. times ----
     # K1 at each size, both entries: `ms` the wrapper by CUDA events over
     # back-to-back calls, `kernel_ms` the bare C entry's kernel alone (a
     # CUDA graph's replays, cold L2), beside the bound, the plain version
     # and the conv2d yardstick. 720p is the decode path's reference plane
     # (frame 0 of synth720p, padded), the others random planes.
     k1_sizes = {}
-    k1_planes = dict(zip(K1_SIZES, (k1_inputs[1][1], k1_inputs[2][1],
-                                    k1_inputs[3][1])))
+    k1_planes = dict(zip(K1_SIZES, (x for _, x in k1_inputs[1:5])))
     for size, x in k1_planes.items():
         Hp, Wp = x.shape
         if (Hp, Wp) != K1_SIZES[size]:
@@ -568,13 +715,16 @@ def main():
         log(f"stage total {key}: {sum(r[key] for r in rows):.3f} ms over "
             f"{len(rows)} frames on {card}")
     k1 = k1_sizes["720p"]
-    profile_windows(data, dev, card)
+    profile_windows(data, dev, card,
+                    [tuple(p.numpy() for p in f) for f in frames[:4]])
 
     log(json.dumps({"kernels": [
         {"name": "halfpel_planes", "route": "cuda",
          "source": "losslessh264_tpu_torch/csrc/halfpel.cu",
          "replaces": "losslessh264_tpu/ops/mc.py:144",
-         "launches": k1_launches, "launches_per_decode": k1_launches,
+         "launches": k1_launches + enc_launches["K1"],
+         "launches_per_decode": k1_launches,
+         "launches_per_encode": enc_launches["K1"],
          "max_abs_err": k1_err, "ms": k1["ms_i32"],
          "ms_uint8_entry": k1["ms_u8"], "kernel_ms": k1["kernel_ms_i32"],
          "kernel_ms_uint8_entry": k1["kernel_ms_u8"],
@@ -585,7 +735,9 @@ def main():
         {"name": "deblock_wavefront", "route": "cuda",
          "source": "losslessh264_tpu_torch/csrc/deblock.cu",
          "replaces": "losslessh264_tpu/ops/deblock_pallas.py:199",
-         "launches": k2_launches, "launches_per_decode": k2_launches,
+         "launches": k2_launches + enc_launches["K2"],
+         "launches_per_decode": k2_launches,
+         "launches_per_encode": enc_launches["K2"],
          "max_abs_err": k2_err, "ms": k2_ms, "kernel_ms": k2_kernel_ms,
          "plain_ms": k2_plain_ms,
          "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": None},

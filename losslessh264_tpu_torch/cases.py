@@ -1,6 +1,7 @@
-"""Seeded random inputs for holding K2 (csrc/deblock.cu) against its
-plain version: used by tests/test_torch_kernels.py, chip_smoke.py and
-tools/kernel_ab.py, so that all three check and time the same cases."""
+"""Seeded inputs shared by the tests, chip_smoke.py and tools/kernel_ab.py:
+random cases for holding K2 (csrc/deblock.cu) against its plain version,
+so that all three check and time the same cases, and the translating
+noise frames the encoder's tests encode."""
 import numpy as np
 import torch
 
@@ -45,3 +46,18 @@ def random_deblock_case(mb_w, mb_h, seed, device):
     sym = [torch.as_tensor(np.asarray(sym[k], np.int32), device=device)
            for k in SYMBOL_KEYS]
     return planes, sym, tdb._edge_params(mb_w, mb_h, *sym, seed)
+
+
+def moving_frames(n=4, W=64, H=48, seed=7):
+    """n I420 frames (uint8 numpy Y, U, V) of noise moving by (2, 3) px
+    per frame under flat chroma: the recipe of the JAX encoder's tests
+    (tests/test_encoder_jax.py::_moving_frames)."""
+    rng = np.random.RandomState(seed)
+    bg = rng.randint(0, 255, (H + 32, W + 32)).astype(np.uint8)
+    frames = []
+    for i in range(n):
+        Y = np.ascontiguousarray(bg[i * 2:i * 2 + H, i * 3:i * 3 + W])
+        U = np.full((H // 2, W // 2), 100 + i, np.uint8)
+        V = np.full((H // 2, W // 2), 200, np.uint8)
+        frames.append((Y, U, V))
+    return frames

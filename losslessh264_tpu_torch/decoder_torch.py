@@ -459,13 +459,13 @@ def _deblock_crop(mb_w, mb_h, Yw, Uw, Vw, p):
 
 
 def _edge_pad(x, pad):
-    """Edge (replicate) padding by clamped indexing: F.pad's replicate
-    mode does not take uint8."""
-    H, W = x.shape
+    """Edge (replicate) padding of the last two dims by clamped indexing:
+    F.pad's replicate mode does not take uint8."""
+    H, W = x.shape[-2:]
     dev = x.device
     ri = torch.clamp(torch.arange(-pad, H + pad, device=dev), 0, H - 1)
     ci = torch.clamp(torch.arange(-pad, W + pad, device=dev), 0, W - 1)
-    return x[ri[:, None], ci[None, :]]
+    return x[..., ri[:, None], ci[None, :]]
 
 
 def _store_ref(ref_y, ref_u, ref_v, Y, U, V, slot):

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from .. import _build
@@ -27,9 +28,13 @@ from ..ref_np import ALPHA_TABLE as ALPHA
 from ..ref_np import BETA_TABLE as BETA
 from ..ref_np import CHROMA_QP
 from ..ref_np import TC0_TABLE as TC0
+from .consts import on
 from .wavefront import diagonals, scatter_tiles
 
 WPAD = 8  # working-plane margin the padded planes must carry
+TC0_FLAT = TC0.reshape(-1).copy()
+# the interior edges (1 and 3) that a transform-8x8 MB does not filter
+_T8_OFF = np.array([False, True, False, True])
 
 
 # ---------------------------------------------------------------------------
@@ -181,14 +186,14 @@ def _edge_params(mb_w, mb_h, cls, qp, nnz, mv, ref_idx, slice_id,
     qp_left = torch.roll(qg, 1, 1).reshape(n)
     qp_top = torch.roll(qg, 1, 0).reshape(n)
     # interior-edge mask for transform-8x8 MBs (edges 1 and 3 off)
-    kmask = torch.tensor([False, True, False, True], device=dev)
+    kmask = on(_T8_OFF, dev)
     bs_v = torch.where(t8f[:, :, None] & kmask[None, :, None], 0, bs_v)
     bs_h = torch.where(t8f[:, :, None] & kmask[None, :, None], 0, bs_h)
 
-    alpha_t = torch.as_tensor(ALPHA, device=dev)
-    beta_t = torch.as_tensor(BETA, device=dev)
-    cqp_t = torch.as_tensor(CHROMA_QP, device=dev)
-    tc0_flat = torch.as_tensor(TC0.reshape(-1), device=dev)
+    alpha_t = on(ALPHA, dev)
+    beta_t = on(BETA, dev)
+    cqp_t = on(CHROMA_QP, dev)
+    tc0_flat = on(TC0_FLAT, dev)
 
     def luma_dir(qp_nbr):
         edge0 = (qp_nbr + qps + 1) >> 1                    # [n]
@@ -389,6 +394,12 @@ def deblock_frame(mb_w, mb_h, Yw, Uw, Vw, cls, qp, nnz, mv, ref_idx,
     p = _edge_params(mb_w, mb_h, cls, qp, nnz, mv, ref_idx, slice_id,
                      deblock_idc, alpha_off, beta_off, transform8,
                      chroma_qp_offset)
+    return deblock_planes(mb_w, mb_h, Yw, Uw, Vw, p)
+
+
+def deblock_planes(mb_w, mb_h, Yw, Uw, Vw, params):
+    """The filtering half of deblock_frame, on _edge_params' output: the
+    plain wavefront for CPU tensors, the K2 kernel for CUDA tensors."""
     if Yw.device.type == "cpu":
-        return deblock_wavefront_plain(mb_w, mb_h, Yw, Uw, Vw, p)
-    return deblock_wavefront(mb_w, mb_h, Yw, Uw, Vw, p)
+        return deblock_wavefront_plain(mb_w, mb_h, Yw, Uw, Vw, params)
+    return deblock_wavefront(mb_w, mb_h, Yw, Uw, Vw, params)

@@ -20,6 +20,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .consts import on
+
 
 def _f3(a, b, c):
     return (a, b, c, 1, 2, 1, 2, 2)
@@ -117,7 +119,7 @@ _TAB8 = _dir_table(8)
 
 def _apply_table(e, tab, N):
     """e [K, E] int32 edge vectors -> [K, 9, N, N] table predictions."""
-    tb = torch.as_tensor(tab, device=e.device)
+    tb = on(tab, e.device)
     g = e[:, tb[..., :3].long()]                           # [K, 9, NN, 3]
     v = (g * tb[..., 3:6]).sum(-1, dtype=torch.int32) + tb[..., 6]
     return (v >> tb[..., 7]).reshape(e.shape[0], 9, N, N)

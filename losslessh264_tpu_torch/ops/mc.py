@@ -123,6 +123,33 @@ def mc_chroma_cells(ref_stack, pad, ref_idx, y0, x0, mvx, mvy):
             (8 - fx) * fy * C + fx * fy * D + 32) >> 6
 
 
+def mc_chroma_mbs(ref_pad_c, pad, cy0, cx0, mvx, mvy, size=8):
+    """Whole-block chroma prediction from one edge-padded plane
+    [Hc, Wc]: one window gather per block, the MV uniform across it
+    (size 8 = an MB's chroma, 4 = a P8x8 quadrant's). Window starts are
+    clamped into the plane, as the JAX function clamps them. Returns
+    [B, size, size] int32."""
+    S = size
+    Hc, Wc = ref_pad_c.shape
+    dev = ref_pad_c.device
+    mvx = mvx.to(torch.int32)
+    mvy = mvy.to(torch.int32)
+    iy = torch.clamp(pad + cy0.to(torch.int32) + (mvy >> 3), 0, Hc - (S + 1))
+    ix = torch.clamp(pad + cx0.to(torch.int32) + (mvx >> 3), 0, Wc - (S + 1))
+    o = torch.arange(S + 1, device=dev)
+    win = ref_pad_c[(iy[:, None, None] + o[None, :, None]).long(),
+                    (ix[:, None, None] + o[None, None, :]).long()] \
+        .to(torch.int32)
+    fx = (mvx & 7)[:, None, None]
+    fy = (mvy & 7)[:, None, None]
+    A = win[:, 0:S, 0:S]
+    B = win[:, 0:S, 1:S + 1]
+    C = win[:, 1:S + 1, 0:S]
+    D = win[:, 1:S + 1, 1:S + 1]
+    return ((8 - fx) * (8 - fy) * A + fx * (8 - fy) * B +
+            (8 - fx) * fy * C + fx * fy * D + 32) >> 6
+
+
 # ---------------------------------------------------------------------------
 # K1: the four half-pel planes of one padded reference
 # ---------------------------------------------------------------------------

@@ -3,7 +3,9 @@
 K1 (csrc/halfpel.cu, ops/mc.halfpel_planes) and K2 (csrc/deblock.cu,
 ops/deblock.deblock_wavefront) have no CPU mode. The tests marked
 `cuda` build them with nvcc and compare them on the card with
-torch.equal; they skip without CUDA. This file imports no JAX, so it
+torch.equal, and run the decoder and the encoder, which launch them, on
+the card against the committed goldens and the port's CPU run; they
+skip without CUDA. This file imports no JAX, so it
 runs on a GPU machine that has only torch:
 
     python -m pytest tests/test_torch_kernels.py -q
@@ -20,8 +22,9 @@ import pytest
 import torch
 
 from losslessh264_tpu_torch import decoder_torch as dt
+from losslessh264_tpu_torch import encoder_torch as et
 from losslessh264_tpu_torch import native
-from losslessh264_tpu_torch.cases import random_deblock_case
+from losslessh264_tpu_torch.cases import moving_frames, random_deblock_case
 from losslessh264_tpu_torch.ops import deblock as tdb
 from losslessh264_tpu_torch.ops import mc as tmc
 
@@ -158,6 +161,59 @@ def test_synth720p_on_card(cuda_device):
     assert crcs == gold["synth720p"]["crc32"]
     assert tmc.halfpel_planes.launches > k1
     assert tdb.deblock_wavefront.launches - k2 == deblocked > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [dict(qp=26), dict(qp=30, refs=2, cabac=True)])
+def test_encoder_on_card(cuda_device, kw):
+    """4 frames at 64x48, the second with two flat MBs that no reference
+    predicts (so that P frame falls back to intra on them): TorchEncoder
+    on the card writes the bytes and recon of TorchEncoder on the CPU,
+    with K1 once per P frame and K2 once per frame."""
+    frames = moving_frames(4)
+    Y1 = frames[1][0].copy()
+    Y1[16:32, 16:48] = 60
+    frames[1] = (Y1, *frames[1][1:])
+    cpu = et.TorchEncoder(64, 48, device="cpu", **kw)
+    card = et.TorchEncoder(64, 48, device=cuda_device, **kw)
+    k1, k2 = tmc.halfpel_planes.launches, tdb.deblock_wavefront.launches
+    for f in frames:
+        assert card.encode_frame(*f) == cpu.encode_frame(*f)
+        for a, b in zip(card.recon, cpu.recon):
+            np.testing.assert_array_equal(a, b)
+    assert tmc.halfpel_planes.launches - k1 == 3
+    assert tdb.deblock_wavefront.launches - k2 == 4
+
+
+@pytest.mark.cuda
+def test_encoder_frame_host_copies(cuda_device):
+    """A P frame's only host copies are the source upload and the symbol
+    fetch; an IDR adds the intra wavefront's MB schedule. The ops'
+    constant tables stay on the card (ops/consts.on). The profiler may
+    drop records, so the counts are upper bounds."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def copies(f):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            enc.encode_frame(*f)
+            torch.cuda.synchronize()
+        n = {"HtoD": 0, "DtoH": 0}
+        for e in prof.key_averages():
+            for kind in n:
+                if e.key.startswith(f"Memcpy {kind}"):
+                    n[kind] += e.count
+        return n
+
+    frames = moving_frames(4)
+    enc = et.TorchEncoder(64, 48, device=cuda_device)
+    for f in frames[:2]:        # an IDR and a P frame fill the caches
+        enc.encode_frame(*f)
+    p = copies(frames[2])
+    enc.force_intra_frame()
+    idr = copies(frames[3])
+    assert p["HtoD"] <= 1 and p["DtoH"] <= 1, p
+    assert idr["HtoD"] <= 2 and idr["DtoH"] <= 1, idr
 
 
 def test_deblock_ignores_the_padding():

@@ -89,6 +89,25 @@ def test_mc_chroma_cells(mv_span):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+@pytest.mark.parametrize("size,mv_span", [(8, 60), (4, 60), (4, 300)])
+def test_mc_chroma_mbs(size, mv_span):
+    """The encoder's whole-block chroma MC; with mv_span 300 the window
+    starts leave the plane and are clamped into it, as JAX clamps them."""
+    rng = np.random.default_rng(13 + size + mv_span)
+    H, W, pad = 32, 48, 16
+    ref_pad = np.pad(rng.integers(0, 256, (H, W), dtype=np.uint8), pad,
+                     mode="edge")
+    n = 120
+    cy0 = rng.integers(0, H // size, n) * size
+    cx0 = rng.integers(0, W // size, n) * size
+    mvx = rng.integers(-mv_span, mv_span + 1, n)
+    mvy = rng.integers(-mv_span, mv_span + 1, n)
+    want = jmc.mc_chroma_mbs(ref_pad, pad, cy0, cx0, mvx, mvy, size=size)
+    got = tmc.mc_chroma_mbs(T(ref_pad), pad, T(cy0), T(cx0), T(mvx), T(mvy),
+                            size=size)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
 def _bucket_case(trial, n_mvs):
     """The recipe of tests/test_jax_ops.py::test_mc_bucketed_parity."""
     rng = np.random.RandomState(7 + trial)

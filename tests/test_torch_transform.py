@@ -123,3 +123,89 @@ def test_chroma_residuals(seed, scaling):
         T(p["chroma_dc"]), o1, o2, T(w4[1]), T(w4[2]), T(w4[4]), T(w4[5]))
     for g, w in zip(got, want):
         eq(g, w)
+
+
+# ---------------------------------------------------------------------------
+# forward half (the encoder's): every qp 0-51, realistic and extreme
+# coefficients. JAX runs with 64-bit types off, so its int64 casts compute
+# in int32 and wrap; the extremes pin the port to the same wrap.
+# ---------------------------------------------------------------------------
+def _coeffs(rng, shape, lim=9180):
+    """Transform-range values, with a few extreme ones mixed in."""
+    W = rng.integers(-lim, lim + 1, shape).astype(np.int32)
+    flat = W.reshape(-1)
+    ext = np.array([0, 1, -1, lim, -lim, 1 << 17, -(1 << 17), (1 << 24) + 3,
+                    -(1 << 26), (1 << 31) - 1, -(1 << 31)], np.int32)
+    pos = rng.choice(flat.size, ext.size, replace=False)
+    flat[pos] = ext
+    return W
+
+
+def test_fdct4x4_and_zigzag():
+    rng = np.random.default_rng(20)
+    res = rng.integers(-255, 256, (64, 4, 4)).astype(np.int32)
+    eq(tt.fdct4x4(T(res)), jt.fdct4x4(res))
+    eq(tt.zigzag4(T(res)), jt.zigzag4(res))
+
+
+@pytest.mark.parametrize("intra,skip_dc", [(True, False), (False, False),
+                                           (True, True), ("mixed", True)])
+def test_quant4_every_qp(intra, skip_dc):
+    rng = np.random.default_rng(21)
+    W = _coeffs(rng, (52, 8, 4, 4))
+    qp = np.repeat(np.arange(52), 8).reshape(52, 8)
+    if intra == "mixed":
+        intra = rng.integers(0, 2, (52, 8)).astype(bool)
+        j_intra, t_intra = intra, T(intra)
+    else:
+        j_intra = t_intra = intra
+    eq(tt.quant4(T(W), T(qp), t_intra, skip_dc=skip_dc),
+       jt.quant4(W, qp, j_intra, skip_dc=skip_dc))
+
+
+def test_luma_dc_forward_every_qp():
+    rng = np.random.default_rng(22)
+    X = _coeffs(rng, (52, 4, 4), lim=4080)     # the 16 DCs of an MB
+    qp = np.arange(52)
+    eq(tt.fhadamard4x4(T(X)), jt.fhadamard4x4(X))
+    eq(tt.quant_dc4(tt.fhadamard4x4(T(X)), T(qp)),
+       jt.quant_dc4(jt.fhadamard4x4(X), qp))
+
+
+def test_chroma_dc_forward_every_qp():
+    rng = np.random.default_rng(23)
+    X = _coeffs(rng, (2, 52, 2, 2), lim=4080)
+    qp = np.stack([np.arange(52)] * 2)
+    eq(tt.fhadamard2x2(T(X)), jt.fhadamard2x2(X))
+    eq(tt.quant_dc2(tt.fhadamard2x2(T(X)), T(qp)),
+       jt.quant_dc2(jt.fhadamard2x2(X), qp))
+
+
+@pytest.mark.parametrize("rd_lam,qps", [(None, (0, 52)), (144, (0, 52)),
+                                        (144, (45, 52)), (300, (45, 52))])
+@pytest.mark.parametrize("skip_dc", [False, True])
+def test_quant4_pm(rd_lam, qps, skip_dc):
+    """The inter path's position-major quantizer; with rd_lam at qp 45-51
+    `u << 8` overflows int32 and wraps (qbits 22-23)."""
+    rng = np.random.default_rng(24 + qps[0])
+    B = 416
+    W = _coeffs(rng, (16, B))
+    qp = rng.integers(qps[0], qps[1], (B,))
+    want = jt.quant4_pm(W, qp, False, skip_dc=skip_dc, rd_lam=rd_lam)
+    eq(tt.quant4_pm(T(W), T(qp), False, skip_dc=skip_dc, rd_lam=rd_lam),
+       want)
+
+
+def test_pm_transforms_roundtrip():
+    rng = np.random.default_rng(25)
+    B = 300
+    r = rng.integers(-255, 256, (16, B)).astype(np.int32)
+    qp = rng.integers(0, 52, (B,))
+    eq(tt.fdct4x4_pm(T(r)), jt.fdct4x4_pm(r))
+    q = np.asarray(jt.quant4_pm(jt.fdct4x4_pm(r), qp, False))
+    eq(tt.dequant4_pm(T(q), T(qp), 16), jt.dequant4_pm(q, qp, np.int32(16)))
+    deq = np.asarray(jt.dequant4_pm(q, qp, np.int32(16)))
+    eq(tt.idct4x4_pm(T(deq)), jt.idct4x4_pm(deq))
+    # the position-major inverse equals the block one
+    blocks = deq.T.reshape(B, 4, 4)
+    eq(tt.idct4x4_pm(T(deq)).T.reshape(B, 4, 4), jt.idct4x4(blocks))
