@@ -23,14 +23,25 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
      goldens (tests/data/synth720p_np_crc.json), K1 must launch, and K2
      must launch exactly once per frame that is deblocked.
   6. encode: TorchEncoder(device="cuda") at 1280x720 on the first frames
-     of phase 5's decode, in the two configurations of
-     tests/data/synth720p_enc_golden.json (written with JaxEncoder on the
+     of phase 5's decode, in the configurations of
+     tests/data/synth720p_enc_golden.json and its sibling
+     synth720p_enc_golden_cde.json (written with the JAX package on the
      CPU by tools/gen_enc_golden.py): A (qp=28, gop=0: an IDR and 3 P
-     frames) and B (qp=28, refs=2, cabac=True: an IDR and 2 P frames, K1
-     on the 784x2688 concatenated reference, the CABAC writer). Every
-     frame's SHA-256 and recon CRC32 must equal the golden; TorchDecoder
-     on the card must decode each stream to the encoder's recon after
-     every frame; K1 must launch once per P frame and K2 once per frame.
+     frames), B (qp=28, refs=2, cabac=True: an IDR and 2 P frames, K1 on
+     the 784x2688 concatenated reference, the CABAC writer), C (a 2 Mbps
+     RateControl, AQ, GOM RC, background detection, scroll ME, denoise
+     and LTR, mark_ltr before frame 2 and recover_from_ltr before frame
+     3: the per-MB QP path, 4 frames), D (temporal_layers=4 with
+     1400-byte slices: an IDR, then T3 T2 T3 T1, the last with RPLR and
+     an MMCO drop) and E (SimulcastEncoder, 2 spatial layers with
+     inter-layer prediction, 2 access units). Every frame's SHA-256 and
+     recon CRC32 (E: per layer) must equal the golden. The port's decoder
+     on the card must give back the encoder's recon after every reference
+     frame and, for C, D and E, the JAX decoders' pictures of the golden
+     (TorchDecoder; E: the port's SimulcastDecoder). K1 must launch once
+     per P encode and K2 once per encode that deblocks, as JaxEncoder's
+     control flow implies (not for a fused-path non-reference P frame
+     without intra MBs; a size-capped slice's re-encode counts again).
      A first pass gives encode fps, a second the per-stage wall times of
      every frame (encoder_torch.StageTimer).
   7. times: K1 at 720p, 1080p, 2160p and on the encoder's refs=2 plane
@@ -89,6 +100,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 STREAM = os.path.join(ROOT, "tests", "data", "synth720p.264")
 GOLDEN = os.path.join(ROOT, "tests", "data", "synth720p_np_crc.json")
 ENC_GOLDEN = os.path.join(ROOT, "tests", "data", "synth720p_enc_golden.json")
+ENC_GOLDEN_CDE = os.path.join(ROOT, "tests", "data",
+                              "synth720p_enc_golden_cde.json")
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 INT32_OPS_PER_S = 33.5e12     # see the module docstring
 # K1's timed sizes: the edge-padded (PAD = 32) luma reference of 720p,
@@ -98,7 +111,9 @@ K1_SIZES = {"720p": (784, 1344), "1080p": (1152, 1984),
             "2160p": (2224, 3904), "720p_refs2": (784, 2688)}
 # the encoder's per-frame stages (encoder_torch.StageTimer), in order
 ENC_STAGES = ("upload", "dense_search", "subpel_k1", "residual", "fetch",
-              "intra", "deblock_edge_params", "deblock_k2", "write")
+              "intra", "deblock_edge_params", "deblock_k2", "write",
+              "denoise", "scene_cut", "rc", "scroll", "aq_maps",
+              "dyn_slice_reencode")
 # 3 six-taps (b, h, j) of 11 ops, 3 round-and-clamps of 4 ops and the j
 # pass over the b sums: ~50 int32 ops per output position
 K1_OPS_PER_POSITION = 50
@@ -336,106 +351,161 @@ def stage_decode(data, device):
             store_ms=(t5 - t4) * 1e3))
 
 
+def expected_launches(runs):
+    """K1 and K2 launches that JaxEncoder's control flow implies for the
+    encodes `runs` ((deblock_idc, kind, path, is_ref, intra MBs) each, from
+    TorchEncoder.encodes): K1 once per P encode; K2 once per encode that
+    deblocks, which is every encode with the filter on but a fused-path
+    P frame that is not a reference and has no intra MB."""
+    k1 = sum(kind == "P" for _, kind, _, _, _ in runs)
+    k2 = sum(idc != 1 and (path == "aq" or kind == "I" or is_ref or n_intra)
+             for idc, kind, path, is_ref, n_intra in runs)
+    return k1, k2
+
+
 def encode_phase(frames, dev, card):
-    """Phase 6: configurations A and B of the encode golden on the card.
-    `frames` are phase 5's decoded frames (host tensors), which that
-    phase held to the NpDecoder CRCs the golden's source frames also
-    match. Returns the K1 / K2 launches of the encode pass and the
-    number of frames encoded."""
+    """Phase 6: configurations A and B of the encode golden, and C, D and
+    E of its sibling, on the card. `frames` are phase 5's decoded frames
+    (host tensors), which that phase held to the NpDecoder CRCs the
+    golden's source frames also match. Returns the K1 / K2 launches of
+    the encode pass and the number of frames encoded."""
     import hashlib
     from losslessh264_tpu_torch import decoder_torch as dt
     from losslessh264_tpu_torch import encoder_torch as et
-    from losslessh264_tpu_torch import native
+    from losslessh264_tpu_torch import simulcast
+    from losslessh264_tpu_torch.cases import golden_encoder
     from losslessh264_tpu_torch.ops import deblock as tdb
     from losslessh264_tpu_torch.ops import mc as tmc
-    gold = json.load(open(ENC_GOLDEN))
+    configs = []
+    for path, names in ((ENC_GOLDEN, "AB"), (ENC_GOLDEN_CDE, "CDE")):
+        gold = json.load(open(path))
+        configs += [(name, gold[name]) for name in names]
     W, H = gold["source"]["width"], gold["source"]["height"]
-    configs = [(name, gold[name]) for name in ("A", "B")]
     src = [tuple(np.ascontiguousarray(p.numpy()) for p in f)
            for f in frames[:max(len(c["frames"]) for _, c in configs)]]
 
     def encode(cfg, stages):
-        """(per-frame bytes, per-frame recon on the card, wall s, stage
-        rows) of one encode of cfg's frames."""
-        enc = et.TorchEncoder(W, H, device=dev, **cfg["kwargs"])
-        out, recon, rows = [], [], []
+        """(per-frame bytes (per layer for simulcast), per-frame recon of
+        every layer on the card, wall s, stage rows, encodes run) of one
+        encode of cfg's frames."""
+        enc = golden_encoder(cfg, W, H, dev)
+        layers = enc.encs if "simulcast" in cfg else [enc]
+        out, recon, rows, runs = [], [], [], []
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for f in src[:len(cfg["frames"])]:
+        for i, f in enumerate(src[:len(cfg["frames"])]):
+            for call in cfg.get("calls", {}).get(str(i), ()):
+                getattr(enc, call)()
             if stages:
-                enc.stages = et.StageTimer(dev)
-            out.append(enc.encode_frame(*f))
-            recon.append(tuple(p.clone() for p in enc.ref))
+                for e in layers:
+                    e.stages = et.StageTimer(dev)
+            out.append(enc.encode_frame_layers(*f) if "simulcast" in cfg
+                       else enc.encode_frame(*f))
+            recon.append([tuple(p.clone() for p in e.ref) for e in layers])
+            runs += [(e.deblock_idc,) + r for e in layers for r in e.encodes]
             if stages:
-                rows.append(enc.stages.ms)
+                rows.append([e.stages.ms for e in layers])
         torch.cuda.synchronize()
-        return out, recon, time.perf_counter() - t0, rows
+        return out, recon, time.perf_counter() - t0, rows, runs
+
+    def crc(planes):
+        return zlib.crc32(b"".join(p.cpu().numpy().tobytes() for p in planes))
 
     def check(name, cfg, out, recon):
         for i, (data, rec, g) in enumerate(zip(out, recon, cfg["frames"])):
-            sha = hashlib.sha256(data).hexdigest()
-            crc = zlib.crc32(b"".join(p.cpu().numpy().tobytes()
-                                      for p in rec))
-            if (len(data), sha, crc) != (g["bytes"], g["sha256"],
-                                         g["recon_crc32"]):
-                raise SystemExit(
-                    f"encode {name} frame {i}: {len(data)} bytes sha256 "
-                    f"{sha[:16]} recon crc {crc}, golden {g['bytes']} bytes "
-                    f"{g['sha256'][:16]} crc {g['recon_crc32']}")
+            per_layer = g["layers"] if "layers" in g else [g]
+            data = data if "layers" in g else [data]
+            for li, (d, r, gl) in enumerate(zip(data, rec, per_layer)):
+                sha = hashlib.sha256(d).hexdigest()
+                if (len(d), sha, crc(r)) != (gl["bytes"], gl["sha256"],
+                                             gl["recon_crc32"]):
+                    raise SystemExit(
+                        f"encode {name} frame {i} layer {li}: {len(d)} bytes "
+                        f"sha256 {sha[:16]} recon crc {crc(r)}, golden "
+                        f"{gl['bytes']} bytes {gl['sha256'][:16]} crc "
+                        f"{gl['recon_crc32']}")
 
-    # pass 1: encode fps, the golden, the launch counts
-    tmc.halfpel_planes.launches = 0
-    tdb.deblock_wavefront.launches = 0
-    streams, n_frames, n_p = {}, 0, 0
+    def closed_loop(name, cfg, out, recon):
+        """The port's decoders on the card against the encoder: the recon
+        after every reference frame (A, B: after every frame) and the JAX
+        decoders' pictures of the golden (C, D: NpDecoder's; E:
+        SimulcastDecoder's)."""
+        if "simulcast" in cfg:
+            streams = [b"".join(au[li] for au in out)
+                       for li in range(len(out[0]))]
+            pics = list(simulcast.SimulcastDecoder(
+                streams, error_concealment=False, device=dev).frames())
+        else:
+            pics = list(dt.TorchDecoder(b"".join(out), device=dev,
+                                        error_concealment=False).frames())
+        if len(pics) != len(out):
+            raise SystemExit(f"encode {name}: decoded {len(pics)} of "
+                             f"{len(out)} frames")
+        for i, pic in enumerate(pics):
+            if "decoded_crc32" in cfg and crc(pic) != cfg["decoded_crc32"][i]:
+                raise SystemExit(f"encode {name} frame {i}: decoded CRC "
+                                 f"{crc(pic)}, the JAX decoder's "
+                                 f"{cfg['decoded_crc32'][i]}")
+            ref = cfg["frames"][i].get("is_ref", "layers" not in cfg[
+                "frames"][i])
+            if ref and not all(torch.equal(a, b)
+                               for a, b in zip(pic, recon[i][0])):
+                raise SystemExit(f"encode {name} frame {i}: the decoded "
+                                 "frame differs from the encoder's recon")
+        what = ("the JAX SimulcastDecoder's pictures" if "simulcast" in cfg
+                else "the encoder's recon of every reference frame"
+                + (" and NpDecoder's pictures" if "decoded_crc32" in cfg
+                   else ""))
+        log(f"encode {name}: the port's decoder on the card reproduces "
+            f"{what} ({len(pics)} frames)")
+
+    # pass 1: encode fps, the golden, the launch counts (set to 0 before
+    # each configuration, checked against what its encodes imply)
+    launches = {"K1": 0, "K2": 0}
+    streams, n_frames = {}, 0
     for name, cfg in configs:
-        out, recon, wall, _ = encode(cfg, False)
+        tmc.halfpel_planes.launches = 0
+        tdb.deblock_wavefront.launches = 0
+        out, recon, wall, _, runs = encode(cfg, False)
+        got = (tmc.halfpel_planes.launches, tdb.deblock_wavefront.launches)
         check(name, cfg, out, recon)
         streams[name] = (out, recon)
         n_frames += len(out)
-        syms = list(native.SymbolDecoder(b"".join(out)))
-        n_p += sum(not f["is_idr"] for f in syms)
-        intra = [int(np.isin(f["mb_class"], (0, 1, 2)).sum()) for f in syms]
-        log(f"encode {name} {cfg['kwargs']}: {len(out)} frames {W}x{H} "
-            f"match the JaxEncoder golden (SHA-256 and recon CRC32); "
-            f"{wall:.3f} s = {len(out) / wall:.4f} fps on {card}; bytes "
-            f"{[len(d) for d in out]}, intra MBs {intra}")
-    launches = {"K1": tmc.halfpel_planes.launches,
-                "K2": tdb.deblock_wavefront.launches}
-    log(f"launches during encode: K1 halfpel {launches['K1']} for {n_p} P "
-        f"frames, K2 deblock {launches['K2']} for {n_frames} frames")
-    if launches["K1"] != n_p or launches["K2"] != n_frames or n_p == 0:
-        raise SystemExit("encode: K1 must launch once per P frame and K2 "
-                         "once per frame")
+        want = expected_launches(runs)
+        sizes = [len(d) if isinstance(d, bytes) else [len(x) for x in d]
+                 for d in out]
+        log(f"encode {name} {cfg.get('kwargs', cfg.get('simulcast'))}: "
+            f"{len(out)} frames {W}x{H} match the JAX golden (SHA-256 and "
+            f"recon CRC32); {wall:.3f} s = {len(out) / wall:.4f} fps on "
+            f"{card}; bytes {sizes}; "
+            f"encodes (kind, path, is_ref, intra MBs) "
+            f"{[r[1:] for r in runs]}; launches K1 {got[0]}, K2 {got[1]}, "
+            f"implied {want[0]}, {want[1]}")
+        if got != want or want[0] == 0:
+            raise SystemExit(f"encode {name}: K1/K2 launched {got}, the "
+                             f"encodes imply {want}")
+        launches["K1"] += got[0]
+        launches["K2"] += got[1]
+    log(f"launches during encode: K1 halfpel {launches['K1']}, K2 deblock "
+        f"{launches['K2']} for {n_frames} frames")
 
-    # closed loop: the port's decoder on the card reconstructs the
-    # encoder's recon from the encoder's bytes
-    for name, (out, recon) in streams.items():
-        dec = dt.TorchDecoder(b"".join(out), device=dev,
-                              error_concealment=False)
-        n = 0
-        for i, yuv in enumerate(dec.frames()):
-            if not all(torch.equal(a, b) for a, b in zip(yuv, recon[i])):
-                raise SystemExit(f"encode {name} frame {i}: the decoded "
-                                 "frame differs from the encoder's recon")
-            n += 1
-        if n != len(out):
-            raise SystemExit(f"encode {name}: decoded {n} of {len(out)} "
-                             "frames")
-        log(f"encode {name}: TorchDecoder on the card reproduces the "
-            f"encoder's recon of all {n} frames")
+    for name, cfg in configs:
+        closed_loop(name, cfg, *streams[name])
 
     # pass 2: per-stage wall times of every frame (a synchronize ends
     # each stage)
     for name, cfg in configs:
-        out, recon, wall, rows = encode(cfg, True)
+        out, recon, wall, rows, _ = encode(cfg, True)
         check(name, cfg, out, recon)
-        for i, ms in enumerate(rows):
-            unknown = set(ms) - set(ENC_STAGES)
-            if unknown:
-                raise SystemExit(f"encode: unlisted stages {unknown}")
-            log(f"encode stage {name} frame {i}: " + json.dumps(
-                {k: round(ms.get(k, 0.0), 3) for k in ENC_STAGES})
-                + f" total {sum(ms.values()):.3f} ms on {card}")
+        for i, per_layer in enumerate(rows):
+            for li, ms in enumerate(per_layer):
+                unknown = set(ms) - set(ENC_STAGES)
+                if unknown:
+                    raise SystemExit(f"encode: unlisted stages {unknown}")
+                layer = f" layer {li}" if len(per_layer) > 1 else ""
+                log(f"encode stage {name} frame {i}{layer}: " + json.dumps(
+                    {k: round(ms.get(k, 0.0), 3) for k in ENC_STAGES})
+                    + f" total {sum(ms.values()):.3f} ms on {card}")
         log(f"encode stage {name}: {wall:.3f} s for {len(out)} frames with "
             f"stage timing on {card}")
     return launches, n_frames

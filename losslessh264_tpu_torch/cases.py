@@ -1,7 +1,8 @@
 """Seeded inputs shared by the tests, chip_smoke.py and tools/kernel_ab.py:
 random cases for holding K2 (csrc/deblock.cu) against its plain version,
-so that all three check and time the same cases, and the translating
-noise frames the encoder's tests encode."""
+so that all three check and time the same cases, the translating noise
+frames the encoder's tests encode, and the encoders of the encode
+goldens' configurations (tests/data/synth720p_enc_golden*.json)."""
 import numpy as np
 import torch
 
@@ -61,3 +62,22 @@ def moving_frames(n=4, W=64, H=48, seed=7):
         V = np.full((H // 2, W // 2), 200, np.uint8)
         frames.append((Y, U, V))
     return frames
+
+
+def golden_encoder(cfg, width, height, device):
+    """The port's encoder of one configuration of an encode golden (its
+    JSON entry: `kwargs` with an optional `rc` spec, or `simulcast`),
+    built as tools/gen_enc_golden.make_encoder builds the JAX package's."""
+    from . import ratectl
+    from .encoder_torch import TorchEncoder
+    from .simulcast import SimulcastEncoder
+    if "simulcast" in cfg:
+        return SimulcastEncoder(width, height, device=device,
+                                **cfg["simulcast"])
+    kw = dict(cfg["kwargs"])
+    if "rc" in cfg:
+        spec = dict(cfg["rc"])
+        kw["rc"] = getattr(ratectl, spec.pop("kind"))(
+            spec.pop("bitrate_bps"), spec.pop("fps"), **spec)
+    return TorchEncoder(width, height, device=device, **kw)
+

@@ -100,11 +100,11 @@ def write_frame(lib, mw, mh, qp, frame_idx, slice_type, mb_class, mv,
 
 
 def mv_preds(lib, mb_w, mb_h, n_slices, mb_class, mv, mv8=None,
-             ref_plane=None):
+             ref_plane=None, row_slice=None):
     """(skip_pred, p16_pred) [n, 2] int16: the P_Skip and P16x16 motion
     vector predictors of every MB under the final classes, with slices of
-    whole MB rows in equal shares (JaxEncoder passes a row plan only for
-    size-capped slices, which are not ported)."""
+    whole MB rows in equal shares, or by the row plan `row_slice` ([mb_h]
+    slice index per MB row) of size-capped slices."""
     n = mb_w * mb_h
     skip_pred = np.zeros((n, 2), np.int16)
     p16_pred = np.zeros((n, 2), np.int16)
@@ -115,8 +115,11 @@ def mv_preds(lib, mb_w, mb_h, n_slices, mb_class, mv, mv8=None,
         mv8 = np.ascontiguousarray(mv8, np.int16)
     if ref_plane is not None:
         ref_plane = np.ascontiguousarray(ref_plane, np.int8)
+    if row_slice is not None:
+        row_slice = np.ascontiguousarray(row_slice, np.intc)
     rc = lib.pip_encode_mv_preds(
-        mb_w, mb_h, n_slices, None, _ptr(mbc),
+        mb_w, mb_h, n_slices, None if row_slice is None else _ptr(row_slice),
+        _ptr(mbc),
         _ptr(mv16), None if mv8 is None else _ptr(mv8),
         None if ref_plane is None else _ptr(ref_plane),
         _ptr(skip_pred), _ptr(p16_pred), err, len(err))

@@ -1,18 +1,27 @@
-"""IPPP H.264 encoder with the analysis on PyTorch (one frame at a time).
+"""H.264 encoder with the analysis on PyTorch (one frame at a time).
 
-Port of the fused per-frame path of losslessh264_tpu/encoder_jax.py
-(`JaxEncoder.encode_frame` over `_i_frame`, `_p_analyze`, `_p_finish`
-and `_p_intra_fixup`). Per P frame, on the device: the dense integer-pel
-search per reference (ops/me.py), the partition decision, the half-pel
-planes of the width-concatenated reference (the K1 kernel on CUDA),
-quarter-pel refinement, the intra-fallback test, chroma MC and the
-forward transform / quantization / recon of every MB; intra MBs (all of
-an IDR, the fallback MBs of a P frame) go through the slope-2 intra
-wavefront (plain torch, 16 sequential I4x4 blocks per MB, batched over a
-diagonal's MBs), and every reference frame is deblocked by the K2 kernel
-on CUDA. The host reads the frame's symbol planes with one copy, decides
-P_Skip with the native writer's MV predictors, and writes the slices with
-the native CAVLC / CABAC writer (encoder_native.py).
+Port of losslessh264_tpu/encoder_jax.py (`JaxEncoder.encode_frame` and its
+frame programs `_i_frame`, `_p_analyze`, `_p_finish`, `_p_intra_fixup`,
+`_encode_i_aq`, `_encode_p_aq`). Per P frame, on the device: the dense
+integer-pel search per reference (ops/me.py), optionally around a detected
+scroll, the partition decision, the half-pel planes of the
+width-concatenated reference (the K1 kernel on CUDA), quarter-pel
+refinement, the intra-fallback test, chroma MC and the forward transform /
+quantization / recon of every MB; intra MBs (all of an IDR, the fallback
+MBs of a P frame) go through the slope-2 intra wavefront (plain torch, 16
+sequential I4x4 blocks per MB, batched over a diagonal's MBs), and the
+reference is deblocked by the K2 kernel on CUDA. The host reads the
+frame's symbol planes, decides P_Skip with the native writer's MV
+predictors, and writes the slices with the native CAVLC / CABAC writer
+(encoder_native.py).
+
+Every option of JaxEncoder is here: rate control (ratectl.py: frame skip,
+per-frame QP, the per-row GOM plane), AQ and background detection (the
+per-MB QP path), scroll-recentred search, denoise (processing.py), scene
+cuts, temporal layers 2-4 (non-reference T1 frames; hierarchical P with
+RPLR and MMCO), long-term references, size-capped slices (row plans from
+the writer's measured row bits, with one re-encode), several slices, two
+references, parameter-set ids (simulcast.py), trellis-lite and cropping.
 
 Left out on purpose (TPU workarounds of JaxEncoder): the scanned
 multi-frame P program and its sparse transport (`_p_batch`,
@@ -21,12 +30,7 @@ gives the same bytes), the int8 packing of the symbol fetch with its
 int16 re-fetch, and the masked lanes of the intra wavefront: a diagonal
 step runs only the MBs it encodes, and diagonals without one are skipped.
 
-Options not ported yet raise NotImplementedError: rate control, AQ,
-GOM RC, background and scroll detection, denoise and simulcast ids
-(ROADMAP M9), temporal layers, LTR and size-capped slices (ROADMAP M8).
-
-Byte- and recon-exact vs JaxEncoder on the CPU
-(tests/test_torch_encoder.py, tests/test_torch_encoder_modes.py).
+Byte- and recon-exact vs JaxEncoder on the CPU (tests/test_torch_encoder*.py).
 """
 from __future__ import annotations
 
@@ -38,6 +42,7 @@ import torch.nn.functional as F
 
 from . import encoder_native
 from . import processing
+from . import ratectl
 from .decoder_torch import (BLK, PAD, WPAD, _I4_TR_KIND, _edge_pad,
                             _plane_to_tiles, _tiles_to_plane)
 from .ops import deblock as tdb
@@ -57,11 +62,6 @@ FLAT4 = np.full((4, 4), 16, np.int32)
 LAMBDA = np.asarray(
     [max(1, round(0.92 * 2.0 ** ((q - 12) / 6.0))) for q in range(52)],
     np.int32)
-
-# scene-change classes of losslessh264_tpu/ratectl.py
-SCENE_IDC_NONE = 0
-SCENE_IDC_MEDIUM = 1
-SCENE_IDC_LARGE = 2
 
 # symbol rows fetched per MB (the column meanings of the JAX package's
 # _unpack / _pack_meta, without its transport biases): 427 symbol columns
@@ -354,15 +354,20 @@ def intra_wavefront(mb_w, mb_h, srcY, srcU, srcV, inter_y, inter_u, inter_v,
 # inter path: ME + refinement + residual of every P MB, batched
 # ---------------------------------------------------------------------------
 def encode_inter_mbs(mb_w, mb_h, radius, Y, U, V, refY_s, refU_s, refV_s,
-                     qp, qpc, rd_lam=None, stage=_no_stage):
+                     qp, qpc, scroll_dy=0, rd_lam=None, stage=_no_stage):
     """Whole-frame P-MB analysis.
 
     refY_s/refU_s/refV_s: [R,H+2P,W+2P] edge-padded reference stacks
     (PAD 32 luma / 16 chroma; R = 1 or 2 short-term references, newest
     first). With R = 2 every MB picks its reference by ME cost, and the
     choice becomes an x offset into width-concatenated reference planes,
-    so refinement and MC run once over both. `stage(name)` is called as
-    each stage ends (dense_search, subpel_k1, residual). Returns (mvx,
+    so refinement and MC run once over both. scroll_dy (host int) moves
+    the integer search window down by that many rows (a detected global
+    scroll); JAX clamps the window's start, torch does not, so its bound
+    is checked here: the window and the refinement's reach (radius +
+    |scroll_dy| + 4 px) stay inside PAD, as the encoder's clamp keeps
+    them. `stage(name)` is called as each stage ends (dense_search,
+    subpel_k1, residual). Returns (mvx,
     mvy, use_intra, part, ref_sel, mv8, mvq, luma_ac zigzag, chroma_dc,
     chroma_ac, tile_y, tile_u, tile_v, no_res), as encoder_jax does."""
     n = mb_w * mb_h
@@ -386,9 +391,13 @@ def encode_inter_mbs(mb_w, mb_h, radius, Y, U, V, refY_s, refU_s, refV_s,
     # integer-pel search per reference at the full radius, every
     # partition shape at once
     Hf, Wf = Y.shape
+    sdy = int(scroll_dy)
+    if abs(sdy) > PAD - 4 - radius - 1:
+        raise ValueError(f"scroll_dy {sdy}: the search window leaves the "
+                         f"{PAD}-pixel reference padding")
     o = PAD - radius
     dres = [tme.dense_full_search(Y.to(i32),
-                                  refY_s[k, o:o + Hf + 2 * radius,
+                                  refY_s[k, o + sdy:o + sdy + Hf + 2 * radius,
                                          o:o + Wf + 2 * radius], radius)
             for k in range(R)]
     d16, dh, dv, d8 = dres[0]
@@ -427,7 +436,7 @@ def encode_inter_mbs(mb_w, mb_h, radius, Y, U, V, refY_s, refU_s, refV_s,
         a = torch.where(pn == 2, av.reshape(n, 2)[:, quad % 2], a)
         return torch.where(pn == 3, a8.reshape(n, 4), a)
 
-    ivy_q = _qsel(d16[0], dh[0], dv[0], d8[0]).reshape(n * 4)
+    ivy_q = _qsel(d16[0], dh[0], dv[0], d8[0]).reshape(n * 4) + sdy
     ivx_q = _qsel(d16[1], dh[1], dv[1], d8[1]).reshape(n * 4)
 
     by8 = (mby0[:, None] + (quad // 2)[None, :] * 8).reshape(-1)   # [4n]
@@ -571,6 +580,14 @@ def _sym_rows(luma_dc, luma_ac, chroma_dc, chroma_ac, i16_mode,
                      1).to(torch.int16)
 
 
+def _meta_rows(mvx, mvy, use_intra, no_res, part, mv8, ref_sel):
+    """[n, META_W] int16 meta rows of a P frame (column meanings above)."""
+    n = mvx.shape[0]
+    return torch.cat([torch.stack([mvx, mvy, use_intra.to(torch.int32),
+                                   no_res.to(torch.int32), part], 1),
+                      mv8.reshape(n, 8), ref_sel[:, None]], 1).to(torch.int16)
+
+
 def _unpack(rows):
     """Host views (luma_dc, luma_ac [n,16,16], chroma_dc [n,2,4],
     chroma_ac [n,8,16], i16_mode, chroma_mode, intra_cls, i4_modes) of
@@ -582,7 +599,7 @@ def _unpack(rows):
 
 
 def _p_analyze(mb_w, mb_h, radius, buf, refY, refU, refV, qp, qpc,
-               rd_lam=None, stage=_no_stage):
+               scroll_dy=0, rd_lam=None, stage=_no_stage):
     """A P frame's analysis: split the source, pad the references, run
     the inter analysis, and gather the [n, 406] int16 rows the host
     fetches, plus the deblock prep planes."""
@@ -592,12 +609,11 @@ def _p_analyze(mb_w, mb_h, radius, buf, refY, refU, refV, qp, qpc,
     (mvx, mvy, use_intra, part, ref_sel, mv8, mvq, qac_zz, cdc, cac,
      tile_y, tile_u, tile_v, no_res) = encode_inter_mbs(
         mb_w, mb_h, radius, Y, U, V, refY_s, refU_s, refV_s, qp, qpc,
-        rd_lam, stage)
-    meta = torch.cat([torch.stack([mvx, mvy, use_intra.to(torch.int32),
-                                   no_res.to(torch.int32), part], 1),
-                      mv8.reshape(n, 8), ref_sel[:, None]], 1)
-    packed = torch.cat([meta, qac_zz.reshape(n, 256), cdc.reshape(n, 8),
-                        cac.reshape(n, 128)], 1).to(torch.int16)
+        scroll_dy, rd_lam, stage)
+    meta = _meta_rows(mvx, mvy, use_intra, no_res, part, mv8, ref_sel)
+    packed = torch.cat([meta, qac_zz.reshape(n, 256).to(torch.int16),
+                        cdc.reshape(n, 8).to(torch.int16),
+                        cac.reshape(n, 128).to(torch.int16)], 1)
     # deblock prep (the host's later P_Skip / I4 class refinements do not
     # change boundary strengths: skip stays inter with the same MV/nnz,
     # I4 stays intra)
@@ -697,23 +713,19 @@ class StageTimer:
 # ---------------------------------------------------------------------------
 # host-side frame driver
 # ---------------------------------------------------------------------------
-_NOT_PORTED = (
-    ("rc", "rate control", "M9 (ratectl.py)"),
-    ("aq", "adaptive quantization", "M9 (processing.py)"),
-    ("gom_rc", "GOM rate control", "M9 (ratectl.py)"),
-    ("bgd", "background detection", "M9 (processing.py)"),
-    ("scroll_me", "scroll-detected ME", "M9 (processing.py)"),
-    ("denoise", "denoise", "M9 (processing.py)"),
-    ("param_id", "parameter-set ids (simulcast)", "M9 (simulcast.py)"),
-    ("ltr", "long-term references", "M8 (LTR)"),
-    ("slice_max_bytes", "size-capped slices", "M8 (slice_max_bytes)"),
-)
-
-
 class TorchEncoder:
     """IPPP encoder with the analysis on one torch device; the entropy
-    writer is the shared native layer. device="cuda" (the default)
-    raises when no GPU is present; there is no fallback to the CPU."""
+    writer is the shared native layer. Takes every option of JaxEncoder
+    and refuses the same combinations (ValueError where JaxEncoder
+    asserts). device="cuda" (the default) raises when no GPU is present;
+    there is no fallback to the CPU.
+
+    Two frame paths, as in JaxEncoder: the fused path (flat QP) and, with
+    aq, gom_rc or bgd, the per-MB QP path (`_encode_i_aq` /
+    `_encode_p_aq`), which filters the reference after the write with the
+    writer's QP chain. `encodes` lists what the last encode_frame call ran,
+    one (kind "I"/"P", path "fused"/"aq", is_ref, intra MBs) per encode
+    (two when a size-capped slice forced the one re-encode)."""
 
     ME_RADIUS = 16
 
@@ -723,23 +735,21 @@ class TorchEncoder:
                  gom_rc=False, ltr=False, refs=1, denoise=False,
                  param_id=0, bgd=False, scroll_me=False,
                  slice_max_bytes=None, trellis=False, device="cuda"):
-        opts = dict(rc=rc is not None, aq=aq, gom_rc=gom_rc, bgd=bgd,
-                    scroll_me=scroll_me, denoise=denoise,
-                    param_id=param_id != 0, ltr=ltr,
-                    slice_max_bytes=bool(slice_max_bytes))
-        for key, what, item in _NOT_PORTED:
-            if opts[key]:
-                raise NotImplementedError(
-                    f"TorchEncoder: {what} ({key}=) is not ported yet; "
-                    f"ROADMAP {item}")
-        if temporal_layers != 1:
-            raise NotImplementedError(
-                "TorchEncoder: temporal layers (temporal_layers=) are not "
-                "ported yet; ROADMAP M8 (temporal layers 2-4)")
         if width % 2 or height % 2:
             raise ValueError("4:2:0 needs even dims")
+        if slice_max_bytes is not None and slices != 1:
+            raise ValueError("slice_max_bytes replaces the fixed slice count")
+        if temporal_layers not in (1, 2, 3, 4):
+            raise ValueError("1..4 temporal layers")
+        if temporal_layers > 2 and (refs != 1 or ltr or aq or gom_rc):
+            raise ValueError("hierarchical layers need the plain single-ref "
+                             "path")
         if refs not in (1, 2):
             raise ValueError("1 or 2 reference frames")
+        if refs == 2 and ltr:
+            raise ValueError("refs=2 and LTR are exclusive")
+        if refs == 2 and (aq or gom_rc):
+            raise ValueError("refs=2 requires the fused (non-AQ) path")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("TorchEncoder: device 'cuda' requested but "
@@ -755,14 +765,46 @@ class TorchEncoder:
         self.qpc = int(CHROMA_QP[self.qp])
         self.gop = gop
         self.intra_only = intra_only
+        self.rc = rc                 # any ratectl.* controller
         self.scene_cut = scene_cut   # IDR on detected scene changes
+        self.aq = aq                 # per-MB adaptive quantization
+        self.gom_rc = gom_rc and rc is not None  # per-MB-row RC dqp
+        self.bgd = bool(bgd)         # +2 QP on static background MBs
+        self.scroll_me = bool(scroll_me)  # search around a detected scroll
+        self._scroll_dy = 0
         self.trellis_lam = 144 if trellis else None
         self.cabac = cabac
         self.slices = max(1, min(int(slices), self.mb_h))
+        # size-capped slices: row-granular slice plans from the previous
+        # frame's measured per-row bits (the writer feeds them back)
+        self.slice_max_bytes = (int(slice_max_bytes) if slice_max_bytes
+                                else None)
+        self._row_bits = None
+        self._row_bits_buf = (np.zeros(self.mb_h, np.uint32)
+                              if slice_max_bytes else None)
         # in-loop filter: idc 0 filters everything, 2 keeps slices
-        # independent, 1 = off
-        self.deblock_idc = (2 if self.slices > 1 else 0) if deblock else 1
+        # independent (several slices, or size-capped ones), 1 = off
+        multi = self.slices > 1 or slice_max_bytes
+        self.deblock_idc = (2 if multi else 0) if deblock else 1
+        # dyadic temporal scalability: L=2 makes odd frames non-reference
+        # T1 frames; L=3/4 is hierarchical P (each frame predicts from its
+        # dyadic parent; RPLR brings the parent to L0[0], MMCO 1 drops
+        # stale same-or-higher-layer references)
+        self.temporal_layers = temporal_layers
+        self._gop_pos = 0
+        self._dpb = []        # [{pos, fn, layer, recon}] for L >= 3
+        self._sps_refs = temporal_layers - 1 if temporal_layers >= 3 else 0
+        self._rplr_diff = 0
+        self._mmco_drops = None
+        # long-term reference: IDRs seed it, mark_ltr() re-marks it,
+        # recover_from_ltr() makes the next P frame predict from it
+        self.ltr = bool(ltr)
+        self._ltr_ref = None
+        self._mark_ltr_next = False
+        self._use_ltr_next = False
         self.refs = refs
+        self.param_id = int(param_id)  # SPS/PPS id (simulcast layers)
+        self.denoise = bool(denoise)   # luma flat-region filter first
         self._force_idr = False
         self.ref = None        # (Y, U, V) uint8 recon planes on the device
         self._ref2 = None      # second-newest recon (refs=2)
@@ -771,27 +813,38 @@ class TorchEncoder:
         self._idr_id = 0
         self._cur_is_ref = True
         self._prev_src = None  # device luma of the previous source frame
+        self._qp_plane = None  # the per-MB QP plane of the per-MB QP path
+        self._out_qp = None    # the writer's per-MB QP chain (7.4.5)
         rows_per = -(-self.mb_h // self.slices)
-        self._row_slice_np = (np.arange(self.mb_h) // rows_per).astype(
-            np.int32)
-        self._slice_id = torch.as_tensor(
-            np.repeat(self._row_slice_np, self.mb_w), device=self.device)
+        self._set_row_slice((np.arange(self.mb_h) // rows_per).astype(
+            np.int32))
         self._lib = encoder_native.cfg_lib()
         self.stages = None     # a StageTimer to time encode_frame's stages
+        self.encodes = []
 
     # -- helpers ----------------------------------------------------------
     def _stage(self, name):
         if self.stages is not None:
             self.stages(name)
 
+    def _set_row_slice(self, row_slice):
+        self._row_slice_np = row_slice
+        self._slice_id = torch.as_tensor(
+            np.repeat(row_slice, self.mb_w), device=self.device)
+
+    @property
+    def _per_mb_qp(self):
+        return self.aq or self.gom_rc or self.bgd
+
     def _write(self, slice_type, mb_class, mv, i16_mode, chroma_mode,
-               luma_dc, luma_ac, chroma_dc, chroma_ac, i4_modes, mv8=None,
-               n_refs=1, ref_plane=None):
+               luma_dc, luma_ac, chroma_dc, chroma_ac, i4_modes, mb_qp=None,
+               mv8=None, n_refs=1, ref_plane=None):
         n = self.mb_w * self.mb_h
         # the wavefront emits raster-in-MB modes; MbRecord wants decode
         # order
         i4_modes = np.asarray(i4_modes)[:, np.asarray(BLK)]
-        out_qp = np.zeros(n, np.uint8)  # per-MB QP chain (7.4.5)
+        self._out_qp = np.zeros(n, np.uint8)
+        dyn = self.slice_max_bytes is not None
         data = encoder_native.write_frame(
             self._lib, self.mb_w, self.mb_h, self.qp, self.frame_idx,
             slice_type=slice_type, mb_class=np.asarray(mb_class, np.uint8),
@@ -803,27 +856,113 @@ class TorchEncoder:
             luma_ac=np.asarray(luma_ac, np.int16),
             chroma_dc=np.asarray(chroma_dc, np.int16),
             chroma_ac=np.asarray(chroma_ac, np.int16),
-            include_params=self.frame_idx == 0, cabac=self.cabac,
-            n_slices=self.slices, mv8=mv8, deblock_idc=self.deblock_idc,
-            out_qp=out_qp, crop_r=self.pad_w // 2, crop_b=self.pad_h // 2,
+            include_params=self.frame_idx == 0, mb_qp=mb_qp,
+            cabac=self.cabac, n_slices=self.slices, mv8=mv8,
+            deblock_idc=self.deblock_idc, out_qp=self._out_qp,
+            crop_r=self.pad_w // 2, crop_b=self.pad_h // 2,
             is_ref=self._cur_is_ref, frame_num=self._frame_num,
-            idr_id=self._idr_id, n_refs=n_refs, ref_plane=ref_plane)
+            idr_id=self._idr_id, ltr_flags=self._ltr_flags(slice_type),
+            n_refs=n_refs, ref_plane=ref_plane, sps_refs=self._sps_refs,
+            rplr_diff=self._rplr_diff, mmco_drops=self._mmco_drops,
+            param_id=self.param_id,
+            row_slice=self._row_slice_np if dyn else None,
+            out_row_bits=self._row_bits_buf if dyn else None)
+        if dyn:
+            self._row_bits = self._row_bits_buf.copy()
         self._stage("write")
         return data
 
-    def _qp_maps(self):
-        """Per-MB (qp, qpc) planes on the device: flat QP (AQ and the
-        rate controllers are not ported)."""
+    def _plan_dynamic_slices(self):
+        """Row -> slice plan of size-capped slices: greedy accumulation of
+        the predicted per-row bits (the previous frame's measured costs;
+        the first frame takes one row per slice), closing a slice before
+        the row that would pass the cap. True when the plan changed."""
+        budget = self.slice_max_bytes * 8
+        est = self._row_bits
+        if est is None:
+            est = np.full(self.mb_h, budget, np.float64)
+        sl = np.zeros(self.mb_h, np.int32)
+        acc, s = 0.0, 0
+        for r in range(self.mb_h):
+            if r > 0 and acc + float(est[r]) > budget:
+                s += 1
+                acc = 0.0
+            sl[r] = s
+            acc += float(est[r])
+        changed = not np.array_equal(sl, self._row_slice_np)
+        self._set_row_slice(sl)
+        return changed
+
+    def _dyn_slice_violated(self):
+        """True when a slice of more than one row passed the byte cap."""
+        bits = self._row_bits.astype(np.float64)
+        sl = self._row_slice_np
+        for s in range(sl.max() + 1):
+            rows = np.where(sl == s)[0]
+            if rows.size > 1 and bits[rows].sum() > self.slice_max_bytes * 8:
+                return True
+        return False
+
+    def _ltr_flags(self, slice_type):
+        if not self.ltr:
+            return 0
+        flags = 1
+        if slice_type == 0 and self._mark_ltr_next and self._cur_is_ref:
+            flags |= 2
+        if slice_type == 0 and self._use_ltr_next:
+            flags |= 4
+        return flags
+
+    def mark_ltr(self):
+        """Mark the next reference frame as the long-term reference."""
+        if not self.ltr:
+            raise ValueError("encoder not in LTR mode")
+        self._mark_ltr_next = True
+
+    def recover_from_ltr(self):
+        """Make the next P frame predict from the long-term reference
+        instead of the previous frame (loss recovery without an IDR)."""
+        if not self.ltr:
+            raise ValueError("encoder not in LTR mode")
+        self._use_ltr_next = True
+
+    def _qp_maps(self, Yd=None):
+        """Per-MB (qp, qpc) planes on the device: flat QP, or with aq,
+        gom_rc or bgd the per-MB plane (AQ offsets, the rate controller's
+        per-row dqp, +2 on static background), clipped to 10..51; the
+        uint8 plane for the writer is kept in `_qp_plane`."""
         n = self.mb_w * self.mb_h
-        return (torch.full((n,), self.qp, dtype=torch.int32,
-                           device=self.device),
-                torch.full((n,), self.qpc, dtype=torch.int32,
-                           device=self.device))
+        if not self._per_mb_qp:
+            return (torch.full((n,), self.qp, dtype=torch.int32,
+                               device=self.device),
+                    torch.full((n,), self.qpc, dtype=torch.int32,
+                               device=self.device))
+        prev = self._prev_src
+        qp_map = np.full(n, self.qp)
+        if self.aq:
+            dqp, _ = processing.adaptive_quant_map(
+                Yd, prev if prev is not None else Yd)
+            qp_map = qp_map + dqp.reshape(n)
+        if self.gom_rc and prev is not None:
+            diff = torch.abs(Yd.to(torch.int32) - prev.to(torch.int32))
+            row_cx = diff.reshape(self.mb_h, 16, -1).sum(
+                (1, 2), dtype=torch.int32).cpu().numpy()
+            qp_map = qp_map + np.repeat(self.rc.gom_dqp(row_cx), self.mb_w)
+        if self.bgd and prev is not None:
+            bg = processing.background_mask(Yd, prev).cpu().numpy()
+            qp_map = qp_map + 2 * bg.reshape(n).astype(np.int32)
+        qp_map = np.clip(qp_map, 10, 51)
+        self._qp_plane = qp_map.astype(np.uint8)
+        self._stage("aq_maps")
+        return (torch.as_tensor(qp_map.astype(np.int32), device=self.device),
+                torch.as_tensor(CHROMA_QP[qp_map].astype(np.int32),
+                                device=self.device))
 
     def _mv_preds(self, mb_class, mv, mv8=None, ref_plane=None):
-        return encoder_native.mv_preds(self._lib, self.mb_w, self.mb_h,
-                                       self.slices, mb_class, mv, mv8,
-                                       ref_plane)
+        return encoder_native.mv_preds(
+            self._lib, self.mb_w, self.mb_h, self.slices, mb_class, mv, mv8,
+            ref_plane,
+            self._row_slice_np if self.slice_max_bytes else None)
 
     def _host_buf(self, Y, U, V):
         """Packed host frame: Y on top, U|V side by side below (the
@@ -841,9 +980,74 @@ class TorchEncoder:
         buf[H:, W // 2:] = V
         return buf
 
+    def _upload(self, Y, U, V):
+        """The packed frame on the device: one host-to-device copy of
+        numpy planes, or built on the device from tensors (the simulcast
+        layers' planes), with the same edge padding."""
+        if not isinstance(Y, torch.Tensor):
+            return torch.from_numpy(self._host_buf(Y, U, V)).to(self.device)
+        H, W = self.mb_h * 16, self.mb_w * 16
+        dev = self.device
+
+        def edge(p, h, w):
+            p = p.to(dev, torch.uint8)
+            ys = torch.arange(h, device=dev).clamp(max=p.shape[0] - 1)
+            xs = torch.arange(w, device=dev).clamp(max=p.shape[1] - 1)
+            return p[ys[:, None], xs[None, :]]
+
+        buf = torch.empty((H + H // 2, W), dtype=torch.uint8, device=dev)
+        buf[:H] = edge(Y, H, W)
+        buf[H:, :W // 2] = edge(U, H // 2, W // 2)
+        buf[H:, W // 2:] = edge(V, H // 2, W // 2)
+        return buf
+
+    def _denoise(self, buf):
+        """The luma filter of the display-size picture, in place in the
+        uploaded buffer, then the MB padding's edge copies again (JAX
+        filters before it pads)."""
+        h, w = self.height, self.width
+        buf[:h, :w] = processing.denoise(buf[:h, :w])
+        if self.pad_w:
+            buf[:h, w:self.mb_w * 16] = buf[:h, w - 1:w]
+        if self.pad_h:
+            buf[h:self.mb_h * 16] = buf[h - 1:h]
+        self._stage("denoise")
+
+    def _apply_deblock(self, mb_class, luma_ac, mv, mv8=None):
+        """Filter self.ref with the frame just written (per-MB QP path):
+        the final classes, the writer's QP chain, the luma coefficients'
+        nonzero flags and the MVs per 4x4 cell."""
+        if self.deblock_idc == 1:
+            return
+        n = self.mb_w * self.mb_h
+        nnz = (np.asarray(luma_ac, np.int16).reshape(n, 16, 16)
+               != 0).any(axis=2)
+        mv_cells = np.repeat(np.asarray(mv, np.int16)[:, None, :], 16,
+                             axis=1)
+        if mv8 is not None:
+            c = np.arange(16)
+            mv8r = np.asarray(mv8, np.int16).reshape(n, 4, 2)
+            mbc = np.asarray(mb_class)
+            for cls_v, idx in ((4, (c // 4) // 2), (5, (c % 4) // 2),
+                               (6, _CELL_PART8)):
+                m = mbc == cls_v
+                if m.any():
+                    mv_cells[m] = mv8r[:, idx][m]
+        dev = self.device
+        self.ref = _deblock_recon(
+            self.mb_w, self.mb_h, *self.ref,
+            torch.as_tensor(np.asarray(mb_class, np.int32), device=dev),
+            torch.as_tensor(self._out_qp.astype(np.int32), device=dev),
+            torch.as_tensor(nnz, device=dev),
+            torch.as_tensor(mv_cells.astype(np.int32), device=dev),
+            self._slice_id, self.deblock_idc, stage=self._stage)
+
     # -- frame paths ------------------------------------------------------
     def _encode_i(self, buf):
         n = self.mb_w * self.mb_h
+        if self._per_mb_qp:
+            return self._encode_i_aq(buf)
+        self.encodes.append(("I", "fused", self._cur_is_ref, n))
         qp_d, qpc_d = self._qp_maps()
         rows_d, recY, recU, recV = _i_frame(
             self.mb_w, self.mb_h, self.deblock_idc, buf, qp_d, qpc_d, qp_d,
@@ -859,6 +1063,8 @@ class TorchEncoder:
                            i4_modes=m4, n_refs=self.refs)
 
     def _encode_p(self, buf):
+        if self._per_mb_qp:
+            return self._encode_p_aq(buf)
         n = self.mb_w * self.mb_h
         qp_d, qpc_d = self._qp_maps()
         if self.refs == 2 and self._ref2 is not None:
@@ -871,7 +1077,7 @@ class TorchEncoder:
         (packed_d, tile_y, tile_u, tile_v, Yd, Ud, Vd, use_intra_d, cls_d,
          nnz_d, mvc_d, refc_d) = _p_analyze(
             self.mb_w, self.mb_h, self.ME_RADIUS, buf, *stack, qp_d, qpc_d,
-            self.trellis_lam, self._stage)
+            self._scroll_dy, self.trellis_lam, self._stage)
         packed = packed_d.cpu().numpy()  # the frame's one symbol fetch
         self._stage("fetch")
         meta = packed[:, :META_W]
@@ -893,6 +1099,9 @@ class TorchEncoder:
         cm = np.zeros(n, np.int16)
         cls = np.ones(n, np.int16)
         m4 = np.full((n, 16), 2, np.int16)
+        self.encodes.append(("P", "fused", self._cur_is_ref,
+                             int(use_intra.sum())))
+        rec = None
         if use_intra.any():
             rows_d, *rec = _p_intra_fixup(
                 self.mb_w, self.mb_h, self.deblock_idc, Yd, Ud, Vd, tile_y,
@@ -904,7 +1113,9 @@ class TorchEncoder:
             (ldc[idx], lac[idx], cdc[idx], cac[idx], i16m[idx], cm[idx],
              cls[idx], m4[idx]) = _unpack(rows_d.cpu().numpy())
             self._stage("fetch")
-        else:
+        elif self._cur_is_ref:
+            # a non-reference frame (T1) never becomes a reference: no
+            # recon and no deblock for it
             rec = _p_finish(self.mb_w, self.mb_h, self.deblock_idc, tile_y,
                             tile_u, tile_v, cls_d, nnz_d, mvc_d, refc_d,
                             qp_d, self._slice_id, self._stage)
@@ -922,6 +1133,99 @@ class TorchEncoder:
         return self._write(0, mb_class, mv, i16m, cm, ldc, lac, cdc, cac,
                            i4_modes=m4, mv8=mv8, n_refs=n_refs,
                            ref_plane=ref_plane)
+
+    def _encode_i_aq(self, buf):
+        """IDR on the per-MB QP plane: the intra wavefront, the write with
+        mb_qp, then the deblock of the reference."""
+        n = self.mb_w * self.mb_h
+        self.encodes.append(("I", "aq", self._cur_is_ref, n))
+        Yd, Ud, Vd = _split_src(self.mb_h, self.mb_w, buf)
+        qp_d, qpc_d = self._qp_maps(Yd)
+        zt16 = torch.zeros((n, 16, 16), dtype=torch.int32, device=self.device)
+        zt8 = torch.zeros((n, 8, 8), dtype=torch.int32, device=self.device)
+        (i16_mode, intra_cls, i4_modes, chroma_mode, ldc, lac, cdc, cac,
+         recY, recU, recV) = intra_wavefront(
+            self.mb_w, self.mb_h, Yd, Ud, Vd, zt16, zt8, zt8,
+            np.ones(n, bool), qp_d, qpc_d, self._row_slice_np)
+        self._stage("intra")
+        self.ref = (recY, recU, recV)
+        rows = _sym_rows(ldc, lac, cdc, cac, i16_mode, chroma_mode,
+                         intra_cls, i4_modes).cpu().numpy()
+        self._stage("fetch")
+        (ldc, lac, cdc, cac, i16m, cm, cls, m4) = _unpack(rows)
+        mb_class = np.where(cls == 0, 0, 1).astype(np.uint8)
+        mv = np.zeros((n, 2), np.int16)
+        data = self._write(1, mb_class, mv, i16m, cm, ldc, lac, cdc, cac,
+                           i4_modes=m4, mb_qp=self._qp_plane)
+        self._apply_deblock(mb_class, lac, mv)
+        return data
+
+    def _encode_p_aq(self, buf):
+        """P frame on the per-MB QP plane (one reference): the inter
+        analysis, the intra wavefront over its fallback MBs, the write with
+        mb_qp, then the deblock of self.ref. Like JaxEncoder, this runs
+        the deblock on a non-reference frame too, where self.ref is still
+        the previous reference (ROADMAP §3)."""
+        n = self.mb_w * self.mb_h
+        Yd, Ud, Vd = _split_src(self.mb_h, self.mb_w, buf)
+        refY_s, refU_s, refV_s = _pad_refs(*(p[None] for p in self.ref))
+        qp_d, qpc_d = self._qp_maps(Yd)
+        (mvx, mvy, use_intra_d, part_d, ref_sel_d, mv8_d, mvq_d, qac_zz,
+         cdc_d, cac_d, tile_y, tile_u, tile_v, no_res_d) = encode_inter_mbs(
+            self.mb_w, self.mb_h, self.ME_RADIUS, Yd, Ud, Vd, refY_s, refU_s,
+            refV_s, qp_d, qpc_d, self._scroll_dy, self.trellis_lam,
+            self._stage)
+        meta = _meta_rows(mvx, mvy, use_intra_d, no_res_d, part_d, mv8_d,
+                          ref_sel_d).cpu().numpy()
+        use_intra = meta[:, 2] != 0
+        no_res = meta[:, 3] != 0
+        part = meta[:, 4]
+        mv8 = np.ascontiguousarray(meta[:, 5:13], np.int16)
+        mv = np.zeros((n, 2), np.int16)
+        mv[:, 0] = meta[:, 0]
+        mv[:, 1] = meta[:, 1]
+        mv[use_intra] = 0
+        mb_class = np.where(use_intra, 1, 3 + part).astype(np.uint8)
+        self.encodes.append(("P", "aq", self._cur_is_ref,
+                             int(use_intra.sum())))
+        zero = torch.zeros((), dtype=torch.int32, device=self.device)
+        if use_intra.any():
+            m = (~use_intra_d)[:, None, None]
+            (i16_mode, intra_cls, i4_modes, chroma_mode, ldc_i, lac_i,
+             cdc_i, cac_i, recY, recU, recV) = intra_wavefront(
+                self.mb_w, self.mb_h, Yd, Ud, Vd, torch.where(m, tile_y, 0),
+                torch.where(m, tile_u, 0), torch.where(m, tile_v, 0),
+                use_intra, qp_d, qpc_d, self._row_slice_np)
+            self._stage("intra")
+            sel = use_intra_d[:, None, None]
+            rows_d = _sym_rows(
+                torch.where(use_intra_d[:, None], ldc_i, zero),
+                torch.where(sel, lac_i, qac_zz), torch.where(sel, cdc_i, cdc_d),
+                torch.where(sel[..., None], cac_i, cac_d), i16_mode,
+                chroma_mode, intra_cls, i4_modes)
+        else:
+            recY, recU, recV = _finalize_inter(self.mb_w, self.mb_h, tile_y,
+                                               tile_u, tile_v)
+            rows_d = _sym_rows(
+                torch.zeros((n, 16), dtype=torch.int32, device=self.device),
+                qac_zz, cdc_d, cac_d, zero.expand(n), zero.expand(n),
+                (zero + 1).expand(n), (zero + 2).expand(n, 16))
+        rows = rows_d.cpu().numpy()
+        self._stage("fetch")
+        (ldc, lac, cdc, cac, i16m, cm, cls, m4) = _unpack(rows)
+        # P_Skip: zero residual and the MV equals the skip predictor
+        skip_pred, _ = self._mv_preds(mb_class, mv, mv8)
+        is_skip = (no_res & ~use_intra & (part == 0)
+                   & (mv[:, 0] == skip_pred[:, 0])
+                   & (mv[:, 1] == skip_pred[:, 1]))
+        mb_class[is_skip] = 11
+        mb_class[use_intra & (cls == 0)] = 0  # I4x4 fallback MBs
+        if self._cur_is_ref:
+            self.ref = (recY, recU, recV)
+        data = self._write(0, mb_class, mv, i16m, cm, ldc, lac, cdc, cac,
+                           i4_modes=m4, mb_qp=self._qp_plane, mv8=mv8)
+        self._apply_deblock(mb_class, lac, mv, mv8)
+        return data
 
     def force_intra_frame(self):
         """Make the next encoded frame an IDR (the reference's
@@ -944,38 +1248,132 @@ class TorchEncoder:
         self._idr_id = int(idr_id)
         self._prev_src = None if prev_src is None else dev(prev_src)
 
+    def _layer_setup(self, is_idr):
+        """Temporal layer of this frame: whether it is a reference, and
+        for hierarchical P its parent as self.ref, RPLR and MMCO."""
+        self._cur_is_ref = not (self.temporal_layers == 2 and not is_idr
+                                and self.frame_idx % 2 == 1)
+        self._rplr_diff, self._mmco_drops = 0, None
+        if self.temporal_layers < 3 or is_idr:
+            return 0
+        # dyadic position: layer from the trailing zeros, parent = the
+        # previous frame of the next-lower layer (pos - lowest bit)
+        p = self._gop_pos
+        L = self.temporal_layers
+        layer = L - 1 - min((p & -p).bit_length() - 1, L - 1)
+        self._cur_is_ref = layer < L - 1
+        parent = next(e for e in self._dpb if e["pos"] == p - (p & -p))
+        self.ref = parent["recon"]
+        if parent["fn"] != max(e["fn"] for e in self._dpb):
+            # the parent is not the default L0[0]: reorder it to the front
+            self._rplr_diff = (self._frame_num - parent["fn"]) & 0xff
+        if self._cur_is_ref:
+            stale = [e for e in self._dpb if e["layer"] >= layer]
+            if stale:
+                self._mmco_drops = [((self._frame_num - e["fn"]) & 0xff) - 1
+                                    for e in stale]
+                self._dpb = [e for e in self._dpb if e["layer"] < layer]
+        return layer
+
     def encode_frame(self, Y, U, V, timestamp_ms=None):
-        """Encode one frame (uint8 numpy planes of the display size);
-        returns its Annex-B bytes. timestamp_ms is accepted for the JAX
-        encoder's signature; only its rate controllers read it."""
+        """Encode one frame (uint8 planes of the display size, numpy or
+        torch); returns its Annex-B bytes, or b"" when the rate controller
+        drops the frame (then no state advances)."""
         if self.stages is not None:
             self.stages.start()
-        H = self.mb_h * 16
-        buf = torch.from_numpy(self._host_buf(Y, U, V)).to(self.device)
-        self._stage("upload")
+        self.encodes = []
         is_idr = (self.ref is None or self.intra_only or self._force_idr
                   or (self.gop and self.frame_idx % self.gop == 0))
+        if self.rc is not None:
+            if is_idr:
+                self.rc.tick(timestamp_ms)  # IDRs drain the buffer too
+            elif self.rc.should_skip(timestamp_ms):
+                return b""
         self._force_idr = False
-        self._cur_is_ref = True
-        cur_src = buf[:H] if self.scene_cut else None
-        scene_idc = SCENE_IDC_NONE
-        if self.scene_cut and self._prev_src is not None:
-            score = float(processing.scene_change_score(cur_src,
-                                                        self._prev_src))
+        layer = self._layer_setup(is_idr)
+        H = self.mb_h * 16
+        buf = self._upload(Y, U, V)
+        self._stage("upload")
+        cur_src = None
+        if (self.scene_cut or self.rc or self.aq or self.bgd
+                or self.scroll_me):
+            # the analyses read the source before the denoise filter
+            cur_src = buf[:H].clone() if self.denoise else buf[:H]
+        if self.denoise:
+            self._denoise(buf)
+        prev = self._prev_src
+        scene_idc = ratectl.SCENE_IDC_NONE
+        if (self.scene_cut or self.rc is not None) and prev is not None:
+            score = float(processing.scene_change_score(cur_src, prev))
             if score > processing.SCENE_CHANGE_RATIO_LARGE:
-                scene_idc = SCENE_IDC_LARGE
+                scene_idc = ratectl.SCENE_IDC_LARGE
             elif score > processing.SCENE_CHANGE_RATIO_MEDIUM:
-                scene_idc = SCENE_IDC_MEDIUM
+                scene_idc = ratectl.SCENE_IDC_MEDIUM
             self._stage("scene_cut")
-        if self.scene_cut and not is_idr and scene_idc == SCENE_IDC_LARGE:
+        if (self.scene_cut and not is_idr
+                and scene_idc == ratectl.SCENE_IDC_LARGE):
             is_idr = True
+        if self.rc is not None:
+            cx = (float(processing.frame_complexity(cur_src, prev))
+                  if prev is not None else
+                  float(torch.abs(cur_src.to(torch.int32) - 128).sum(
+                      dtype=torch.int32)))
+            self.qp = int(self.rc.frame_qp(cx, is_idr,
+                                           timestamp_ms=timestamp_ms,
+                                           scene_idc=scene_idc))
+            self.qp = max(10, min(self.qp, 51))
+            self.qpc = int(CHROMA_QP[self.qp])
+            self._stage("rc")
+        self._scroll_dy = 0
+        if self.scroll_me and not is_idr and prev is not None:
+            det, dy = processing.scroll_detect(cur_src, prev)
+            # clamp so the integer MVs stay inside the reference padding
+            # that the refinement reads (|mv_int| <= radius + |dy|)
+            lim = PAD - 4 - self.ME_RADIUS - 1
+            self._scroll_dy = int(np.clip(dy, -lim, lim)) if det else 0
+            self._stage("scroll")
         if is_idr:
             self._frame_num = 0
             self._idr_id += 1
             self._ref2 = None  # an IDR empties the DPB
-        data = self._encode_i(buf) if is_idr else self._encode_p(buf)
+        if self._use_ltr_next and not is_idr:
+            # predict from the long-term reference; this frame's recon
+            # then re-seeds the short-term chain
+            self.ref = self._ltr_ref
+        encode = self._encode_i if is_idr else self._encode_p
+        if self.slice_max_bytes:
+            self._plan_dynamic_slices()
+            ref_before, ref2_before = self.ref, self._ref2
+            data = encode(buf)
+            if self._dyn_slice_violated() and self._plan_dynamic_slices():
+                # a slice passed the cap: re-plan from this frame's row
+                # costs and encode once more from the same references
+                # (both: with refs=2 the first encode rotated _ref2)
+                self.ref, self._ref2 = ref_before, ref2_before
+                timer, self.stages = self.stages, None
+                data = encode(buf)
+                self.stages = timer
+                self._stage("dyn_slice_reencode")
+        else:
+            data = encode(buf)
+        if self.temporal_layers >= 3:
+            if is_idr:
+                self._gop_pos = 0
+                self._dpb = [{"pos": 0, "fn": self._frame_num, "layer": 0,
+                              "recon": self.ref}]
+            elif self._cur_is_ref:
+                self._dpb.append({"pos": self._gop_pos,
+                                  "fn": self._frame_num, "layer": layer,
+                                  "recon": self.ref})
+            self._gop_pos += 1
+        self._use_ltr_next = False
+        if self.ltr and self._cur_is_ref and (is_idr or self._mark_ltr_next):
+            self._ltr_ref = self.ref  # this frame's recon is the LTR
+            self._mark_ltr_next = False
         if self._cur_is_ref:  # 7.4.3: frame_num advances per ref frame
             self._frame_num = (self._frame_num + 1) & 0xff
+        if self.rc is not None:
+            self.rc.update(8 * len(data))
         self._prev_src = cur_src
         self.frame_idx += 1
         return data
@@ -986,7 +1384,9 @@ class TorchEncoder:
 
     @property
     def recon(self):
-        """Host copies of the reconstruction planes (MB-padded)."""
+        """Host copies of the reference planes (MB-padded): the frame just
+        encoded when it is a reference, else the reference it predicted
+        from (as JaxEncoder's)."""
         return tuple(p.cpu().numpy() for p in self.ref)
 
 

@@ -215,7 +215,8 @@ def test_cli_decode(tmp_path, tiny_stream):
 
 
 def test_port_imports_no_jax():
-    """Every module of the port, and chip_smoke.py, imports neither jax
+    """Every module of the port (the encoder's ratectl.py, processing.py
+    and simulcast.py among them), and chip_smoke.py, imports neither jax
     nor anything of the JAX package losslessh264_tpu."""
     code = (
         "import importlib, pkgutil, sys; "
@@ -228,7 +229,9 @@ def test_port_imports_no_jax():
         "'losslessh264_tpu') or m.startswith(('jax.', 'jaxlib.', "
         "'losslessh264_tpu.'))]; "
         "assert not bad, bad; "
-        "assert 'losslessh264_tpu_torch.ops.deblock' in mods, mods; "
+        "need = {'losslessh264_tpu_torch.' + m for m in ('ops.deblock', "
+        "'ratectl', 'processing', 'simulcast', 'encoder_torch')}; "
+        "assert need <= set(mods), mods; "
         "print('ok', len(mods))")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True,

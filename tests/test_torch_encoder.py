@@ -11,8 +11,11 @@ byte-exact vs losslessh264_tpu.encoder_jax.JaxEncoder on the CPU:
   every frame's Annex-B bytes and recon planes equal JaxEncoder's, and
   the port's TorchDecoder decodes the port's bytes to the port's recon;
 - continuing a JAX stream from its state (load_state), the encode verb
-  of the CLI, the options the port refuses, and the card requirement.
-The other options' recipes are in tests/test_torch_encoder_modes.py.
+  of the CLI, the option combinations both encoders refuse, and the card
+  requirement.
+The other options' recipes are in tests/test_torch_encoder_modes.py,
+test_torch_encoder_rc.py, test_torch_encoder_aq.py and
+test_torch_encoder_layers.py.
 
 This is an integer codec: every comparison is exact."""
 import hashlib
@@ -27,13 +30,15 @@ import numpy as np
 import pytest
 import torch
 
+from losslessh264_tpu import decoder_np
 from losslessh264_tpu import encoder as jenc
 from losslessh264_tpu import encoder_jax, ratectl
 from losslessh264_tpu_torch import decoder_torch as dt
 from losslessh264_tpu_torch import encoder_native
 from losslessh264_tpu_torch import encoder_torch as et
 from losslessh264_tpu_torch import native as tnative
-from losslessh264_tpu_torch.cases import moving_frames
+from losslessh264_tpu_torch import ratectl as tratectl
+from losslessh264_tpu_torch.cases import golden_encoder, moving_frames
 
 # the shared native library, built once under the port's lock (see
 # tests/test_torch_decoder.py)
@@ -63,26 +68,44 @@ def idr_count(data):
         i += 3
 
 
-def encode_both(W, H, frames, force_at=(), **kw):
+def encode_both(W, H, frames, force_at=(), calls=None, rc=None,
+                stamps=None, **kw):
     """Encode `frames` with JaxEncoder and with TorchEncoder(device="cpu")
-    under the same options; per frame both encoders' bytes and recon."""
-    je = encoder_jax.JaxEncoder(W, H, **kw)
-    te = et.TorchEncoder(W, H, device="cpu", **kw)
-    out = {"jax": [], "torch": [], "jax_recon": [], "torch_recon": []}
+    under the same options; per frame both encoders' bytes and recon,
+    whether the port's frame was a reference, and what it ran
+    (TorchEncoder.encodes). calls: {frame: [method
+    name, or a function of the encoder]} applied to both encoders before
+    that frame; rc: a function of a ratectl module that makes one rate
+    controller (each encoder gets its own, the port's from its copy);
+    stamps: the frames' timestamp_ms."""
+    je = encoder_jax.JaxEncoder(W, H, rc=rc and rc(ratectl), **kw)
+    te = et.TorchEncoder(W, H, device="cpu", rc=rc and rc(tratectl), **kw)
+    calls = {i: list(v) for i, v in (calls or {}).items()}
+    for i in force_at:
+        calls.setdefault(i, []).append("force_intra_frame")
+    out = {"jax": [], "torch": [], "jax_recon": [], "torch_recon": [],
+           "is_ref": [], "encodes": [], "enc": (je, te)}
     for i, f in enumerate(frames):
-        if i in force_at:
-            je.force_intra_frame()
-            te.force_intra_frame()
-        out["jax"].append(je.encode_frame(*f))
-        out["torch"].append(te.encode_frame(*f))
+        for c in calls.get(i, ()):
+            for e in (je, te):
+                c(e) if callable(c) else getattr(e, c)()
+        ts = None if stamps is None else stamps[i]
+        out["jax"].append(je.encode_frame(*f, timestamp_ms=ts))
+        out["torch"].append(te.encode_frame(*f, timestamp_ms=ts))
         out["jax_recon"].append(je.recon)
         out["torch_recon"].append(te.recon)
+        out["is_ref"].append(te._cur_is_ref)
+        out["encodes"].append(te.encodes)
     return out
 
 
 def assert_stream_exact(run):
     """Bytes and recon of every frame equal JaxEncoder's, and the port's
-    CPU decoder reconstructs the port's recon from the port's bytes."""
+    CPU decoder decodes the port's bytes as the JAX package's NpDecoder
+    does, frame by frame. The decoded frame equals the port's recon where
+    the recon is that frame's picture: after a reference frame, and after
+    a frame the rate controller dropped (b"", the previous picture); a
+    non-reference frame's recon is the reference it predicted from."""
     assert len(run["torch"]) == len(run["jax"])
     for i, (g, w) in enumerate(zip(run["torch"], run["jax"])):
         assert g == w, f"frame {i}: {len(g)} bytes, JAX {len(w)}"
@@ -90,13 +113,20 @@ def assert_stream_exact(run):
         for a, b, pl in zip(g, w, "YUV"):
             eq(a, b, f"frame {i} recon {pl}")
     data = b"".join(run["torch"])
-    dec = dt.TorchDecoder(data, device="cpu", error_concealment=False)
-    n = 0
-    for i, yuv in enumerate(dec.frames()):
-        for a, b, pl in zip(yuv, run["torch_recon"][i], "YUV"):
-            eq(a.numpy(), b, f"frame {i} decoded {pl}")
-        n += 1
-    assert n == len(run["torch"])
+    got = [tuple(a.numpy() for a in yuv) for yuv in
+           dt.TorchDecoder(data, device="cpu",
+                           error_concealment=False).frames()]
+    want = list(decoder_np.NpDecoder(data, error_concealment=False).frames())
+    assert len(got) == len(want) == sum(1 for d in run["torch"] if d)
+    for k, (g, w) in enumerate(zip(got, want)):
+        for a, b, pl in zip(g, w, "YUV"):
+            eq(a, b, f"decoded frame {k} {pl}, TorchDecoder vs NpDecoder")
+    k = -1
+    for i, d in enumerate(run["torch"]):
+        k += bool(d)
+        if run["is_ref"][i] or not d:
+            for a, b, pl in zip(got[k], run["torch_recon"][i], "YUV"):
+                eq(a, b, f"frame {i} decoded {pl}")
 
 
 def _cut_frames():
@@ -164,7 +194,8 @@ def test_pinned_tables():
     eq(et._I4_TR_KIND, encoder_jax._I4_TR_KIND)
     assert (et.BIG, et.PAD, et.WPAD) == (encoder_jax.BIG, encoder_jax.PAD,
                                          encoder_jax.WPAD)
-    assert (et.SCENE_IDC_NONE, et.SCENE_IDC_MEDIUM, et.SCENE_IDC_LARGE) == (
+    assert (tratectl.SCENE_IDC_NONE, tratectl.SCENE_IDC_MEDIUM,
+            tratectl.SCENE_IDC_LARGE) == (
         ratectl.SCENE_IDC_NONE, ratectl.SCENE_IDC_MEDIUM,
         ratectl.SCENE_IDC_LARGE)
     for mb_w, mb_h in ((4, 3), (1, 5), (7, 1), (80, 45)):
@@ -370,13 +401,31 @@ def test_cli_encode(tmp_path):
     assert out.read_bytes() == b"".join(run("scene_cut")["jax"])
 
 
-@pytest.mark.parametrize("opt", [
-    dict(rc=object()), dict(aq=True), dict(gom_rc=True), dict(bgd=True),
-    dict(scroll_me=True), dict(denoise=True), dict(param_id=1),
-    dict(ltr=True), dict(slice_max_bytes=1200), dict(temporal_layers=2)])
-def test_unported_options_raise(opt):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        et.TorchEncoder(64, 48, device="cpu", **opt)
+INVALID = [
+    dict(temporal_layers=5), dict(temporal_layers=0),
+    dict(temporal_layers=3, ltr=True), dict(temporal_layers=4, aq=True),
+    dict(temporal_layers=3, refs=2), dict(temporal_layers=4, gom_rc=True),
+    dict(refs=2, ltr=True), dict(refs=2, aq=True), dict(refs=2, gom_rc=True),
+    dict(refs=3), dict(slice_max_bytes=1200, slices=2),
+    dict(width=63), dict(height=47)]
+
+
+@pytest.mark.parametrize("opt", INVALID)
+def test_invalid_options_raise(opt):
+    """The port refuses exactly the combinations JaxEncoder asserts on."""
+    kw = {"width": 64, "height": 48, **opt}
+    with pytest.raises(AssertionError):
+        encoder_jax.JaxEncoder(**kw)
+    with pytest.raises(ValueError):
+        et.TorchEncoder(device="cpu", **kw)
+
+
+@pytest.mark.parametrize("method", ["mark_ltr", "recover_from_ltr"])
+def test_ltr_calls_need_ltr(method):
+    with pytest.raises(AssertionError):
+        getattr(encoder_jax.JaxEncoder(64, 48), method)()
+    with pytest.raises(ValueError):
+        getattr(et.TorchEncoder(64, 48, device="cpu"), method)()
 
 
 def test_cuda_device_needs_a_gpu():
@@ -385,6 +434,36 @@ def test_cuda_device_needs_a_gpu():
     else:
         with pytest.raises(RuntimeError, match="cuda"):
             et.TorchEncoder(64, 48)
+
+
+def _synth720p_frames(n):
+    with open(os.path.join(DATA, "synth720p.264"), "rb") as fh:
+        data = fh.read()
+    frames = []
+    for yuv in dt.TorchDecoder(data, device="cpu").frames():
+        frames.append(tuple(a.numpy() for a in yuv))
+        if len(frames) == n:
+            return frames
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("name", ["C", "D"])
+def test_synth720p_golden_head_cd(name):
+    """Configurations C and D of chip_smoke.py's encode phase, frames 0-1,
+    on the CPU: the committed JAX golden (tools/gen_enc_golden.py)."""
+    gold = json.load(open(os.path.join(DATA,
+                                       "synth720p_enc_golden_cde.json")))
+    cfg = gold[name]
+    te = golden_encoder(cfg, 1280, 720, "cpu")
+    for i, (f, g) in enumerate(zip(_synth720p_frames(2), cfg["frames"])):
+        for call in cfg.get("calls", {}).get(str(i), ()):
+            getattr(te, call)()
+        out = te.encode_frame(*f)
+        assert len(out) == g["bytes"]
+        assert hashlib.sha256(out).hexdigest() == g["sha256"]
+        assert zlib.crc32(b"".join(p.tobytes() for p in te.recon)) == \
+            g["recon_crc32"]
+        assert te._cur_is_ref == g["is_ref"]
 
 
 @pytest.mark.slow

@@ -185,6 +185,85 @@ def test_encoder_on_card(cuda_device, kw):
     assert tdb.deblock_wavefront.launches - k2 == 4
 
 
+def _k2_implied(encs):
+    """K2 launches JaxEncoder's control flow implies for the encodes of
+    TorchEncoder.encodes (see chip_smoke.expected_launches)."""
+    return sum(path == "aq" or kind == "I" or is_ref or n_intra
+               for kind, path, is_ref, n_intra in encs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("recipe", ["C", "D"])
+def test_encoder_modes_on_card(cuda_device, recipe):
+    """The C-like recipe (RC, AQ, GOM RC, bgd, scroll ME, denoise, LTR at
+    64x96, the scroll detector's least height) and the D-like one (4
+    temporal layers with a slice cap that forces re-encodes, 64x48) of
+    chip_smoke.py: TorchEncoder on the card writes the bytes and recon of
+    TorchEncoder on the CPU, with K1 once per P encode and K2 as the
+    encodes imply."""
+    from losslessh264_tpu_torch import ratectl
+    if recipe == "C":
+        W, H, frames = 64, 96, moving_frames(5, H=96, seed=3)
+        calls = {2: "mark_ltr", 3: "recover_from_ltr"}
+
+        def kw():
+            return dict(qp=28, aq=True, gom_rc=True, bgd=True,
+                        scroll_me=True, denoise=True, ltr=True,
+                        rc=ratectl.RateControl(400_000, 25.0, qp_init=28))
+    else:
+        W, H, frames = 64, 48, moving_frames(6, seed=8)
+        calls = {}
+
+        def kw():
+            return dict(qp=28, temporal_layers=4, slice_max_bytes=160)
+    cpu = et.TorchEncoder(W, H, device="cpu", **kw())
+    card = et.TorchEncoder(W, H, device=cuda_device, **kw())
+    k1, k2 = tmc.halfpel_planes.launches, tdb.deblock_wavefront.launches
+    encs = []
+    for i, f in enumerate(frames):
+        if i in calls:
+            getattr(cpu, calls[i])()
+            getattr(card, calls[i])()
+        assert card.encode_frame(*f) == cpu.encode_frame(*f)
+        for a, b in zip(card.recon, cpu.recon):
+            np.testing.assert_array_equal(a, b)
+        encs += card.encodes
+    assert tmc.halfpel_planes.launches - k1 == sum(e[0] == "P" for e in encs)
+    assert tdb.deblock_wavefront.launches - k2 == _k2_implied(encs)
+    if recipe == "D":
+        assert len(encs) > len(frames)         # a re-encode happened
+        assert _k2_implied(encs) < len(encs)   # a T3 frame deblocks nothing
+
+
+@pytest.mark.cuda
+def test_simulcast_on_card(cuda_device):
+    """Two spatial layers with inter-layer prediction at 96x64: the card
+    writes the CPU's bytes per layer, and the port's SimulcastDecoder on
+    the card gives the CPU's pictures."""
+    from losslessh264_tpu_torch import simulcast
+    yy, xx = np.mgrid[0:64, 0:96]
+    frames = [(((xx * 2 + yy) // 2 + i * 3).astype(np.uint8),
+               (xx // 2 + 64)[:32, :48].astype(np.uint8),
+               (yy + 128)[:32, :48].astype(np.uint8)) for i in range(3)]
+    kw = dict(spatial_layers=2, qp=30, inter_layer=True)
+    cpu = simulcast.SimulcastEncoder(96, 64, device="cpu", **kw)
+    card = simulcast.SimulcastEncoder(96, 64, device=cuda_device, **kw)
+    streams = [b"", b""]
+    for f in frames:
+        got, want = card.encode_frame_layers(*f), cpu.encode_frame_layers(*f)
+        assert got == want
+        streams = [s + p for s, p in zip(streams, got)]
+    pics = [simulcast.SimulcastDecoder(streams, error_concealment=False,
+                                       device=d).frames()
+            for d in (cuda_device, "cpu")]
+    n = 0
+    for a, b in zip(*pics):
+        for x, y in zip(a, b):
+            assert torch.equal(x.cpu(), y)
+        n += 1
+    assert n == len(frames)
+
+
 @pytest.mark.cuda
 def test_encoder_frame_host_copies(cuda_device):
     """A P frame's only host copies are the source upload and the symbol
