@@ -44,7 +44,29 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
      without intra MBs; a size-capped slice's re-encode counts again).
      A first pass gives encode fps, a second the per-stage wall times of
      every frame (encoder_torch.StageTimer).
-  7. times: K1 at 720p, 1080p, 2160p and on the encoder's refs=2 plane
+  7. older encoder: losslessh264_tpu_torch.encoder.Encoder(1280, 720,
+     qp=26) on frames 0-2 of phase 5's decode (an I16x16 IDR, 2 P frames
+     with the integer-pel window search on the card), against
+     configuration F of tests/data/synth720p_enc_golden_f.json (SHA-256
+     and reference CRC32 per frame); TorchDecoder on the card must give
+     back the encoder's reference and NpDecoder's picture of every frame;
+     K1 and K2 must launch 0 times (no loop filter, integer-pel). Prints
+     fps and the split between the device search and the host loops.
+  8. GOP-parallel decode: synth720p.264 written twice in a row (2 GOPs,
+     50 frames) through parallel.decode_yuv_gop_parallel with 2 workers
+     (a TorchDecoder and a CUDA stream each), then through one sequential
+     TorchDecoder; every frame's CRC32 must equal the golden,
+     twice over, and each decode must launch K1 and K2 twice as often as
+     phase 5's decode (44 and 50). Prints both fps.
+  9. CLI: `python -m losslessh264_tpu_torch walk_analog.264 x.pip
+     --shards 4` (must equal native.compress_sharded and decompress to
+     the input) and `roundtrip ... --shards 4` (must print bit-exact), as
+     subprocesses on the port's binding of the native layer.
+ 10. graft: graft_entry.dryrun_multichip(2) on the card, two gloo ranks
+     at 80x45 MBs; each rank's recY, mvx and bits must equal the step in
+     this process, the all-reduced total their sum, and each rank must
+     launch K1 and K2 once.
+ 11. times: K1 at 720p, 1080p, 2160p and on the encoder's refs=2 plane
      (784x2688), both entries, wrapper and kernel alone, beside their
      bounds, its plain version and the conv2d yardstick; K2 against its
      plain version at 720p (CUDA events); a per-stage breakdown of every
@@ -58,7 +80,9 @@ The line before the last is the kernel report
 {"kernels": [{"name", "route", "source", "replaces", "launches",
 "launches_per_decode", "launches_per_encode", "max_abs_err", "ms",
 "plain_ms", "bound_ms", "bound_by", "library_ms"}, ...]}, preceded by the
-card line; `launches` counts phases 5 and 6 (decode and encode). For K1:
+card line; `launches` counts phases 5-10, and `launches_per_decode`,
+`_per_encode`, `_per_older_encode`, `_per_gop_parallel_decode` and
+`_per_graft_ranks` each path's own count. For K1:
 `ms`, `kernel_ms`, `bound_ms` and `bound_by` are its int32 entry's at
 720p, and `ms_uint8_entry`, `kernel_ms_uint8_entry` and
 `bound_ms_uint8_entry` those of the uint8 entry that the decode and
@@ -102,6 +126,8 @@ GOLDEN = os.path.join(ROOT, "tests", "data", "synth720p_np_crc.json")
 ENC_GOLDEN = os.path.join(ROOT, "tests", "data", "synth720p_enc_golden.json")
 ENC_GOLDEN_CDE = os.path.join(ROOT, "tests", "data",
                               "synth720p_enc_golden_cde.json")
+ENC_GOLDEN_F = os.path.join(ROOT, "tests", "data",
+                            "synth720p_enc_golden_f.json")
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 INT32_OPS_PER_S = 33.5e12     # see the module docstring
 # K1's timed sizes: the edge-padded (PAD = 32) luma reference of 720p,
@@ -511,6 +537,209 @@ def encode_phase(frames, dev, card):
     return launches, n_frames
 
 
+def older_encode_phase(frames, dev, card):
+    """Phase 7: the older fixed-QP encoder (losslessh264_tpu_torch.encoder.
+    Encoder: an I16x16 IDR, then P frames with the integer-pel window
+    search on the card and the per-MB loops on the host) at 1280x720 on
+    frames 0-2 of phase 5's decode, configuration F of
+    tests/data/synth720p_enc_golden_f.json. Every frame's SHA-256 and
+    reference CRC32 must equal the JAX golden, TorchDecoder on the card
+    must decode the stream to the encoder's reference after every frame
+    and to NpDecoder's pictures, and neither kernel may launch (the
+    streams switch the loop filter off and the search is integer-pel)."""
+    import hashlib
+    from losslessh264_tpu_torch import decoder_torch as dt
+    from losslessh264_tpu_torch.cases import golden_encoder
+    from losslessh264_tpu_torch.ops import deblock as tdb
+    from losslessh264_tpu_torch.ops import mc as tmc
+    gold = json.load(open(ENC_GOLDEN_F))
+    cfg = gold["F"]
+    W, H = gold["source"]["width"], gold["source"]["height"]
+    src = [tuple(np.ascontiguousarray(p.numpy()) for p in f)
+           for f in frames[:len(cfg["frames"])]]
+    enc = golden_encoder(cfg, W, H, dev)
+    tmc.halfpel_planes.launches = 0
+    tdb.deblock_wavefront.launches = 0
+    out, refs = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for f in src:
+        out.append(enc.encode_frame(*f))
+        refs.append(tuple(np.copy(p) for p in enc.ref))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = (tmc.halfpel_planes.launches, tdb.deblock_wavefront.launches)
+    for i, (d, ref, g) in enumerate(zip(out, refs, cfg["frames"])):
+        sha = hashlib.sha256(d).hexdigest()
+        c = zlib.crc32(b"".join(p.tobytes() for p in ref))
+        if (len(d), sha, c) != (g["bytes"], g["sha256"], g["recon_crc32"]):
+            raise SystemExit(f"older encoder frame {i}: {len(d)} bytes "
+                             f"sha256 {sha[:16]} ref crc {c}, golden "
+                             f"{g['bytes']} {g['sha256'][:16]} "
+                             f"{g['recon_crc32']}")
+    if got != (0, 0):
+        raise SystemExit(f"older encoder: K1/K2 launched {got}; the "
+                         "integer-pel, unfiltered path launches neither")
+    split = {k: round(v, 3) for k, v in enc.times.items()}
+    log(f"older encoder F {cfg['older']}: {len(out)} frames {W}x{H} match "
+        f"the JAX golden; {wall:.3f} s = {len(out) / wall:.4f} fps on "
+        f"{card}; ms: {json.dumps(split)} (me: the device search with its "
+        f"upload and fetch; mb_loops: the host per-MB loops; write: MV "
+        f"predictors and the native writer); bytes "
+        f"{[len(d) for d in out]}; launches K1 {got[0]}, K2 {got[1]}")
+    pics = [tuple(p.cpu().numpy() for p in pic) for pic in dt.TorchDecoder(
+        b"".join(out), device=dev, error_concealment=False).frames()]
+    for i, (pic, ref) in enumerate(zip(pics, refs)):
+        c = zlib.crc32(b"".join(p.tobytes() for p in pic))
+        if not all(np.array_equal(a, b) for a, b in zip(pic, ref)) or \
+                c != cfg["decoded_crc32"][i]:
+            raise SystemExit(f"older encoder frame {i}: the card's decode "
+                             "differs from the encoder's reference or "
+                             "NpDecoder's picture")
+    if len(pics) != len(out):
+        raise SystemExit(f"older encoder: decoded {len(pics)} frames")
+    log(f"older encoder: TorchDecoder on the card reproduces the "
+        f"encoder's reference and NpDecoder's picture of all {len(pics)} "
+        f"frames")
+    return {"K1": got[0], "K2": got[1]}
+
+
+def gop_parallel_phase(data, golden, dec_launches, dev, card):
+    """Phase 8: synth720p written twice in a row (2 GOPs, 50 frames),
+    decoded by parallel.decode_yuv_gop_parallel with 2 workers (one
+    TorchDecoder and one CUDA stream each), then by one sequential
+    TorchDecoder: one pair keeps the smoke short (PERF.md has four runs
+    in turns).
+    Every frame's CRC32 must equal the NpDecoder golden, twice over, and
+    each decode must launch K1 and K2 twice as often as phase 5's."""
+    from losslessh264_tpu_torch import decoder_torch as dt
+    from losslessh264_tpu_torch import native
+    from losslessh264_tpu_torch.ops import deblock as tdb
+    from losslessh264_tpu_torch.ops import mc as tmc
+    from losslessh264_tpu_torch.parallel import decode_yuv_gop_parallel
+    data2 = data + data
+    starts = native.gop_starts(data2)
+    if starts != [0, len(data)]:
+        raise SystemExit(f"GOP starts of synth720p x2: {starts}")
+    want = (2 * dec_launches[0], 2 * dec_launches[1])
+
+    def sequential():
+        dec = dt.TorchDecoder(data2, device=dev)
+        return [tuple(p.cpu().numpy() for p in f) for f in dec.frames()]
+
+    def parallel():
+        return decode_yuv_gop_parallel(data2, max_workers=2, device=dev)[0]
+
+    fps = {"sequential": [], "parallel": []}
+    launches = None
+    for name, fn in (("parallel", parallel), ("sequential", sequential)):
+        tmc.halfpel_planes.launches = 0
+        tdb.deblock_wavefront.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = (tmc.halfpel_planes.launches,
+                  tdb.deblock_wavefront.launches)
+        crcs = [zlib.crc32(b"".join(p.tobytes() for p in f)) for f in got]
+        if crcs != golden + golden:
+            bad = next(i for i, (a, b) in enumerate(zip(crcs + [None] * 50,
+                                                         golden + golden))
+                       if a != b)
+            raise SystemExit(f"{name} decode of synth720p x2: {len(got)} "
+                             f"frames, frame {bad} differs from the golden")
+        if counts != want:
+            raise SystemExit(f"{name} decode of synth720p x2 launched K1/K2 "
+                             f"{counts}, expected {want}")
+        if name == "parallel":
+            launches = counts
+        fps[name].append(len(got) / wall)
+        log(f"gop-parallel phase: {name} decode of synth720p x2 ({len(got)} "
+            f"frames, 2 GOPs) matches the CRCs; {wall:.3f} s = "
+            f"{len(got) / wall:.3f} fps; launches K1 {counts[0]}, K2 "
+            f"{counts[1]} on {card}")
+    rates = {k: [round(v, 4) for v in fs] for k, fs in fps.items()}
+    log(f"gop-parallel decode, 2 workers on one card: {json.dumps(rates)} "
+        f"fps (parallel first)")
+    return {"K1": launches[0], "K2": launches[1]}
+
+
+def cli_phase(card):
+    """Phase 9: the CLI's recompression verbs as subprocesses, through the
+    port's own binding of the shared native layer (no device code): a
+    4-shard compress of tests/data/walk_analog.264, which must equal
+    native.compress_sharded and decompress to the input, and a 4-shard
+    roundtrip, which must print bit-exact."""
+    import tempfile
+    from losslessh264_tpu_torch import native
+    src = os.path.join(ROOT, "tests", "data", "walk_analog.264")
+    data = open(src, "rb").read()
+    env = dict(os.environ, PYTHONPATH=ROOT, CXX="g++")
+    with tempfile.TemporaryDirectory() as tmp:
+        dst = os.path.join(tmp, "walk_analog.pip")
+        t0 = time.perf_counter()
+        subprocess.run([sys.executable, "-m", "losslessh264_tpu_torch", src,
+                        dst, "--shards", "4"], check=True, cwd=ROOT, env=env)
+        t_compress = time.perf_counter() - t0
+        pip = open(dst, "rb").read()
+    if pip != native.compress_sharded(data, 4)[0]:
+        raise SystemExit("CLI --shards 4: the .pip differs from "
+                         "native.compress_sharded")
+    if native.decompress(pip)[0] != data:
+        raise SystemExit("CLI --shards 4: the .pip does not decompress to "
+                         "the input")
+    res = subprocess.run([sys.executable, "-m", "losslessh264_tpu_torch",
+                          "roundtrip", src, "--shards", "4"], check=True,
+                         cwd=ROOT, env=env, capture_output=True, text=True)
+    line = res.stdout.strip().splitlines()[-1]
+    if "bit-exact: YES" not in line:
+        raise SystemExit(f"CLI roundtrip: {line}")
+    log(f"CLI: compress --shards 4 of walk_analog.264 ({len(data)} -> "
+        f"{len(pip)} bytes, {t_compress:.3f} s with verification) equals "
+        f"native.compress_sharded and decompresses to the input; "
+        f"roundtrip: {line} (host CPU of the machine of {card})")
+
+
+def graft_phase(dev, card, mb_w=80, mb_h=45):
+    """Phase 10: graft_entry.dryrun_multichip(2) on the card: two gloo
+    ranks, each the encoder step at 80x45 MBs (encode_inter_mbs with K1,
+    _p_finish with K2, the coded-bits proxy) on its frame of a seeded
+    batch, the bits all-reduced. Each rank's recY, mvx and bits must equal
+    the same step run in this process, the reduced total their sum, and
+    each rank must launch K1 and K2 once."""
+    from losslessh264_tpu_torch import graft_entry as ge
+    t0 = time.perf_counter()
+    ranks = ge.dryrun_multichip(2, device=dev.type, mb_w=mb_w, mb_h=mb_h)
+    wall = time.perf_counter() - t0
+    bits = []
+    for rank, recY, mvx, rbits, total, k1, k2, step_ms in ranks:
+        want = ge.per_frame(mb_w, mb_h,
+                            *ge.frame_args(mb_w, mb_h, 2, rank, dev))
+        if not (np.array_equal(recY, want[0].cpu().numpy())
+                and np.array_equal(mvx, want[1].cpu().numpy())
+                and rbits == int(want[2])):
+            raise SystemExit(f"graft rank {rank}: its step differs from the "
+                             "same step in this process")
+        if (k1, k2) != (1, 1):
+            raise SystemExit(f"graft rank {rank}: K1/K2 launched {(k1, k2)}"
+                             ", once each expected")
+        bits.append(rbits)
+        log(f"graft rank {rank}: {mb_w}x{mb_h} MBs, recY {recY.shape}, "
+            f"bits {rbits}, step {step_ms:.3f} ms (first call in the rank, "
+            f"synchronized) on {card}")
+    if any(r[4] != sum(bits) for r in ranks):
+        raise SystemExit(f"graft: all-reduced totals {[r[4] for r in ranks]}"
+                         f" != {sum(bits)}")
+    # the step's warm time in this process
+    args = ge.frame_args(mb_w, mb_h, 2, 0, dev)
+    step = cuda_ms(lambda: ge.per_frame(mb_w, mb_h, *args), 5, warmup=1)
+    log(f"graft dryrun: 2 ranks, total bits {sum(bits)} == the all-reduce; "
+        f"{wall:.3f} s with process start; warm step {step:.3f} ms per rank "
+        f"frame (CUDA events) on {card}")
+    return {"K1": sum(r[5] for r in ranks), "K2": sum(r[6] for r in ranks)}
+
+
 def profile_report(prof, wall_ms, what, card):
     """Wall time against the summed device time of every kernel and copy
     of one torch.profiler window, and the kernels that take the most."""
@@ -717,7 +946,18 @@ def main():
     # ---- 6. encode on the card ----
     enc_launches, enc_frames = encode_phase(frames, dev, card)
 
-    # ---- 7. times ----
+    # ---- 7-10. the older encoder, GOP-parallel decode, the CLI's
+    # recompression verbs, the graft dryrun: each path's counts are set
+    # to 0 just before it and read just after (inside each phase)
+    path_launches = {
+        "older_encode": older_encode_phase(frames, dev, card),
+        "gop_parallel_decode": gop_parallel_phase(
+            data, golden, (k1_launches, k2_launches), dev, card),
+    }
+    cli_phase(card)
+    path_launches["graft_ranks"] = graft_phase(dev, card)
+
+    # ---- 11. times ----
     # K1 at each size, both entries: `ms` the wrapper by CUDA events over
     # back-to-back calls, `kernel_ms` the bare C entry's kernel alone (a
     # CUDA graph's replays, cold L2), beside the bound, the plain version
@@ -792,9 +1032,11 @@ def main():
         {"name": "halfpel_planes", "route": "cuda",
          "source": "losslessh264_tpu_torch/csrc/halfpel.cu",
          "replaces": "losslessh264_tpu/ops/mc.py:144",
-         "launches": k1_launches + enc_launches["K1"],
+         "launches": k1_launches + enc_launches["K1"] + sum(
+             v["K1"] for v in path_launches.values()),
          "launches_per_decode": k1_launches,
          "launches_per_encode": enc_launches["K1"],
+         **{f"launches_per_{k}": v["K1"] for k, v in path_launches.items()},
          "max_abs_err": k1_err, "ms": k1["ms_i32"],
          "ms_uint8_entry": k1["ms_u8"], "kernel_ms": k1["kernel_ms_i32"],
          "kernel_ms_uint8_entry": k1["kernel_ms_u8"],
@@ -805,9 +1047,11 @@ def main():
         {"name": "deblock_wavefront", "route": "cuda",
          "source": "losslessh264_tpu_torch/csrc/deblock.cu",
          "replaces": "losslessh264_tpu/ops/deblock_pallas.py:199",
-         "launches": k2_launches + enc_launches["K2"],
+         "launches": k2_launches + enc_launches["K2"] + sum(
+             v["K2"] for v in path_launches.values()),
          "launches_per_decode": k2_launches,
          "launches_per_encode": enc_launches["K2"],
+         **{f"launches_per_{k}": v["K2"] for k, v in path_launches.items()},
          "max_abs_err": k2_err, "ms": k2_ms, "kernel_ms": k2_kernel_ms,
          "plain_ms": k2_plain_ms,
          "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": None},

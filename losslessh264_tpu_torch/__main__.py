@@ -1,5 +1,13 @@
-"""Command line of the torch port.
+"""Command line of the torch port: every verb of `python -m
+losslessh264_tpu`.
 
+    python -m losslessh264_tpu_torch in.264 out.pip     # compress
+        [--shards N] [--no-verify] [--stats] [--billing]
+    python -m losslessh264_tpu_torch in.pip out.264     # decompress
+        [--stats] [--billing]
+    python -m losslessh264_tpu_torch roundtrip in.264 [--shards N]
+        [--billing]
+    python -m losslessh264_tpu_torch parse in.264
     python -m losslessh264_tpu_torch decode in.264 out.yuv
         [--device cuda|cpu] [--stats]
     python -m losslessh264_tpu_torch encode in.yuv WxH out.264
@@ -7,6 +15,13 @@
         [--denoise] [--refs 1|2] [--slices N] [--temporal-layers 1-4]
         [--spatial-layers 1-4] [--device cuda|cpu] [--stats]
 
+As in the JAX CLI, the direction of recompression follows the input: a
+.pip container (magic "PIPT" or "PIPS") decompresses, anything else
+compresses, through the port's own binding of the shared native layer
+(native.py); --shards N compresses GOP-sharded. `roundtrip` compresses,
+decompresses and compares, `parse` lists the access units without
+reconstructing pixels (parse.py). These run no device code, and print
+what the JAX CLI prints.
 `decode` turns an H.264 stream into raw I420 frames with TorchDecoder
 (cropped per the SPS, as the reference decoder writes them). `encode`
 reads raw I420 frames of size WxH and writes an H.264 stream with
@@ -16,14 +31,146 @@ scene changes; --bitrate turns on rate control (a RateControl at
 --fps starting at --qp, with the per-row GOM plane); --spatial-layers N
 writes N dyadic simulcast layers (SimulcastEncoder, without rate
 control: one controller cannot serve several layers).
-The default device is cuda, which raises when no GPU is present.
-Compress, decompress and roundtrip stay with `python -m losslessh264_tpu`.
+The default device of decode and encode is cuda, which raises when no
+GPU is present. The JAX CLI's `decode --jax` has no counterpart: the
+port has one pixel pipeline.
 """
 from __future__ import annotations
 
 import argparse
 import sys
 import time
+
+from . import native
+
+
+def print_billing(st, in_bytes, out_bytes):
+    """Feature | Bench | Ours | delta table of the native ledgers: Bench
+    is the bytes the original H.264 spent per feature, Ours the bytes
+    the .pip spends; both columns sum to their file sizes. A copy of
+    losslessh264_tpu.__main__.print_billing."""
+    bench = st.bench or {}
+    bill = st.bill or {}
+    prior = st.prior or {}
+    keys = sorted(set(bench) | set(bill),
+                  key=lambda k: -(bench.get(k, 0) + bill.get(k, 0)))
+    print(f"  {'feature':<12} {'bench':>10} {'ours':>10} {'delta':>9} "
+          f"{'share':>6} {'hit%':>6}")
+    tb = to_ = 0.0
+    for k in keys:
+        b = bench.get(k, 0) / 8.0
+        o = bill.get(k, 0) / 8.0
+        tb += b
+        to_ += o
+        tot, hits = prior.get(k, (0, 0))
+        hit = f"{100*hits/tot:>5.1f}%" if tot else "     -"
+        print(f"  {k:<12} {b:>10.0f} {o:>10.0f} {o-b:>+9.0f} "
+              f"{100*o/out_bytes:>5.1f}% {hit}")
+    print(f"  {'TOTAL':<12} {tb:>10.0f} {to_:>10.0f} {to_-tb:>+9.0f}")
+    if round(tb) != in_bytes or round(to_) != out_bytes:
+        print(f"  WARNING: ledger totals ({tb:.0f}/{to_:.0f}) != file sizes "
+              f"({in_bytes}/{out_bytes})", file=sys.stderr)
+
+
+def _parse(path):
+    from .parse import DecodeParser
+    with open(path, "rb") as fh:
+        data = fh.read()
+    n = 0
+    for au in DecodeParser(data):
+        kinds = ",".join(str(t) for t, _ in au.nals)
+        print(f"AU {n}: {len(au.annexb)} bytes, nal_types [{kinds}]"
+              f"{' IDR' if au.is_idr else ''} "
+              f"{au.width}x{au.height}")
+        n += 1
+    print(f"{n} access units")
+    return 0
+
+
+def _roundtrip(path, args):
+    with open(path, "rb") as fh:
+        data = fh.read()
+    t0 = time.perf_counter()
+    if args.shards > 1:
+        pip, st = native.compress_sharded(data, args.shards)
+    else:
+        pip, st = native.compress(data, verify=False)
+    t1 = time.perf_counter()
+    out, _ = native.decompress(pip)
+    t2 = time.perf_counter()
+    ok = out == data
+    ratio = 100.0 * (1 - len(pip) / len(data))
+    print(
+        f"{path}: {len(data)} -> {len(pip)} bytes ({ratio:.1f}% saved), "
+        f"{st.n_frames} frames, compress {st.n_frames/(t1-t0):.1f} fps, "
+        f"decompress {st.n_frames/(t2-t1):.1f} fps, "
+        f"bit-exact: {'YES' if ok else 'NO'}"
+    )
+    if args.billing and st.bill:
+        print_billing(st, len(data), len(pip))
+    return 0 if ok else 1
+
+
+def _recompress(args):
+    """Compress, or decompress a .pip, by the input's magic bytes."""
+    with open(args.input, "rb") as fh:
+        data = fh.read()
+    if data[:4] in (b"PIPT", b"PIPS"):
+        out, st = native.decompress(data)
+        if args.stats:
+            print(f"decompressed {len(data)} -> {len(out)} bytes, "
+                  f"{st.n_frames} frames", file=sys.stderr)
+    elif args.shards > 1:
+        out, st = native.compress_sharded(data, args.shards,
+                                          verify=not args.no_verify)
+        if args.stats:
+            ratio = 100.0 * (1 - len(out) / len(data))
+            print(f"compressed {len(data)} -> {len(out)} bytes "
+                  f"({ratio:.1f}% saved), {st.n_frames} frames, "
+                  f"{args.shards} shards", file=sys.stderr)
+    else:
+        out, st = native.compress(data, verify=not args.no_verify)
+        if args.stats:
+            ratio = 100.0 * (1 - len(out) / len(data))
+            print(f"compressed {len(data)} -> {len(out)} bytes "
+                  f"({ratio:.1f}% saved), {st.n_frames} frames, "
+                  f"{st.n_fallback_slices} fallback slices",
+                  file=sys.stderr)
+    with open(args.output, "wb") as fh:
+        fh.write(out)
+    if args.billing and st.bill:
+        print_billing(st, len(data), len(out))
+    return 0
+
+
+def _main_recompress(argv):
+    """The verbs that take a file first, as the JAX CLI parses them:
+    compress / decompress (in out), roundtrip in, parse in."""
+    ap = argparse.ArgumentParser(prog="python -m losslessh264_tpu_torch")
+    ap.add_argument("input", help="input file (.264 or .pip), 'roundtrip' "
+                                  "or 'parse'")
+    ap.add_argument("output", nargs="?", help="output file")
+    ap.add_argument("--no-verify", action="store_true",
+                    help="skip compress-time roundtrip verification")
+    ap.add_argument("--stats", action="store_true",
+                    help="print stats to stderr")
+    ap.add_argument("--billing", action="store_true",
+                    help="print per-feature compressed-size billing")
+    ap.add_argument("--shards", type=int, default=1,
+                    help="compress GOP-sharded into N independent model/"
+                         "stream sets")
+    args = ap.parse_args(argv)
+    if args.input == "parse":
+        if not args.output:
+            ap.error("parse mode: parse in.264")
+        return _parse(args.output)
+    if args.input == "roundtrip":
+        if not args.output:
+            ap.error("roundtrip mode requires an input file")
+        return _roundtrip(args.output, args)
+    if not args.output:
+        ap.error("output file required")
+    return _recompress(args)
 
 
 def _decode(args):
@@ -91,6 +238,9 @@ def _encode(args, ap):
 
 
 def main(argv=None):
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if not argv or argv[0] not in ("decode", "encode"):
+        return _main_recompress(argv)
     ap = argparse.ArgumentParser(prog="python -m losslessh264_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
     dp = sub.add_parser("decode", help="decode in.264 to raw I420 out.yuv")

@@ -15,6 +15,7 @@ import glob
 import os
 import shutil
 import subprocess
+import threading
 
 import torch
 
@@ -41,6 +42,16 @@ _SIGNATURES = {
 }
 
 _lib = None
+_lib_lock = threading.Lock()
+_count_lock = threading.Lock()
+
+
+def count_launch(wrapper):
+    """Add one to `wrapper.launches`. A bare `+= 1` is a read and a write
+    that two host threads (the GOP-parallel decode's workers) can
+    interleave and lose a count, so it is taken under a lock."""
+    with _count_lock:
+        wrapper.launches += 1
 
 
 def sources():
@@ -103,17 +114,22 @@ def build():
 
 
 def lib():
-    """The loaded kernel library, built first if a source changed."""
+    """The loaded kernel library, built first if a source changed. The
+    first call builds under a lock, so threads that launch at once share
+    one build."""
     global _lib
-    if _lib is None:
-        if needs_build():
-            build()
-        so = ctypes.CDLL(LIB_PATH)
-        for name, args in _SIGNATURES.items():
-            fn = getattr(so, name)
-            fn.argtypes = args
-            fn.restype = ctypes.c_int
-        _lib = so
+    if _lib is not None:
+        return _lib
+    with _lib_lock:
+        if _lib is None:
+            if needs_build():
+                build()
+            so = ctypes.CDLL(LIB_PATH)
+            for name, args in _SIGNATURES.items():
+                fn = getattr(so, name)
+                fn.argtypes = args
+                fn.restype = ctypes.c_int
+            _lib = so
     return _lib
 
 

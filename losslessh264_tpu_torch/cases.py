@@ -66,11 +66,15 @@ def moving_frames(n=4, W=64, H=48, seed=7):
 
 def golden_encoder(cfg, width, height, device):
     """The port's encoder of one configuration of an encode golden (its
-    JSON entry: `kwargs` with an optional `rc` spec, or `simulcast`),
-    built as tools/gen_enc_golden.make_encoder builds the JAX package's."""
+    JSON entry: `kwargs` with an optional `rc` spec, `simulcast`, or
+    `older`, the older fixed-QP Encoder), built as
+    tools/gen_enc_golden.make_encoder builds the JAX package's."""
     from . import ratectl
+    from .encoder import Encoder
     from .encoder_torch import TorchEncoder
     from .simulcast import SimulcastEncoder
+    if "older" in cfg:
+        return Encoder(width, height, device=device, **cfg["older"])
     if "simulcast" in cfg:
         return SimulcastEncoder(width, height, device=device,
                                 **cfg["simulcast"])

@@ -1378,8 +1378,11 @@ class TorchEncoder:
         self.frame_idx += 1
         return data
 
-    def encode_frames(self, frames):
-        """Encode a sequence of (Y, U, V) frames, one encode_frame each."""
+    def encode_frames(self, frames, batch=8):
+        """Encode a sequence of (Y, U, V) frames, one encode_frame each.
+        `batch` is taken and ignored: JaxEncoder runs `batch` P frames as
+        one scanned device program, with bytes equal to per-frame calls
+        (encoder_jax.py:1453-1457), which is what this loop gives."""
         return [self.encode_frame(*f) for f in frames]
 
     @property

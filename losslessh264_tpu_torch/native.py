@@ -1,10 +1,14 @@
 """The port's ctypes binding of the shared native library (native/).
 
-`native/libh264pip.so` is the repo's C++ symbol layer: Annex-B parsing
-and CAVLC/CABAC entropy decode into per-frame symbol planes. The port
-uses one piece of it, the streaming `SymbolDecoder` (native/src/
-capi_sym.cc). This module is the port's own copy of that binding, so the
-port imports nothing of the JAX package.
+`native/libh264pip.so` is the repo's C++ layer: Annex-B parsing,
+CAVLC/CABAC entropy decode into per-frame symbol planes, the lossless
+recompressor and its `.pip` container. The port uses the streaming
+`SymbolDecoder` (native/src/capi_sym.cc) for the pixel decode, and the
+recompressor's entry points (`compress`, `compress_sharded`,
+`decompress`, the GOP cut points and shard plan) for its CLI, its GOP
+sharding (parallel/) and checkpointing. This module is the port's own
+copy of losslessh264_tpu/native.py's binding, so the port imports
+nothing of the JAX package; tests pin it to the original.
 
 The library is built by `make -C native` at first use, with the
 Makefile's own compiler (`CXX=g++`: an inherited CXX may name a compiler
@@ -21,6 +25,7 @@ import ctypes
 import fcntl
 import os
 import subprocess
+from dataclasses import dataclass
 
 import numpy as np
 
@@ -30,6 +35,54 @@ LIB_PATH = os.path.join(NATIVE_DIR, "libh264pip.so")
 LOCK_PATH = os.path.join(_ROOT, "build", "native.lock")
 
 _lib = None
+
+
+class PipStats(ctypes.Structure):
+    """The C entry points' statistics record (native/src/capi.cc)."""
+    _fields_ = [
+        ("in_bytes", ctypes.c_uint64),
+        ("out_bytes", ctypes.c_uint64),
+        ("n_nals", ctypes.c_uint64),
+        ("n_slices", ctypes.c_uint64),
+        ("n_fallback_slices", ctypes.c_uint64),
+        ("n_frames", ctypes.c_uint64),
+        ("n_mbs", ctypes.c_uint64),
+        ("bill", ctypes.c_double * 64),
+        ("bench", ctypes.c_double * 64),
+        ("prior_total", ctypes.c_double * 64),
+        ("prior_hits", ctypes.c_double * 64),
+    ]
+
+
+# Mirrors BillTag in native/src/engine.h (order matters).
+BILL_NAMES = [
+    "mb_type", "skip", "end", "cbp", "cbp_luma", "cbp_chroma", "qp_delta",
+    "i4_mode", "i8_mode", "i16_mode", "chroma_mode", "sub_mb", "ref_idx",
+    "mvd_x", "mvd_y", "t8x8_flag", "luma_dc", "chroma_dc", "luma_nz",
+    "luma_ac", "luma_run", "chroma_nz", "chroma_ac", "chroma_run", "pcm",
+    "startcode", "nal_hdr", "param_set", "slice_hdr", "trailing",
+    "raw_fallback", "container", "other", "luma_ac_sign", "luma_ac_mag",
+    "cabac_cbf", "cabac_sig", "cabac_last", "cabac_sign",
+    "mvd_sub_x", "mvd_sub_y", "chroma_ac_sign", "chroma_ac_mag",
+]
+
+
+@dataclass
+class Stats:
+    in_bytes: int = 0
+    out_bytes: int = 0
+    n_nals: int = 0
+    n_slices: int = 0
+    n_fallback_slices: int = 0
+    n_frames: int = 0
+    n_mbs: int = 0
+    # compressed output bits per feature; sums to 8 * out_bytes
+    bill: dict | None = None
+    # bits the original H.264 spent per feature; sums to 8 * in_bytes
+    bench: dict | None = None
+    # per-feature adaptive-coder hit rates (PIP_PRIOR_STATS=1):
+    # tag -> (decisions, predicted-symbol hits)
+    prior: dict | None = None
 
 
 def needs_rebuild() -> bool:
@@ -79,8 +132,156 @@ def load():
         lib.pip_sym_planes.argtypes = [ctypes.c_void_p] * 32
         lib.pip_sym_close.restype = None
         lib.pip_sym_close.argtypes = [ctypes.c_void_p]
+        _configure_pip(lib)
         _lib = lib
     return _lib
+
+
+def _configure_pip(lib):
+    """Signatures of the recompressor's C entry points."""
+    c = ctypes
+    out = [c.POINTER(c.POINTER(c.c_uint8)), c.POINTER(c.c_size_t),
+           c.POINTER(PipStats), c.c_char_p, c.c_size_t]
+    sigs = {
+        "pip_compress_c": [c.c_char_p, c.c_size_t, c.c_int] + out,
+        "pip_compress_ctx_c": [c.c_char_p, c.c_size_t, c.c_char_p,
+                               c.c_size_t, c.c_int] + out,
+        "pip_decompress_c": [c.c_char_p, c.c_size_t] + out,
+        "pip_compress_sharded_c": [c.c_char_p, c.c_size_t, c.c_int,
+                                   c.c_int] + out,
+        "pip_selftest_arith": [c.c_char_p, c.c_size_t],
+        "pip_gop_starts_c": [c.c_char_p, c.c_size_t,
+                             c.POINTER(c.c_uint64), c.c_size_t,
+                             c.POINTER(c.c_size_t), c.c_char_p,
+                             c.c_size_t],
+        "pip_shard_plan_c": [c.c_char_p, c.c_size_t, c.c_int,
+                             c.POINTER(c.c_uint64), c.POINTER(c.c_uint64),
+                             c.POINTER(c.c_uint64), c.c_char_p, c.c_size_t,
+                             c.c_size_t, c.POINTER(c.c_size_t), c.c_char_p,
+                             c.c_size_t],
+        "pip_version_c": [],
+    }
+    for name, args in sigs.items():
+        fn = getattr(lib, name)
+        fn.argtypes = args
+        fn.restype = c.c_int
+    lib.pip_free.argtypes = [c.POINTER(c.c_uint8)]
+    lib.pip_free.restype = None
+
+
+def container_version() -> int:
+    """The native engine's .pip format/model revision byte, which
+    Python-side container assemblers (checkpoint, GOP shard assembly)
+    write."""
+    return int(load().pip_version_c())
+
+
+def _stats_from(c: PipStats) -> Stats:
+    names = range(len(BILL_NAMES))
+    bill = {BILL_NAMES[i]: c.bill[i] for i in names if c.bill[i] > 0}
+    bench = {BILL_NAMES[i]: c.bench[i] for i in names if c.bench[i] > 0}
+    prior = {BILL_NAMES[i]: (c.prior_total[i], c.prior_hits[i])
+             for i in names if c.prior_total[i] > 0}
+    return Stats(
+        in_bytes=c.in_bytes, out_bytes=c.out_bytes, n_nals=c.n_nals,
+        n_slices=c.n_slices, n_fallback_slices=c.n_fallback_slices,
+        n_frames=c.n_frames, n_mbs=c.n_mbs, bill=bill,
+        bench=bench or None, prior=prior or None)
+
+
+def _call_out(what, fn, *args):
+    """Call a C entry point that returns a malloc'd buffer and stats;
+    returns (bytes, Stats) and frees the buffer."""
+    out = ctypes.POINTER(ctypes.c_uint8)()
+    out_size = ctypes.c_size_t()
+    st = PipStats()
+    err = ctypes.create_string_buffer(1024)
+    rc = fn(*args, ctypes.byref(out), ctypes.byref(out_size),
+            ctypes.byref(st), err, len(err))
+    if rc != 0:
+        raise RuntimeError(f"{what} failed: {err.value.decode()}")
+    try:
+        return ctypes.string_at(out, out_size.value), _stats_from(st)
+    finally:
+        load().pip_free(out)
+
+
+def gop_starts(data: bytes) -> list[int]:
+    """Byte offsets of GOP (IDR access-unit) segment starts."""
+    cap = 65536
+    buf = (ctypes.c_uint64 * cap)()
+    n = ctypes.c_size_t()
+    err = ctypes.create_string_buffer(512)
+    rc = load().pip_gop_starts_c(data, len(data), buf, cap, ctypes.byref(n),
+                                 err, len(err))
+    if rc != 0:
+        raise RuntimeError(f"pip_gop_starts failed: {err.value.decode()}")
+    return [int(buf[i]) for i in range(min(n.value, cap))]
+
+
+def shard_plan(data: bytes, n_shards: int) -> list[tuple[int, int, bytes]]:
+    """The shard decomposition compress_sharded uses: [(start, end,
+    sps_pps_context_bytes), ...], whole-GOP groups balanced by bytes.
+    The native planner can return more shards than `n_shards` (on
+    walk_analog.264: 3, 4, 5 and 10 for 2, 3, 4 and 8), so callers size
+    by len(plan), as the JAX package's do."""
+    cap = 4096
+    starts = (ctypes.c_uint64 * cap)()
+    ends = (ctypes.c_uint64 * cap)()
+    ctx_lens = (ctypes.c_uint64 * cap)()
+    ctx_cap = 1 << 22
+    ctx_buf = ctypes.create_string_buffer(ctx_cap)
+    n = ctypes.c_size_t()
+    err = ctypes.create_string_buffer(512)
+    rc = load().pip_shard_plan_c(data, len(data), n_shards, starts, ends,
+                                 ctx_lens, ctx_buf, ctx_cap, cap,
+                                 ctypes.byref(n), err, len(err))
+    if rc != 0:
+        raise RuntimeError(f"pip_shard_plan failed: {err.value.decode()}")
+    out = []
+    off = 0
+    for i in range(n.value):
+        clen = int(ctx_lens[i])
+        out.append((int(starts[i]), int(ends[i]), ctx_buf.raw[off:off + clen]))
+        off += clen
+    return out
+
+
+def compress(data: bytes, verify: bool = True,
+             context: bytes = b"") -> tuple[bytes, Stats]:
+    """Compress an Annex-B .264 stream to the .pip container.
+
+    context: an optional SPS/PPS NAL stream absorbed for parameter-set
+    state but not emitted (GOP segment or checkpoint compression)."""
+    lib = load()
+    if context:
+        return _call_out("pip_compress", lib.pip_compress_ctx_c, data,
+                         len(data), context, len(context),
+                         1 if verify else 0)
+    return _call_out("pip_compress", lib.pip_compress_c, data, len(data),
+                     1 if verify else 0)
+
+
+def compress_sharded(data: bytes, n_shards: int,
+                     verify: bool = False) -> tuple[bytes, Stats]:
+    """GOP-sharded compression on the native engine's threads (shards
+    are model-independent: the multi-host distribution unit)."""
+    return _call_out("pip_compress_sharded", load().pip_compress_sharded_c,
+                     data, len(data), n_shards, 1 if verify else 0)
+
+
+def decompress(data: bytes) -> tuple[bytes, Stats]:
+    """Reconstruct the original .264 byte stream from a .pip container."""
+    return _call_out("pip_decompress", load().pip_decompress_c, data,
+                     len(data))
+
+
+def selftest_arith() -> None:
+    """The native arithmetic coder's self-test; raises on failure."""
+    err = ctypes.create_string_buffer(1024)
+    rc = load().pip_selftest_arith(err, len(err))
+    if rc != 0:
+        raise RuntimeError(f"arith selftest failed: {err.value.decode()}")
 
 
 class SymbolDecoder:

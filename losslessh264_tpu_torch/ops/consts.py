@@ -6,7 +6,10 @@ already queued on the stream: inside the per-diagonal loops of the intra
 wavefronts it would make the host wait for the card once per op. `on`
 keeps one copy per (table, device) for the life of the process. Tables
 are module-level numpy constants; the cache holds a reference to each,
-and nothing writes to the tensors it returns.
+and nothing writes to the tensors it returns. A new CUDA copy is waited
+for before it enters the cache: host threads that decode on their own
+streams (parallel/decode.py) share the cache, and a copy queued on one
+stream is not ordered before another stream's reads.
 """
 from __future__ import annotations
 
@@ -21,5 +24,8 @@ def on(table, device):
     key = (id(table), device)
     hit = _CACHE.get(key)
     if hit is None:
-        hit = _CACHE[key] = (table, torch.as_tensor(table, device=device))
+        t = torch.as_tensor(table, device=device)
+        if device.type == "cuda":
+            torch.cuda.current_stream(device).synchronize()
+        hit = _CACHE[key] = (table, t)
     return hit[1]

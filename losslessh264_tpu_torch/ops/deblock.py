@@ -374,7 +374,7 @@ def deblock_wavefront(mb_w, mb_h, Yw, Uw, Vw, params):
         ctypes.c_void_p(V.data_ptr()), Y.stride(0), U.stride(0),
         ctypes.c_void_p(P.data_ptr()), ctypes.c_void_p(sync.data_ptr()),
         mb_w, mb_h, _build.stream(dev)), "deblock")
-    deblock_wavefront.launches += 1
+    _build.count_launch(deblock_wavefront)
     return Y, U, V
 
 

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from .. import _build
+from .consts import on
 
 
 def _sixtap(a, b, c, d, e, f):
@@ -123,6 +124,36 @@ def mc_chroma_cells(ref_stack, pad, ref_idx, y0, x0, mvx, mvy):
             (8 - fx) * fy * C + fx * fy * D + 32) >> 6
 
 
+def mc_luma_mbs(planes, pad, y0, x0, mvx, mvy, size=16):
+    """Whole-block quarter-pel luma prediction from the half-pel planes
+    [4, Hp, Wp] (K1's output for a pad-padded reference; size 16 = MBs,
+    8 = P8x8 partitions). Each of a block's two taps is a [size, size]
+    window of one plane whose start is clamped into the plane, as the
+    JAX function clamps it (torch would read out of range). Returns
+    [n, size, size] int32, equal to mc_luma_cells for MVs that keep the
+    window inside the planes."""
+    _, Hp, Wp = planes.shape
+    dev = planes.device
+    mvx = mvx.to(torch.int32)
+    mvy = mvy.to(torch.int32)
+    e = on(QTAB, dev)[((mvy & 3) * 4 + (mvx & 3)).long()]
+    by = pad - 2 + y0.to(torch.int32) + (mvy >> 2)
+    bx = pad - 2 + x0.to(torch.int32) + (mvx >> 2)
+    o = torch.arange(size, device=dev)
+    flat = planes.reshape(-1)
+
+    def samp(p, dy, dx):
+        yy = torch.clamp(by + dy, 0, Hp - size).long()
+        xx = torch.clamp(bx + dx, 0, Wp - size).long()
+        idx = ((p.long() * Hp + yy)[:, None, None] + o[None, :, None]) \
+            * Wp + xx[:, None, None] + o[None, None, :]
+        return flat[idx].to(torch.int32)
+
+    t1 = samp(e[:, 0], e[:, 1], e[:, 2])
+    t2 = samp(e[:, 3], e[:, 4], e[:, 5])
+    return (t1 + t2 + 1) >> 1
+
+
 def mc_chroma_mbs(ref_pad_c, pad, cy0, cx0, mvx, mvy, size=8):
     """Whole-block chroma prediction from one edge-padded plane
     [Hc, Wc]: one window gather per block, the MV uniform across it
@@ -202,7 +233,7 @@ def _halfpel_launch(ref_pad, out_dtype):
             _build.stream(src.device))
         out = out[..., :Wo]
     _build.check(rc, "halfpel")
-    halfpel_planes.launches += 1
+    _build.count_launch(halfpel_planes)
     return out
 
 

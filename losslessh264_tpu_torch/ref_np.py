@@ -2,10 +2,13 @@
 
 Copies of what the port uses from losslessh264_tpu/decoder_np.py, so
 that the port imports nothing of the JAX package: the dequantisation
-and deblocking tables, the scaling-list weights, SPS cropping, and the
+and deblocking tables, the scaling-list weights, SPS cropping, the
 per-MB error concealment (a rare host path, so it stays numpy) with the
-block MC it calls. tests/test_torch_ref_np.py pins every name here to
-its original.
+block MC it calls, and the per-block inverse transforms, dequantisation
+and plane prediction that the older encoder's host loops reconstruct
+with (losslessh264_tpu_torch/encoder.py). tests/test_torch_ref_np.py
+and tests/test_torch_encoder_basic.py (the older encoder's names) pin
+every name here to its original.
 """
 from __future__ import annotations
 
@@ -77,6 +80,10 @@ TC0_TABLE = np.array([
     [10, 13, 17], [11, 16, 20], [13, 18, 23], [14, 20, 25]], np.int32)
 
 
+# default (flat) weight = 16 when no scaling lists
+FLAT4 = np.full(16, 16, np.int32)
+
+
 def weights4(scaling_row):
     """A zigzag-ordered 4x4 scaling list as a [4, 4] weight block."""
     w = np.zeros(16, np.int32)
@@ -103,7 +110,87 @@ def crop_yuv(yuv, crop_px):
 
 
 # ---------------------------------------------------------------------------
-# block MC (concealment only)
+# per-block inverse transforms and dequantisation (the older encoder)
+# ---------------------------------------------------------------------------
+def idct4(b):
+    b = b.astype(np.int64)
+    e0 = b[0] + b[2]
+    e1 = b[0] - b[2]
+    e2 = (b[1] >> 1) - b[3]
+    e3 = b[1] + (b[3] >> 1)
+    return np.stack([e0 + e3, e1 + e2, e1 - e2, e0 - e3])
+
+
+def idct4x4(blk):
+    """[4, 4] dequantized coefficients -> rounded residual."""
+    h = idct4(blk.T).T  # rows
+    v = idct4(h)
+    return (v + 32) >> 6
+
+
+def hadamard4x4(blk):
+    def h1(a):
+        e0 = a[0] + a[2]
+        e1 = a[0] - a[2]
+        e2 = a[1] - a[3]
+        e3 = a[1] + a[3]
+        return np.stack([e0 + e3, e1 + e2, e1 - e2, e0 - e3])
+
+    return h1(h1(blk.T.astype(np.int64)).T)
+
+
+def dequant4(coeff, qp, weights):
+    """Spec 8.5.9 with LevelScale4x4 = weight * V4."""
+    qp = int(qp)
+    ls = weights * V4[qp % 6][POS4]
+    if qp >= 24:
+        return (coeff.astype(np.int64) * ls) << (qp // 6 - 4)
+    shift = 4 - qp // 6
+    return (coeff.astype(np.int64) * ls + (1 << (shift - 1))) >> shift
+
+
+def luma_dc_dequant(dc_t, qp, weights):
+    """Spec 8.5.10, after the inverse Hadamard."""
+    qp = int(qp)
+    scale = int(weights[0, 0]) * int(V4[qp % 6][0])
+    if qp >= 36:
+        return (dc_t * scale) << (qp // 6 - 6)
+    shift = 6 - qp // 6
+    return (dc_t * scale + (1 << (shift - 1))) >> shift
+
+
+def chroma_dc_dequant(dc_t, qp, weights):
+    """Spec 8.5.11: ((f * LevelScale(qp % 6, 0, 0)) << (qp / 6)) >> 5."""
+    scale = int(weights[0, 0]) * int(V4[qp % 6][0])
+    return ((dc_t * scale) << (qp // 6)) >> 5
+
+
+def plane_pred(left, top, topleft, size, xy_shift):
+    """Spec plane prediction for 16x16 luma (size 16) or 8x8 chroma
+    (size 8)."""
+    n = size
+    h = n // 2
+    Hsum = 0
+    Vsum = 0
+    for i in range(1, h + 1):
+        Hsum += i * (int(top[h - 1 + i]) - (int(topleft) if i == h
+                                            else int(top[h - 1 - i])))
+        Vsum += i * (int(left[h - 1 + i]) - (int(topleft) if i == h
+                                             else int(left[h - 1 - i])))
+    if n == 16:
+        b = (5 * Hsum + 32) >> 6
+        c = (5 * Vsum + 32) >> 6
+    else:
+        b = (17 * Hsum + 16) >> 5
+        c = (17 * Vsum + 16) >> 5
+    a = 16 * (int(left[n - 1]) + int(top[n - 1]))
+    ys, xs = np.mgrid[0:n, 0:n]
+    val = (a + b * (xs - h + 1) + c * (ys - h + 1) + 16) >> 5
+    return np.clip(val, 0, 255)
+
+
+# ---------------------------------------------------------------------------
+# block MC (concealment, and the older encoder's chroma prediction)
 # ---------------------------------------------------------------------------
 def _sixtap(a, b, c, d, e, f):
     return a - 5 * b + 20 * c + 20 * d - 5 * e + f

@@ -302,7 +302,9 @@ class SimulcastEncoder:
         """One access unit: all spatial layers' NALs, low-res first."""
         return b"".join(self.encode_frame_layers(Y, U, V))
 
-    def encode_frames(self, frames):
+    def encode_frames(self, frames, batch=8):
+        """Per-AU encode of a frame sequence; `batch` is taken and ignored,
+        as the JAX SimulcastEncoder ignores it."""
         return [self.encode_frame(*f) for f in frames]
 
     def force_intra_frame(self):

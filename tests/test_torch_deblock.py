@@ -12,6 +12,9 @@ import torch
 from losslessh264_tpu.ops import deblock as jdb
 from losslessh264_tpu_torch.ops import deblock as tdb
 
+# one torch thread per test worker (see tests/test_torch_decoder.py)
+torch.set_num_threads(1)
+
 KEYS = ("cls", "qp", "nnz", "mv", "ref_idx", "slice_id", "deblock_idc",
         "alpha_off", "beta_off", "transform8")
 

@@ -13,7 +13,9 @@ byte-exact vs losslessh264_tpu.encoder_jax.JaxEncoder on the CPU:
 - continuing a JAX stream from its state (load_state), the encode verb
   of the CLI, the option combinations both encoders refuse, and the card
   requirement.
-The other options' recipes are in tests/test_torch_encoder_modes.py,
+Half of the whole-stream recipes, load_state and the CLI are in
+tests/test_torch_encoder_streams.py; the other options' recipes are in
+tests/test_torch_encoder_modes.py, test_torch_encoder_partitions.py,
 test_torch_encoder_rc.py, test_torch_encoder_aq.py and
 test_torch_encoder_layers.py.
 
@@ -40,9 +42,10 @@ from losslessh264_tpu_torch import native as tnative
 from losslessh264_tpu_torch import ratectl as tratectl
 from losslessh264_tpu_torch.cases import golden_encoder, moving_frames
 
-# the shared native library, built once under the port's lock (see
-# tests/test_torch_decoder.py)
+# the shared native library, built once under the port's lock, and one
+# torch thread per worker (see tests/test_torch_decoder.py)
 tnative.load()
+torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DATA = os.path.join(ROOT, "tests", "data")
@@ -349,8 +352,19 @@ def test_writer_binding_matches_original(monkeypatch):
 # ---------------------------------------------------------------------------
 # whole streams
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("name", list(RECIPES))
+# the other recipes' streams are in tests/test_torch_encoder_streams.py:
+# two files, so that the tier-1 run's workers share the compilations
+HERE = ("default", "p_intra", "p_intra_slices", "gop2")
+
+
+@pytest.mark.parametrize("name", HERE)
 def test_stream_matches_jax(name):
+    check_recipe(name)
+
+
+def check_recipe(name):
+    """A recipe's stream is exact (assert_stream_exact), with its IDRs
+    where the options put them, and the P frames' intra fallback."""
     r = run(name)
     assert_stream_exact(r)
     idrs = [idr_count(d) > 0 for d in r["torch"]]
@@ -370,35 +384,6 @@ def test_encode_yuv():
     default recipe's JaxEncoder stream."""
     got = et.encode_yuv(moving_frames(4), 64, 48, qp=26, device="cpu")
     assert got == b"".join(run("default")["jax"])
-
-
-def test_load_state_continues_a_jax_stream():
-    """Both encoders start frame 4 from JaxEncoder's state after frame 3
-    (reference planes, counters, and scene_cut's previous source)."""
-    frames = _cut_frames()
-    je = encoder_jax.JaxEncoder(64, 48, qp=28, scene_cut=True)
-    for f in frames[:4]:
-        je.encode_frame(*f)
-    te = et.TorchEncoder(64, 48, qp=28, scene_cut=True, device="cpu")
-    te.load_state([np.asarray(p) for p in je.ref], None, je.frame_idx,
-                  je._frame_num, je._idr_id, np.asarray(je._prev_src))
-    assert te.encode_frame(*frames[4]) == je.encode_frame(*frames[4])
-    for a, b in zip(te.recon, je.recon):
-        eq(a, b)
-
-
-def test_cli_encode(tmp_path):
-    """`encode` with --gop 0 turns scene_cut on, as the JAX CLI does: the
-    bytes equal the scene_cut recipe's JaxEncoder stream."""
-    src = tmp_path / "in.yuv"
-    out = tmp_path / "out.264"
-    frames = _cut_frames()
-    src.write_bytes(b"".join(p.tobytes() for f in frames for p in f))
-    subprocess.run([sys.executable, "-m", "losslessh264_tpu_torch", "encode",
-                    str(src), "64x48", str(out), "--qp", "28", "--gop", "0",
-                    "--device", "cpu"], check=True, cwd=ROOT,
-                   env=dict(os.environ, PYTHONPATH=ROOT))
-    assert out.read_bytes() == b"".join(run("scene_cut")["jax"])
 
 
 INVALID = [

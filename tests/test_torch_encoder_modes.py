@@ -1,8 +1,9 @@
 """TorchEncoder (losslessh264_tpu_torch/encoder_torch.py) against
 JaxEncoder on the CPU, per option: multiple slices (CAVLC and CABAC),
-two reference frames, the in-loop filter on and off, P8x8 and
-P16x8/P8x16 partitions, a size that is not a whole number of MBs, and
-the trellis-lite quantizer at a low and a high QP. The recipes are those
+two reference frames, the in-loop filter on and off, and the
+trellis-lite quantizer at a low and a high QP (P8x8 and P16x8/P8x16
+partitions and a size that is not a whole number of MBs are in
+tests/test_torch_encoder_partitions.py). The recipes are those
 of tests/test_encoder_jax.py. Every frame's bytes and recon must equal
 JaxEncoder's, and the port's CPU TorchDecoder must decode the port's
 bytes to the port's recon (tests/test_torch_encoder.py holds the
@@ -110,8 +111,21 @@ def _classes(data):
     return [(f["mb_class"], f["ref_idx"]) for f in tnative.SymbolDecoder(data)]
 
 
-@pytest.mark.parametrize("name", list(RECIPES))
+# the partition and cropping recipes' streams are in
+# tests/test_torch_encoder_partitions.py: two files, so that the tier-1
+# run's workers share the compilations
+HERE = ("slices3_cavlc", "slices3_cabac", "refs2", "deblock_on",
+        "deblock_off", "trellis_qp26", "trellis_qp48")
+
+
+@pytest.mark.parametrize("name", HERE)
 def test_stream_matches_jax(name):
+    check_recipe(name)
+
+
+def check_recipe(name):
+    """A recipe's stream is exact (assert_stream_exact) and holds the
+    partitions or references the recipe is made to reach."""
     r = run(name)
     assert_stream_exact(r)
     syms = _classes(b"".join(r["torch"]))

@@ -11,6 +11,9 @@ import torch
 from losslessh264_tpu.ops import intra as jintra
 from losslessh264_tpu_torch.ops import intra as tintra
 
+# one torch thread per test worker (see tests/test_torch_decoder.py)
+torch.set_num_threads(1)
+
 K = 96
 
 

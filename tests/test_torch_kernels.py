@@ -315,3 +315,105 @@ def test_deblock_ignores_the_padding():
         pad[P:-P, P:-P] = False
         assert torch.equal(g[pad], b[pad])
     assert not torch.equal(want[0], planes[0])   # the filter fired
+
+
+def _me_case(device, seed=0, mb_w=6, mb_h=4, pad=32):
+    """Half-pel planes (K1 on the card, the plain version on the CPU) of
+    a padded random reference, block origins, source blocks, and MVs in
+    quarter units (integer, some far enough out to be clamped)."""
+    rng = np.random.default_rng(seed)
+    H, W = mb_h * 16, mb_w * 16
+    ref = np.pad(rng.integers(0, 256, (H, W), dtype=np.uint8), pad,
+                 mode="edge")
+    n = 60
+    ys = (rng.integers(0, mb_h, n) * 16).astype(np.int32)
+    xs = (rng.integers(0, mb_w, n) * 16).astype(np.int32)
+    mvx = (rng.integers(-16, 17, n) * 4).astype(np.int32)
+    mvy = (rng.integers(-16, 17, n) * 4).astype(np.int32)
+    mvx[:2] = (4 * (pad + 12), -4 * (pad + 20))
+    src = rng.integers(0, 256, (n, 16, 16)).astype(np.int32)
+    out = {}
+    for dev in ("cpu", device):
+        t = {k: torch.as_tensor(v, device=dev) for k, v in
+             dict(ref=ref, ys=ys, xs=xs, mvx=mvx, mvy=mvy, src=src).items()}
+        t["planes"] = tmc.halfpel_planes(t["ref"])
+        out[torch.device(dev).type] = t
+    return out["cpu"], out["cuda"], pad
+
+
+@pytest.mark.cuda
+def test_me_ops_on_card(cuda_device):
+    """full_search_sad (every block shape), subpel_refine (steps 2 and 1),
+    subpel_full and mc_luma_mbs on the card equal the CPU port on K1's
+    planes."""
+    from losslessh264_tpu_torch.ops import me as tme
+    c, g, pad = _me_case(cuda_device)
+
+    def same(fn):
+        for a, b in zip(fn(c), fn(g)):
+            assert torch.equal(a, b.cpu())
+
+    for block in (16, 8, (8, 16), (16, 8)):
+        bh, bw = (block, block) if isinstance(block, int) else block
+        same(lambda t: tme.full_search_sad(
+            t["src"][:, :bh, :bw], t["ref"], t["ys"] + pad - 16,
+            t["xs"] + pad - 16, 16, block))
+    for step in (2, 1):
+        same(lambda t: tme.subpel_refine(
+            t["planes"], pad, t["ys"], t["xs"], t["mvx"] + 2 * (step == 1),
+            t["mvy"], t["src"], step, return_pred=True))
+    same(lambda t: tme.subpel_full(t["planes"], pad, t["ys"], t["xs"],
+                                   t["mvx"], t["mvy"], t["src"]))
+    same(lambda t: (tmc.mc_luma_mbs(t["planes"], pad, t["ys"], t["xs"],
+                                    t["mvx"] + 3, t["mvy"] - 1),))
+
+
+@pytest.mark.cuda
+def test_older_encoder_on_card(cuda_device):
+    """The older Encoder on the card writes the CPU run's bytes and
+    reference, and launches neither K1 nor K2 (integer-pel, unfiltered)."""
+    from losslessh264_tpu_torch import encoder as tenc
+    frames = moving_frames(3)
+    cpu = tenc.Encoder(64, 48, qp=26, device="cpu")
+    want = [cpu.encode_frame(*f) for f in frames]
+    k1, k2 = tmc.halfpel_planes.launches, tdb.deblock_wavefront.launches
+    card = tenc.Encoder(64, 48, qp=26, device=cuda_device)
+    for f, w in zip(frames, want):
+        assert card.encode_frame(*f) == w
+    assert all(np.array_equal(a, b) for a, b in zip(card.ref, cpu.ref))
+    assert (tmc.halfpel_planes.launches - k1,
+            tdb.deblock_wavefront.launches - k2) == (0, 0)
+
+
+@pytest.mark.cuda
+def test_two_decoders_on_two_streams(cuda_device):
+    """Two TorchDecoders decoding at once from two host threads, each on
+    its own CUDA stream, each equal to a sequential decode; the launch
+    counters count every launch of both."""
+    from concurrent.futures import ThreadPoolExecutor
+    # two GOPs of translating noise: bucketed MC (K1) on the P frames
+    data = et.encode_yuv(moving_frames(6), 64, 48, qp=28, gop=3,
+                         device="cpu")
+    start, end, ctx = native.shard_plan(data, 2)[1]
+    streams = [data[:start], ctx + data[start:end]]
+
+    def decode(blob):
+        with torch.cuda.stream(torch.cuda.Stream(cuda_device)):
+            dec = dt.TorchDecoder(blob, device=cuda_device)
+            return [tuple(p.cpu().numpy() for p in f)
+                    for f in dec.frames()]
+
+    k1, k2 = tmc.halfpel_planes.launches, tdb.deblock_wavefront.launches
+    want = [decode(b) for b in streams]
+    seq = (tmc.halfpel_planes.launches - k1,
+           tdb.deblock_wavefront.launches - k2)
+    k1, k2 = tmc.halfpel_planes.launches, tdb.deblock_wavefront.launches
+    with ThreadPoolExecutor(max_workers=2) as ex:
+        got = list(ex.map(decode, streams))
+    assert (tmc.halfpel_planes.launches - k1,
+            tdb.deblock_wavefront.launches - k2) == seq
+    assert seq[0] > 0 and seq[1] > 0
+    for g, w in zip(got, want):
+        assert len(g) == len(w) > 0
+        assert all(np.array_equal(a, b) for fg, fw in zip(g, w)
+                   for a, b in zip(fg, fw))

@@ -16,6 +16,9 @@ import torch
 from losslessh264_tpu.ops import mc as jmc
 from losslessh264_tpu_torch.ops import mc as tmc
 
+# one torch thread per test worker (see tests/test_torch_decoder.py)
+torch.set_num_threads(1)
+
 DATA = os.path.join(os.path.dirname(__file__), "data")
 
 
@@ -105,6 +108,27 @@ def test_mc_chroma_mbs(size, mv_span):
     want = jmc.mc_chroma_mbs(ref_pad, pad, cy0, cx0, mvx, mvy, size=size)
     got = tmc.mc_chroma_mbs(T(ref_pad), pad, T(cy0), T(cx0), T(mvx), T(mvy),
                             size=size)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("size,mv_span", [(16, 60), (8, 60), (16, 400),
+                                          (8, 400)])
+def test_mc_luma_mbs(size, mv_span):
+    """Whole-block luma MC from the half-pel planes; with mv_span 400 the
+    window starts leave the planes and are clamped into them, as JAX
+    clamps them."""
+    rng = np.random.default_rng(17 + size + mv_span)
+    H, W, pad = 48, 64, 32
+    planes = np.asarray(jmc.halfpel_planes(np.pad(
+        rng.integers(0, 256, (H, W), dtype=np.uint8), pad, mode="edge")))
+    n = 150
+    y0 = rng.integers(0, H // size, n) * size
+    x0 = rng.integers(0, W // size, n) * size
+    mvx = rng.integers(-mv_span, mv_span + 1, n)
+    mvy = rng.integers(-mv_span, mv_span + 1, n)
+    want = jmc.mc_luma_mbs(planes, pad, y0, x0, mvx, mvy, size=size)
+    got = tmc.mc_luma_mbs(T(planes), pad, T(y0), T(x0), T(mvx), T(mvy),
+                          size=size)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 

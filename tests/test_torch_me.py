@@ -16,6 +16,9 @@ from losslessh264_tpu.ops import me as jme
 from losslessh264_tpu_torch import processing as tproc
 from losslessh264_tpu_torch.ops import me as tme
 
+# one torch thread per test worker (see tests/test_torch_decoder.py)
+torch.set_num_threads(1)
+
 PAD = 32
 
 
@@ -103,6 +106,61 @@ def test_subpel_quad(kind, seed):
                               T(mvx), T(mvy), T(src8), T(part))
         for name, g, w in zip(("mvqx", "mvqy", "sad", "pred"), got, want):
             eq(g, w, f"{kind} {dt} {name}")
+
+
+def _refine_case(kind, size, step, seed, mb_w=4, mb_h=3, n=30):
+    """Inputs of subpel_refine / subpel_full: the half-pel planes of a
+    PAD-padded reference, block origins, MVs in quarter units (integer
+    for step 2 and subpel_full, with halves for step 1), a few far
+    enough out that the window start is clamped, and source blocks."""
+    rng = np.random.default_rng(seed)
+    sh, sw = (size, size) if isinstance(size, int) else size
+    H, W = mb_h * 16, mb_w * 16
+    ref = _plane(kind, (H, W), rng)
+    planes = np.asarray(jmc.halfpel_planes(np.pad(ref, PAD, mode="edge")))
+    ys = (rng.integers(0, H // sh, n) * sh).astype(np.int32)
+    xs = (rng.integers(0, W // sw, n) * sw).astype(np.int32)
+    mvx = rng.integers(-16, 17, n) * 4
+    mvy = rng.integers(-16, 17, n) * 4
+    if step == 1:
+        mvx += rng.integers(0, 2, n) * 2
+        mvy += rng.integers(0, 2, n) * 2
+    mvx[:2] = (4 * (PAD + 12), -4 * (PAD + 20))
+    mvy[:2] = (-4 * (PAD + 9), 4 * (PAD + 30))
+    if kind == "random":
+        src = rng.integers(0, 256, (n, sh, sw))
+    else:
+        src = np.stack([np.pad(ref, PAD, mode="edge")
+                        [PAD + y + 1:PAD + y + 1 + sh, PAD + x:PAD + x + sw]
+                        for y, x in zip(ys, xs)])
+    return (planes, ys, xs, mvx.astype(np.int32), mvy.astype(np.int32),
+            src.astype(np.int32))
+
+
+@pytest.mark.parametrize("kind,size,step,pred,seed", [
+    ("random", 16, 2, False, 20), ("random", 16, 1, True, 21),
+    ("periodic", 8, 2, True, 22), ("flat", 16, 1, False, 23),
+    ("random", (8, 16), 1, True, 24)])
+def test_subpel_refine(kind, size, step, pred, seed):
+    planes, ys, xs, mvx, mvy, src = _refine_case(kind, size, step, seed)
+    want = jme.subpel_refine(planes, PAD, ys, xs, mvx, mvy, src, step,
+                             size=size, return_pred=pred)
+    got = tme.subpel_refine(T(planes), PAD, T(ys), T(xs), T(mvx), T(mvy),
+                            T(src), step, size=size, return_pred=pred)
+    assert len(got) == len(want)
+    for name, g, w in zip(("mvx", "mvy", "sad", "pred"), got, want):
+        eq(g, w, f"{kind} {size} step {step} {name}")
+
+
+@pytest.mark.parametrize("kind,size,seed", [
+    ("random", 16, 30), ("periodic", 8, 31), ("flat", (16, 8), 32)])
+def test_subpel_full(kind, size, seed):
+    planes, ys, xs, mvx, mvy, src = _refine_case(kind, size, 2, seed)
+    want = jme.subpel_full(planes, PAD, ys, xs, mvx, mvy, src, size=size)
+    got = tme.subpel_full(T(planes), PAD, T(ys), T(xs), T(mvx), T(mvy),
+                          T(src), size=size)
+    for name, g, w in zip(("mvx", "mvy", "sad", "pred"), got, want):
+        eq(g, w, f"{kind} {size} {name}")
 
 
 def test_intra_sad_proxy():

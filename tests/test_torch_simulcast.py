@@ -25,6 +25,7 @@ from losslessh264_tpu_torch import simulcast as tsim
 from test_torch_encoder import ROOT, eq
 
 tnative.load()
+torch.set_num_threads(1)
 
 
 def _noise(n=5, W=96, H=64, seed=9):
@@ -84,11 +85,12 @@ RECIPES = {
 }
 
 
-# the recipes at 96x64 share JaxEncoder's compilations; the two other
-# sizes' recipes are in tests/test_torch_simulcast_3layers.py and
-# tests/test_torch_simulcast_crop.py (one file per
-# set of compilations keeps each under a few minutes)
-HERE = ("two_layers", "ilp_gradient", "ilp_saturated", "ilp_tiles")
+# the recipes at 96x64 share JaxEncoder's compilations; the inter-layer
+# ones are in tests/test_torch_simulcast_ilp.py, and the two other
+# sizes' recipes in tests/test_torch_simulcast_3layers.py and
+# tests/test_torch_simulcast_crop.py (files the tier-1 run's workers
+# share, each under a few minutes)
+HERE = ("two_layers",)
 
 
 @pytest.mark.parametrize("name", HERE)

@@ -12,6 +12,9 @@ from losslessh264_tpu import decoder_np as dn
 from losslessh264_tpu.ops import transform as jt
 from losslessh264_tpu_torch.ops import transform as tt
 
+# one torch thread per test worker (see tests/test_torch_decoder.py)
+torch.set_num_threads(1)
+
 
 def T(a):
     return torch.as_tensor(np.asarray(a))

@@ -2,19 +2,22 @@
 """Write the JAX encode goldens of the configurations that chip_smoke.py
 runs with the torch port on the card:
 
-    JAX_PLATFORMS=cpu python tools/gen_enc_golden.py [A B C D E]
+    JAX_PLATFORMS=cpu python tools/gen_enc_golden.py [A B C D E F]
 
 A and B go to tests/data/synth720p_enc_golden.json, C, D and E to
-tests/data/synth720p_enc_golden_cde.json (all five by default; a run
-for some rewrites only those entries).
+tests/data/synth720p_enc_golden_cde.json, F to
+tests/data/synth720p_enc_golden_f.json (all six by default; a run for
+some rewrites only those entries).
 
 The source frames are the first frames of tests/data/synth720p.264 as
 NpDecoder decodes them, checked first against the committed NpDecoder
 CRCs (tests/data/synth720p_np_crc.json), which the port's card decode
 also matches. Each configuration is encoded with JaxEncoder (E: the JAX
-SimulcastEncoder) on the CPU; per frame the golden holds the length and
+SimulcastEncoder; F: the older losslessh264_tpu.encoder.Encoder) on the
+CPU; per frame the golden holds the length and
 SHA-256 of the frame's Annex-B bytes and the CRC32 of the encoder's
-recon Y|U|V after it (E: per layer). For C, D and E it also holds the
+recon Y|U|V after it (E: per layer; F: its reference planes). For C, D,
+E and F it also holds the
 CRC32 of every picture the JAX package's decoder gives back for the
 stream (`decoded_crc32`: NpDecoder, MB-padded; E: SimulcastDecoder, the
 display size), and the CPU seconds each configuration took to encode
@@ -35,6 +38,11 @@ display size), and the CPU seconds each configuration took to encode
      an MMCO drop).
   E: SimulcastEncoder(1280, 720, spatial_layers=2, qp=28,
      inter_layer=True), frames 0-1.
+  F: the older fixed-QP encoder, Encoder(1280, 720, qp=26): an IDR
+     (I16x16 only), then 2 P frames with the integer-pel window search
+     (ops/me.full_search_sad, radius 16) and no loop filter. Frames 0-2.
+     That search holds one [3600, 256, 1089] patch tensor per P frame,
+     about 4 GB as float32 on the CPU.
 """
 import hashlib
 import json
@@ -52,6 +60,7 @@ OUT = {"A": os.path.join(DATA, "synth720p_enc_golden.json"),
        "C": os.path.join(DATA, "synth720p_enc_golden_cde.json")}
 OUT["B"] = OUT["A"]
 OUT["D"] = OUT["E"] = OUT["C"]
+OUT["F"] = os.path.join(DATA, "synth720p_enc_golden_f.json")
 
 CONFIGS = {
     "A": {"kwargs": {"qp": 28, "gop": 0}, "frames": 4},
@@ -66,13 +75,17 @@ CONFIGS = {
                      "slice_max_bytes": 1400}, "frames": 5},
     "E": {"simulcast": {"spatial_layers": 2, "qp": 28, "inter_layer": True},
           "frames": 2},
+    "F": {"older": {"qp": 26}, "frames": 3},
 }
 
 
-def make_encoder(cfg, W, H, encoder_cls, simulcast_cls, ratectl):
+def make_encoder(cfg, W, H, encoder_cls, simulcast_cls, ratectl,
+                 older_cls=None):
     """The configuration's encoder over the given classes (the golden's
     JSON holds everything it needs); losslessh264_tpu_torch.cases.
     golden_encoder builds the port's the same way."""
+    if "older" in cfg:
+        return older_cls(W, H, **cfg["older"])
     if "simulcast" in cfg:
         return simulcast_cls(W, H, **cfg["simulcast"])
     kw = dict(cfg["kwargs"])
@@ -111,10 +124,11 @@ def recon_crc(recon):
 
 
 def encode(name, cfg, frames):
-    from losslessh264_tpu import decoder_np, encoder_jax, ratectl, simulcast
+    from losslessh264_tpu import (decoder_np, encoder, encoder_jax, ratectl,
+                                  simulcast)
     H, W = frames[0][0].shape
     enc = make_encoder(cfg, W, H, encoder_jax.JaxEncoder,
-                       simulcast.SimulcastEncoder, ratectl)
+                       simulcast.SimulcastEncoder, ratectl, encoder.Encoder)
     rows, streams = [], []
     for i, f in enumerate(frames[:cfg["frames"]]):
         apply_calls(cfg, enc, i)
@@ -130,8 +144,9 @@ def encode(name, cfg, frames):
             streams.append(data)
             rows.append({"bytes": len(data),
                          "sha256": hashlib.sha256(data).hexdigest(),
-                         "recon_crc32": recon_crc(enc.recon)})
-            if name not in ("A", "B"):
+                         "recon_crc32": recon_crc(
+                             enc.ref if "older" in cfg else enc.recon)})
+            if name not in ("A", "B", "F"):
                 rows[-1]["is_ref"] = bool(enc._cur_is_ref)
     if name in ("A", "B"):
         return rows, None
