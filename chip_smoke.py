@@ -66,7 +66,26 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
      at 80x45 MBs; each rank's recY, mvx and bits must equal the step in
      this process, the all-reduced total their sum, and each rank must
      launch K1 and K2 once.
- 11. times: K1 at 720p, 1080p, 2160p and on the encoder's refs=2 plane
+ 11. runs decode: tests/data/runs720p.264 (tools/gen_run_streams.py)
+     with TorchDecoder on the card: four IDRs as one all-intra batch
+     (recon_intra_batch), then P frames whose intra MBs populate 0, 1, 8
+     and 42 of the 168 diagonals (no intra pass, the sparse pass over the
+     populated ones, the full table). Every frame's CRC32 must equal
+     NpDecoder's (tests/data/runs720p_np_crc.json), each frame must take
+     its route, K2 must launch once per deblocked frame and K1 as the MC
+     plans imply. A stage-timed decode prints each frame's intra ms on its
+     route beside the full-table pass on the same planes (and requires
+     the two equal).
+ 12. encode runs: configuration G (tests/data/synth720p_enc_golden_g.json,
+     A's settings on frames 0-6) through TorchEncoder.encode_frames(batch=
+     3): an IDR and two runs of 3 P frames, each run's entropy written on
+     a writer thread while the next run's device work goes on. SHA-256 of
+     every frame, the recon after the runs, frames 0-3 also against
+     golden A, K1 / K2 as the encodes imply; then the 6 P frames in turns
+     one encode_frame each and in runs, from the IDR's state, each turn
+     held to the golden: P-frame fps of both, the writer's ms and the ms
+     the caller waited for it.
+ 13. times: K1 at 720p, 1080p, 2160p and on the encoder's refs=2 plane
      (784x2688), both entries, wrapper and kernel alone, beside their
      bounds, its plain version and the conv2d yardstick; K2 against its
      plain version at 720p (CUDA events); a per-stage breakdown of every
@@ -80,9 +99,10 @@ The line before the last is the kernel report
 {"kernels": [{"name", "route", "source", "replaces", "launches",
 "launches_per_decode", "launches_per_encode", "max_abs_err", "ms",
 "plain_ms", "bound_ms", "bound_by", "library_ms"}, ...]}, preceded by the
-card line; `launches` counts phases 5-10, and `launches_per_decode`,
-`_per_encode`, `_per_older_encode`, `_per_gop_parallel_decode` and
-`_per_graft_ranks` each path's own count. For K1:
+card line; `launches` counts phases 5-12, and `launches_per_decode`,
+`_per_encode`, `_per_older_encode`, `_per_gop_parallel_decode`,
+`_per_graft_ranks`, `_per_runs_decode` and `_per_encode_runs` each path's
+own count. For K1:
 `ms`, `kernel_ms`, `bound_ms` and `bound_by` are its int32 entry's at
 720p, and `ms_uint8_entry`, `kernel_ms_uint8_entry` and
 `bound_ms_uint8_entry` those of the uint8 entry that the decode and
@@ -128,6 +148,10 @@ ENC_GOLDEN_CDE = os.path.join(ROOT, "tests", "data",
                               "synth720p_enc_golden_cde.json")
 ENC_GOLDEN_F = os.path.join(ROOT, "tests", "data",
                             "synth720p_enc_golden_f.json")
+ENC_GOLDEN_G = os.path.join(ROOT, "tests", "data",
+                            "synth720p_enc_golden_g.json")
+RUNS_STREAM = os.path.join(ROOT, "tests", "data", "runs720p.264")
+RUNS_GOLDEN = os.path.join(ROOT, "tests", "data", "runs720p_np_crc.json")
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 INT32_OPS_PER_S = 33.5e12     # see the module docstring
 # K1's timed sizes: the edge-padded (PAD = 32) luma reference of 720p,
@@ -340,7 +364,7 @@ def stage_decode(data, device):
             return rows
         mb_w, mb_h = f["mb_w"], f["mb_h"]
         dec._prep_refs(mb_w, mb_h)
-        planes_np, has_intra = dec._prep_planes(f)
+        planes_np, _, has_intra, _ = dec._prep_planes(f)
         p = dt.planes_to_torch(planes_np, dec.device)
         t1 = now()
         Yw, Uw, Vw, ry, ru, rv = dt._residual_and_inter(
@@ -740,6 +764,264 @@ def graft_phase(dev, card, mb_w=80, mb_h=45):
     return {"K1": sum(r[5] for r in ranks), "K2": sum(r[6] for r in ranks)}
 
 
+def runs_routes(gold):
+    """The intra route TorchDecoder takes for each frame of runs720p, from
+    its golden's plan (tools/gen_run_streams.py): the leading all-intra
+    frames one batch, then per P frame none, the populated diagonals
+    (kinds 1, 2) or the full table (kind 3)."""
+    lead = next(i for i, r in enumerate(gold["intra"]) if not r["all_intra"])
+    n_diags = 2 * (gold["luma_shape"][0] // 16 - 1) + \
+        gold["luma_shape"][1] // 16
+    return [("batch", lead)] * lead + [
+        {0: ("none", 0), 1: ("sparse", r["rows"]), 2: ("sparse", r["rows"]),
+         3: ("full", n_diags)}[r["kind"]] for r in gold["intra"][lead:]]
+
+
+def runs_stage_decode(data, routes, dev):
+    """A second decode of runs720p, by hand along TorchDecoder's routes:
+    the intra pass of every frame timed (synchronised) beside the
+    compact-carry pass over the full table on the same planes, which it
+    must equal; the leading all-intra frames as one batched pass against
+    one full pass per frame. Returns per-frame rows and the K1 launches
+    that the frames' MC plans imply (one per bucketed P frame, two when
+    it reads two ring slots)."""
+    from losslessh264_tpu_torch import decoder_torch as dt
+
+    def now():
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    dec = dt.TorchDecoder(data, device=dev)
+    fs = list(dec.sym)
+    lead = routes.count(routes[0]) if routes[0][0] == "batch" else 0
+    mb_w, mb_h = fs[0]["mb_w"], fs[0]["mb_h"]
+    diags = dt.diagonals(mb_w, mb_h)
+    dec._prep_refs(mb_w, mb_h)
+    rows, k1 = [], 0
+    preps, works, slots = [], [], []
+    for f in fs[:lead]:
+        planes_np = dec._prep_planes(f)[0]
+        preps.append(dt.planes_to_torch(planes_np, dec.device))
+        works.append(dt._residual_and_inter(mb_w, mb_h, preps[-1],
+                                            dec.ref_y, dec.ref_u, dec.ref_v))
+        slots.append(dec._assign_slot(f))
+    if lead:
+        t0 = now()
+        singles = [dt._intra_scan(mb_w, mb_h, *w, p, diags)
+                   for w, p in zip(works, preps)]
+        t1 = now()
+        pb = {k: torch.stack([p[k] for p in preps]) for k in dt.INTRA_KEYS}
+        batched = dt._intra_scan(mb_w, mb_h,
+                                 *(torch.stack(a) for a in zip(*works)),
+                                 pb, diags)
+        t2 = now()
+        for k in range(lead):
+            if not all(torch.equal(b[k], s) for b, s in
+                       zip(batched, singles[k])):
+                raise SystemExit(f"runs720p frame {k}: the batched intra "
+                                 "pass differs from the frame's own")
+            rows.append(dict(frame=k, route=routes[k],
+                             intra_ms=(t2 - t1) * 1e3 / lead,
+                             full_table_ms=(t1 - t0) * 1e3 / lead))
+        out = [dt._deblock_crop(mb_w, mb_h, *pl, p)
+               for pl, p in zip(singles, preps)]
+        dt._store_refs_k(dec.ref_y, dec.ref_u, dec.ref_v,
+                         *(torch.stack(a) for a in zip(*out)), slots)
+    for i, f in enumerate(fs[lead:], lead):
+        planes_np, sel, has_intra, full = dec._prep_planes(f)
+        p = dt.planes_to_torch(planes_np, dec.device)
+        if planes_np["mc_any"] and planes_np["mc_fast"]:
+            k1 += 1 + (int(planes_np["mc_nslots"]) > 1)
+        work = dt._residual_and_inter(mb_w, mb_h, p, dec.ref_y, dec.ref_u,
+                                      dec.ref_v)
+        planes, t_route, t_full = work[:3], 0.0, 0.0
+        if has_intra:
+            t0 = now()
+            planes = dt._intra_scan(mb_w, mb_h, *work, p, diags)
+            t_full = t_route = (now() - t0) * 1e3
+        if has_intra and not full:
+            t0 = now()
+            sparse = dt._intra_scan_sparse(mb_w, mb_h, *work, p, sel)
+            t_route = (now() - t0) * 1e3
+            if not all(torch.equal(a, b) for a, b in zip(sparse, planes)):
+                raise SystemExit(f"runs720p frame {i}: the sparse intra "
+                                 "pass differs from the full one")
+        rows.append(dict(frame=i, route=routes[i], intra_ms=t_route,
+                         full_table_ms=t_full))
+        dec._finish_frame(f, *dt._deblock_crop(mb_w, mb_h, *planes, p),
+                          False)
+    return rows, k1
+
+
+def runs_decode_phase(dev, card):
+    """Phase 11: tests/data/runs720p.264 (tools/gen_run_streams.py) on the
+    card: four IDRs that TorchDecoder decodes as one batch
+    (recon_intra_batch), then P frames whose intra MBs populate no
+    diagonal, 1, 8 or 42 of the 168 (no pass, the sparse pass over the
+    populated ones, the full table). Every frame's CRC32 must equal
+    NpDecoder's, each frame must take its route, K2 must launch once per
+    deblocked frame and K1 as the frames' MC plans imply. Then a
+    stage-timed decode prints each frame's intra ms beside the full-table
+    pass on the same planes."""
+    from losslessh264_tpu_torch import decoder_torch as dt
+    from losslessh264_tpu_torch import native
+    from losslessh264_tpu_torch.ops import deblock as tdb
+    from losslessh264_tpu_torch.ops import mc as tmc
+    data = open(RUNS_STREAM, "rb").read()
+    gold = json.load(open(RUNS_GOLDEN))["runs720p"]
+    routes = runs_routes(gold)
+    deblocked = sum(bool(dt.TorchDecoder._needs_deblock(
+        f, dt.TorchDecoder._nnz_plane(f))) for f in native.SymbolDecoder(data))
+    tmc.halfpel_planes.launches = 0
+    tdb.deblock_wavefront.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dec = dt.TorchDecoder(data, device=dev)
+    frames = [tuple(a.cpu() for a in yuv) for yuv in dec.frames()]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = (tmc.halfpel_planes.launches, tdb.deblock_wavefront.launches)
+    crcs = [zlib.crc32(b"".join(p.numpy().tobytes() for p in f))
+            for f in frames]
+    if crcs != gold["crc32"]:
+        bad = [i for i, (a, b) in enumerate(zip(crcs, gold["crc32"]))
+               if a != b]
+        raise SystemExit(f"runs720p: {len(frames)} frames, CRCs differ from "
+                         f"NpDecoder's at frames {bad}")
+    if dec.routes != routes:
+        raise SystemExit(f"runs720p routes {dec.routes}, expected {routes}")
+    rows, k1 = runs_stage_decode(data, routes, dev)
+    if got != (k1, deblocked):
+        raise SystemExit(f"runs720p: K1/K2 launched {got}, the frames imply "
+                         f"{(k1, deblocked)}")
+    log(f"runs decode: {len(frames)} frames of runs720p match the NpDecoder "
+        f"CRCs; {wall:.3f} s = {len(frames) / wall:.3f} fps on {card}; "
+        f"routes {dec.routes}; launches K1 {got[0]}, K2 {got[1]}, implied "
+        f"{k1}, {deblocked}")
+    for r in rows:
+        log("runs stage " + json.dumps(
+            {k: (round(v, 3) if isinstance(v, float) else v)
+             for k, v in r.items()}) + f" on {card}")
+    for name in ("batch", "sparse", "full"):
+        sel = [r for r in rows if r["route"][0] == name]
+        if sel:
+            route = sum(r["intra_ms"] for r in sel) / len(sel)
+            full = sum(r["full_table_ms"] for r in sel) / len(sel)
+            log(f"runs intra route {name}: {len(sel)} frames, {route:.3f} ms "
+                f"per frame against {full:.3f} ms for the full-table pass on "
+                f"the same planes on {card}")
+    return {"K1": got[0], "K2": got[1]}
+
+
+def encode_runs_phase(frames, dev, card):
+    """Phase 12: configuration G of tests/data/synth720p_enc_golden_g.json
+    (A's settings) on frames 0-6 of phase 5's decode:
+    TorchEncoder.encode_frames(frames, batch=3), an IDR and two runs of 3
+    P frames, each run written on the writer thread while the next one's
+    device work goes on. Every frame's SHA-256 must equal the golden, the
+    recon after it the golden's run_recon_crc32, frames 0-3 golden A's
+    too, and K1 / K2 launch as the encodes imply. Then the 6 P frames
+    again from the IDR's state (load_state), in turns one encode_frame
+    each and through encode_frames(batch=3), each turn held to the
+    golden (per frame: bytes; the recon after each frame, or after the
+    runs): P-frame fps of both, and the writer's time in the runs against
+    the time the caller waited for it."""
+    import hashlib
+    from losslessh264_tpu_torch.cases import golden_encoder
+    from losslessh264_tpu_torch.ops import deblock as tdb
+    from losslessh264_tpu_torch.ops import mc as tmc
+    gold = json.load(open(ENC_GOLDEN_G))
+    cfg = gold["G"]
+    gold_a = json.load(open(ENC_GOLDEN))["A"]["frames"]
+    W, H = gold["source"]["width"], gold["source"]["height"]
+    src = [tuple(np.ascontiguousarray(p.numpy()) for p in f)
+           for f in frames[:len(cfg["frames"])]]
+
+    def crc(planes):
+        return zlib.crc32(b"".join(p.cpu().numpy().tobytes() for p in planes))
+
+    def check(what, out, first=0):
+        for i, d in enumerate(out, first):
+            g = cfg["frames"][i]
+            sha = hashlib.sha256(d).hexdigest()
+            if (len(d), sha) != (g["bytes"], g["sha256"]) or (
+                    i < len(gold_a) and sha != gold_a[i]["sha256"]):
+                raise SystemExit(f"encode G {what} frame {i}: {len(d)} bytes "
+                                 f"sha256 {sha[:16]}, golden {g['bytes']} "
+                                 f"{g['sha256'][:16]}")
+
+    tmc.halfpel_planes.launches = 0
+    tdb.deblock_wavefront.launches = 0
+    enc = golden_encoder(cfg, W, H, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = enc.encode_frames(src, batch=cfg["batch"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = (tmc.halfpel_planes.launches, tdb.deblock_wavefront.launches)
+    runs = [(enc.deblock_idc,) + r for r in enc.encodes]
+    want = expected_launches(runs)
+    check("encode_frames", out)
+    if crc(enc.ref) != cfg["run_recon_crc32"]:
+        raise SystemExit("encode G: the recon after encode_frames differs "
+                         "from the golden")
+    if [r[2] for r in runs] != ["fused"] + ["run"] * 6 or got != want:
+        raise SystemExit(f"encode G: encodes {[r[1:] for r in runs]}, "
+                         f"K1/K2 launched {got}, implied {want}")
+    log(f"encode G {cfg['kwargs']} batch {cfg['batch']}: {len(out)} frames "
+        f"{W}x{H} match the JAX golden (SHA-256, the recon after the runs; "
+        f"frames 0-3 golden A's); {wall:.3f} s = {len(out) / wall:.4f} fps "
+        f"on {card}; encodes (kind, path, is_ref, intra MBs) "
+        f"{[r[1:] for r in runs]}; launches K1 {got[0]}, K2 {got[1]}, "
+        f"implied {want[0]}, {want[1]}; writer {json.dumps(enc.prof)}")
+
+    # the P frames in turns: one encode_frame each, then runs, runs, one
+    # each; the first turn encodes the IDR whose state the others load
+    state = None
+    fps = {"per_frame": [], "runs": []}
+    hidden = []
+    for turn in ("per_frame", "runs", "runs", "per_frame"):
+        e = golden_encoder(cfg, W, H, dev)
+        if state is None:
+            check("IDR", [e.encode_frame(*src[0])])
+            if crc(e.ref) != cfg["frames"][0]["recon_crc32"]:
+                raise SystemExit("encode G: the IDR's recon differs")
+            state = tuple(p.cpu().numpy() for p in e.ref)
+        else:
+            e.load_state(state, frame_idx=1, frame_num=1, idr_id=1)
+        recon = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if turn == "runs":
+            out = e.encode_frames(src[1:], batch=cfg["batch"])
+        else:
+            out = []
+            for f in src[1:]:
+                out.append(e.encode_frame(*f))
+                recon.append(tuple(p.clone() for p in e.ref))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(turn, out, first=1)
+        crcs = [crc(r) for r in recon] or [crc(e.ref)]
+        if crcs != [g["recon_crc32"] for g in cfg["frames"][
+                len(cfg["frames"]) - len(crcs):]]:
+            raise SystemExit(f"encode G {turn}: recon differs from the "
+                             "golden")
+        fps[turn].append(len(out) / wall)
+        msg = ""
+        if turn == "runs":
+            hidden.append(e.prof["entropy_ms"] - e.prof["writer_wait_ms"])
+            msg = (f"; writer thread {e.prof['entropy_ms']:.3f} ms, caller "
+                   f"waited {e.prof['writer_wait_ms']:.3f} ms for it")
+        log(f"encode G P frames 1-6 {turn}: {wall:.3f} s = "
+            f"{len(out) / wall:.4f} fps on {card}{msg}")
+    log(f"encode G P-frame fps in turns: {json.dumps(fps)}; per run turn "
+        f"the writer thread's ms less the ms the caller waited for it (at "
+        f"most the writer time that left the critical path): "
+        f"{[round(h, 3) for h in hidden]} on {card}")
+    return {"K1": got[0], "K2": got[1]}
+
+
 def profile_report(prof, wall_ms, what, card):
     """Wall time against the summed device time of every kernel and copy
     of one torch.profiler window, and the kernels that take the most."""
@@ -957,7 +1239,12 @@ def main():
     cli_phase(card)
     path_launches["graft_ranks"] = graft_phase(dev, card)
 
-    # ---- 11. times ----
+    # ---- 11-12. the all-intra batch, the sparse intra pass, the encoder's
+    # P runs: counts set to 0 just before each main run, read just after
+    path_launches["runs_decode"] = runs_decode_phase(dev, card)
+    path_launches["encode_runs"] = encode_runs_phase(frames, dev, card)
+
+    # ---- 13. times ----
     # K1 at each size, both entries: `ms` the wrapper by CUDA events over
     # back-to-back calls, `kernel_ms` the bare C entry's kernel alone (a
     # CUDA graph's replays, cold L2), beside the bound, the plain version

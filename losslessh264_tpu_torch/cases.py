@@ -1,8 +1,9 @@
 """Seeded inputs shared by the tests, chip_smoke.py and tools/kernel_ab.py:
 random cases for holding K2 (csrc/deblock.cu) against its plain version,
 so that all three check and time the same cases, the translating noise
-frames the encoder's tests encode, and the encoders of the encode
-goldens' configurations (tests/data/synth720p_enc_golden*.json)."""
+frames the encoder's tests encode, the frames of the decoder's intra
+routes (tests/data/runs720p.264 and the run tests), and the encoders of
+the encode goldens' configurations (tests/data/synth720p_enc_golden*.json)."""
 import numpy as np
 import torch
 
@@ -61,6 +62,44 @@ def moving_frames(n=4, W=64, H=48, seed=7):
         U = np.full((H // 2, W // 2), 100 + i, np.uint8)
         V = np.full((H // 2, W // 2), 200, np.uint8)
         frames.append((Y, U, V))
+    return frames
+
+
+def patch_frames(width, height, plan, noise=0, seed=0):
+    """len(plan) I420 frames (uint8 numpy Y, U, V) whose P frames put
+    intra MBs on chosen MB diagonals (d = 2 * mby + mbx): a smooth luma
+    pattern with a texture of amplitude 10 (50..200), translating by
+    (2, 3) px per frame (a motion search finds that one vector, so the
+    P frames take the decoder's bucketed MC), with fresh noise of
+    amplitude `noise` on every luma sample, and on frame i one
+    MB per diagonal of plan[i] (in the first MB row that holds it)
+    filled with fresh noise of amplitude 5 around 250 on odd frames and
+    around 5 on even ones. Neither the pattern nor the previous frame's
+    patches predict such an MB, so an encoder's P frame codes it intra
+    (and often the MBs that the previous frame's patches covered in its
+    reference). Chroma is flat."""
+    rng = np.random.RandomState(seed)
+    mb_w, mb_h = width // 16, height // 16
+    n = len(plan)
+    tex = rng.randint(-10, 11, (height + 2 * n, width + 3 * n))
+    yy, xx = np.mgrid[0:height, 0:width].astype(np.float64)
+    frames = []
+    for i, diags in enumerate(plan):
+        Y = (125 + 35 * np.sin((xx + 3 * i) / 23.0)
+             + 30 * np.cos((yy + 2 * i) / 17.0)).round()
+        Y += tex[2 * i:2 * i + height, 3 * i:3 * i + width]
+        if noise:
+            Y += rng.randint(-noise, noise + 1, Y.shape)
+        for d in diags:
+            y = max(0, -(-(d - mb_w + 1) // 2))
+            x = d - 2 * y
+            if not (0 <= x < mb_w and y < mb_h):
+                raise ValueError(f"no MB on diagonal {d}")
+            Y[y * 16:y * 16 + 16, x * 16:x * 16 + 16] = \
+                (250 if i % 2 else 5) + rng.randint(-5, 6, (16, 16))
+        frames.append((np.clip(Y, 0, 255).astype(np.uint8),
+                       np.full((height // 2, width // 2), 110, np.uint8),
+                       np.full((height // 2, width // 2), 150, np.uint8)))
     return frames
 
 

@@ -1,19 +1,24 @@
-"""H.264 frame reconstruction on PyTorch (one frame at a time).
+"""H.264 frame reconstruction on PyTorch.
 
-Port of losslessh264_tpu/decoder_jax.py's per-frame path. Per frame:
+Port of losslessh264_tpu/decoder_jax.py's decode paths. Per frame:
 residuals (dequant + IDCT, batched over the frame), inter prediction
 (bucketed dense-shift MC over the K1 half-pel planes, or the general
 per-cell gather), the intra wavefront (plain torch, one batched step
-per slope-2 MB diagonal) and the deblocking wavefront (the K2 kernel on
-CUDA). The DPB ring lives on the device.
+per slope-2 MB diagonal: the compact-carry scan over the full table, or
+the plane-carrying scan over only the populated diagonals of a sparse
+frame) and the deblocking wavefront (the K2 kernel on CUDA). Runs of 3
+to INTRA_BATCH consecutive all-intra frames go through one wavefront
+together (recon_intra_batch). The DPB ring lives on the device.
 
 Left out on purpose (TPU workarounds of JaxDecoder): the sparse
-upload (_sparsify_run / _densify_planes), the scanned/vmapped runs
-(recon_run, recon_intra_batch, INTRA_BATCH), the pow2/16-row sparse
-intra tables (_intra_scan_sparse) and int8 narrowing of uploads.
+upload (_sparsify_run / _densify_planes / _unify_stack), the scanned
+mixed runs (recon_run / _decode_scan_run: one XLA dispatch per run),
+the padding of runs to 16 frames and of sparse diagonal tables to 16
+rows (both bound JAX's compiled shapes), the coefficient-density rule
+of JaxDecoder._batchable, and int8 narrowing of uploads.
 
 Validated frame-exact against decoder_np.NpDecoder and the JAX stages
-(tests/test_torch_decoder.py).
+(tests/test_torch_decoder*.py).
 """
 from __future__ import annotations
 
@@ -26,7 +31,7 @@ from .ops import deblock as tdb
 from .ops import intra as tintra
 from .ops import mc as tmc
 from .ops import transform as tt
-from .ops.wavefront import diagonals
+from .ops.wavefront import diagonals, scatter_tiles
 
 PAD = 32          # reference-plane padding (luma)
 WPAD = 8          # working-plane padding for wavefront gathers
@@ -298,6 +303,11 @@ def _residual_and_inter(mb_w, mb_h, p, ref_y, ref_u, ref_v):
     return Yw, Uw, Vw, res_y, res_u, res_v
 
 
+# the plane-dict entries the intra wavefronts read per MB
+INTRA_KEYS = ("mb_class", "avail", "transform8", "i4_modes", "i16_mode",
+              "chroma_mode")
+
+
 def _intra_scan(mb_w, mb_h, Yw, Uw, Vw, res_y, res_u, res_v, p, diags):
     """Compact-carry intra wavefront over the FULL diagonal table
     `diags` (numpy [nd, K], -1 padding): one batched step per diagonal.
@@ -311,98 +321,122 @@ def _intra_scan(mb_w, mb_h, Yw, Uw, Vw, res_y, res_u, res_v, p, diags):
     starve them. Each buffer carries one trailing scratch element (row
     for left_*) where dead lanes write — never a clamped live slot.
     Tiles are collected per step and reassembled into the planes once.
+
+    With a leading frame axis on the planes ([B, ...]: Yw/Uw/Vw, res_*
+    [B, n, t, t] and p's INTRA_KEYS planes [B, n, ...]; recon_intra_batch)
+    every step runs the B frames' lanes of its diagonal at once, each
+    frame on its own buffers: JAX's vmap folded into the lane axis.
     Returns the planes with every intra MB reconstructed."""
+    batched = Yw.dim() == 3
+    if not batched:
+        Yw, Uw, Vw, res_y, res_u, res_v = (
+            a[None] for a in (Yw, Uw, Vw, res_y, res_u, res_v))
+        p = {k: p[k][None] for k in INTRA_KEYS}
+    B = Yw.shape[0]
     n = mb_w * mb_h
     H, W = mb_h * 16, mb_w * 16
     dev = Yw.device
     i32 = torch.int32
-    cls = p["mb_class"].to(i32)
-    avail = p["avail"]  # [n,4] bool: L, T, TL, TR
-    t8 = p["transform8"].to(i32)
-    i4m = p["i4_modes"].to(i32)
-    i16m = p["i16_mode"].to(i32)
-    cmode = p["chroma_mode"].to(i32)
+    cls = p["mb_class"].to(i32).reshape(B * n)
+    avail = p["avail"].reshape(B * n, 4)  # bool: L, T, TL, TR
+    t8 = p["transform8"].to(i32).reshape(B * n)
+    i4m = p["i4_modes"].to(i32).reshape(B * n, 16)
+    i16m = p["i16_mode"].to(i32).reshape(B * n)
+    cmode = p["chroma_mode"].to(i32).reshape(B * n)
+    res_y = res_y.reshape(B * n, 16, 16)
+    res_u = res_u.reshape(B * n, 8, 8)
+    res_v = res_v.reshape(B * n, 8, 8)
     is_intra = (cls == 0) | (cls == 1) | (cls == 2)
 
-    in_y = _plane_to_tiles(Yw[WPAD:WPAD + H, WPAD:WPAD + W], mb_w, mb_h, 16)
-    in_u = _plane_to_tiles(Uw[WPAD:WPAD + H // 2, WPAD:WPAD + W // 2],
-                           mb_w, mb_h, 8)
-    in_v = _plane_to_tiles(Vw[WPAD:WPAD + H // 2, WPAD:WPAD + W // 2],
-                           mb_w, mb_h, 8)
+    def tiles_of(plane, t):
+        """[B, Hw, Ww] working planes -> [B*n, t, t] MB tiles."""
+        h, w = mb_h * t, mb_w * t
+        return plane[:, WPAD:WPAD + h, WPAD:WPAD + w] \
+            .reshape(B, mb_h, t, mb_w, t).permute(0, 1, 3, 2, 4) \
+            .reshape(B * n, t, t)
 
-    # carried context buffers (+pad so column -1 / TR overhang reads land
-    # on zeros — matching the zero WPAD border of the plane form), each
-    # with one trailing scratch element for dead-lane writes
+    in_y, in_u, in_v = tiles_of(Yw, 16), tiles_of(Uw, 8), tiles_of(Vw, 8)
+
+    # carried context buffers, one row per frame (+pad so column -1 / TR
+    # overhang reads land on zeros — matching the zero WPAD border of
+    # the plane form), each with one trailing scratch element for
+    # dead-lane writes
     PADL, PADR = 1, 8
     LY, LC = W + PADL + PADR, W // 2 + PADL + PADR
 
     def z(*shape):
         return torch.zeros(shape, dtype=i32, device=dev)
 
-    top = {"y": z(LY + 1), "u": z(LC + 1), "v": z(LC + 1)}
-    left = {"y": z(mb_h + 1, 16), "u": z(mb_h + 1, 8), "v": z(mb_h + 1, 8)}
-    tlb = {"y": z(mb_w + 2), "u": z(mb_w + 2), "v": z(mb_w + 2)}
+    top = {"y": z(B, LY + 1), "u": z(B, LC + 1), "v": z(B, LC + 1)}
+    left = {"y": z(B, mb_h + 1, 16), "u": z(B, mb_h + 1, 8),
+            "v": z(B, mb_h + 1, 8)}
+    tlb = {"y": z(B, mb_w + 2), "u": z(B, mb_w + 2), "v": z(B, mb_w + 2)}
     o25 = torch.arange(25, device=dev)
     o9 = torch.arange(9, device=dev)
     o16 = torch.arange(16, device=dev)
     o8 = torch.arange(8, device=dev)
 
+    # lanes: each diagonal's K MBs once per frame; fb = a lane's frame
+    diags_t = torch.tensor(diags, device=dev).long().repeat(1, B)
+    K = diags_t.shape[1]
+    fb = torch.arange(B, device=dev).repeat_interleave(K // B)
+
     def scat(buf, cols, vals, m, length):
         idx = cols[:, None] + (o16 if m == 16 else o8)[None, :]
         idx = torch.where(idx < length, idx, length)   # past the end: drop
-        buf[idx.reshape(-1)] = vals.reshape(-1)
+        buf[fb[:, None].expand_as(idx), idx] = vals
 
-    diags_t = torch.tensor(diags, device=dev).long()
     Ty, Tu, Tv = [], [], []
     for d in range(diags_t.shape[0]):
         mb_list = diags_t[d]
         mb_c = torch.clamp(mb_list, 0, n - 1)
         mby = mb_c // mb_w
         mbx = mb_c % mb_w
-        K = mb_c.shape[0]
+        g = fb * n + mb_c   # the lane's MB in the [B*n] planes
 
         # each lane's [17,25] luma / [9,9] chroma context from the
         # compact buffers (row 0 = top incl. TL corner + TR overhang,
         # col 0 = left), interior seeded with the input tile
         loc = z(K, 17, 25)
-        loc[:, 0, :] = top["y"][(mbx * 16 + PADL - 1)[:, None] + o25]
-        loc[:, 0, 0] = tlb["y"][mbx]
-        loc[:, 1:, 0] = left["y"][mby]
-        loc[:, 1:, 1:17] = in_y[mb_c]
+        loc[:, 0, :] = top["y"][fb[:, None], (mbx * 16 + PADL - 1)[:, None]
+                                + o25]
+        loc[:, 0, 0] = tlb["y"][fb, mbx]
+        loc[:, 1:, 0] = left["y"][fb, mby]
+        loc[:, 1:, 1:17] = in_y[g]
         locc = {}
         for c, inp in (("u", in_u), ("v", in_v)):
             lc = z(K, 9, 9)
-            lc[:, 0, :] = top[c][(mbx * 8 + PADL - 1)[:, None] + o9]
-            lc[:, 0, 0] = tlb[c][mbx]
-            lc[:, 1:, 0] = left[c][mby]
-            lc[:, 1:, 1:] = inp[mb_c]
+            lc[:, 0, :] = top[c][fb[:, None], (mbx * 8 + PADL - 1)[:, None]
+                                 + o9]
+            lc[:, 0, 0] = tlb[c][fb, mbx]
+            lc[:, 1:, 0] = left[c][fb, mby]
+            lc[:, 1:, 1:] = inp[g]
             locc[c] = lc
 
-        av = avail[mb_c]
-        cl = cls[mb_c]
-        tiles = _recon_mb_luma(loc, res_y[mb_c], cl, i4m[mb_c], i16m[mb_c],
-                               t8[mb_c], av[:, 0], av[:, 1], av[:, 2],
-                               av[:, 3])
-        tus = _recon_mb_chroma(locc["u"], res_u[mb_c], cl, cmode[mb_c],
+        av = avail[g]
+        cl = cls[g]
+        tiles = _recon_mb_luma(loc, res_y[g], cl, i4m[g], i16m[g], t8[g],
+                               av[:, 0], av[:, 1], av[:, 2], av[:, 3])
+        tus = _recon_mb_chroma(locc["u"], res_u[g], cl, cmode[g],
                                av[:, 0], av[:, 1])
-        tvs = _recon_mb_chroma(locc["v"], res_v[mb_c], cl, cmode[mb_c],
+        tvs = _recon_mb_chroma(locc["v"], res_v[g], cl, cmode[g],
                                av[:, 0], av[:, 1])
         live = mb_list >= 0
-        do = (live & is_intra[mb_c])[:, None, None]
-        tiles = torch.where(do, tiles, in_y[mb_c])
-        tus = torch.where(do, tus, in_u[mb_c])
-        tvs = torch.where(do, tvs, in_v[mb_c])
+        do = (live & is_intra[g])[:, None, None]
+        tiles = torch.where(do, tiles, in_y[g])
+        tus = torch.where(do, tus, in_u[g])
+        tvs = torch.where(do, tvs, in_v[g])
 
         # buffer updates from the FINAL tiles. Order inside one step:
         # the reads above used the OLD buffers; save the above-left
         # corners the NEXT diagonal's right neighbours need BEFORE this
         # step's top rows overwrite them
         tidx = torch.where(live, mbx + 1, mb_w + 1)
-        tlb["y"][tidx] = top["y"][torch.clamp(mbx * 16 + 16 + PADL - 1,
-                                              0, LY - 1)]
+        tlb["y"][fb, tidx] = top["y"][fb, torch.clamp(
+            mbx * 16 + 16 + PADL - 1, 0, LY - 1)]
         for c in ("u", "v"):
-            tlb[c][tidx] = top[c][torch.clamp(mbx * 8 + 8 + PADL - 1,
-                                              0, LC - 1)]
+            tlb[c][fb, tidx] = top[c][fb, torch.clamp(
+                mbx * 8 + 8 + PADL - 1, 0, LC - 1)]
         scat(top["y"], torch.where(live, mbx * 16 + PADL, W + PADL),
              tiles[:, 15, :], 16, LY)
         ccol = torch.where(live, mbx * 8 + PADL, W // 2 + PADL)
@@ -410,33 +444,93 @@ def _intra_scan(mb_w, mb_h, Yw, Uw, Vw, res_y, res_u, res_v, p, diags):
         scat(top["v"], ccol, tvs[:, 7, :], 8, LC)
         # dead lanes target the scratch row, never a clamped live one
         lrow = torch.where(live, mby, mb_h)
-        left["y"][lrow] = tiles[:, :, 15]
-        left["u"][lrow] = tus[:, :, 7]
-        left["v"][lrow] = tvs[:, :, 7]
+        left["y"][fb, lrow] = tiles[:, :, 15]
+        left["u"][fb, lrow] = tus[:, :, 7]
+        left["v"][fb, lrow] = tvs[:, :, 7]
         Ty.append(tiles)
         Tu.append(tus)
         Tv.append(tvs)
 
     # reassembly: every diagonal lane's tile back to its MB slot (dead
-    # lanes land in scratch slot n)
+    # lanes land in scratch slot B*n)
     flat_mb = diags_t.reshape(-1)
     ok = flat_mb >= 0
-    tgt = torch.where(ok, torch.clamp(flat_mb, 0, n - 1), n)
+    tgt = torch.where(ok, fb.repeat(diags_t.shape[0]) * n
+                      + torch.clamp(flat_mb, 0, n - 1), B * n)
 
     def put(base, T, t):
-        out = z(n + 1, t, t)
+        out = z(B * n + 1, t, t)
         out[tgt] = torch.cat(T)
-        covered = torch.zeros(n + 1, dtype=torch.bool, device=dev)
+        covered = torch.zeros(B * n + 1, dtype=torch.bool, device=dev)
         covered[tgt] = ok
-        return torch.where(covered[:n, None, None], out[:n], base)
+        return torch.where(covered[:B * n, None, None], out[:B * n], base) \
+            .reshape(B, mb_h, mb_w, t, t).permute(0, 1, 3, 2, 4) \
+            .reshape(B, mb_h * t, mb_w * t)
 
     Yw, Uw, Vw = Yw.clone(), Uw.clone(), Vw.clone()
-    Yw[WPAD:WPAD + H, WPAD:WPAD + W] = _tiles_to_plane(
-        put(in_y, Ty, 16), mb_w, mb_h, 16)
-    Uw[WPAD:WPAD + H // 2, WPAD:WPAD + W // 2] = _tiles_to_plane(
-        put(in_u, Tu, 8), mb_w, mb_h, 8)
-    Vw[WPAD:WPAD + H // 2, WPAD:WPAD + W // 2] = _tiles_to_plane(
-        put(in_v, Tv, 8), mb_w, mb_h, 8)
+    Yw[:, WPAD:WPAD + H, WPAD:WPAD + W] = put(in_y, Ty, 16)
+    Uw[:, WPAD:WPAD + H // 2, WPAD:WPAD + W // 2] = put(in_u, Tu, 8)
+    Vw[:, WPAD:WPAD + H // 2, WPAD:WPAD + W // 2] = put(in_v, Tv, 8)
+    if not batched:
+        return Yw[0], Uw[0], Vw[0]
+    return Yw, Uw, Vw
+
+
+def _gather_wins(plane, y0s, x0s, rows, cols):
+    """[K] window corners -> [K, rows, cols] windows of `plane`, by one
+    flat gather."""
+    Wp = plane.shape[1]
+    r = torch.arange(rows, device=plane.device)
+    c = torch.arange(cols, device=plane.device)
+    idx = ((y0s[:, None, None] + r[None, :, None]) * Wp
+           + x0s[:, None, None] + c[None, None, :])
+    return plane.reshape(-1)[idx]
+
+
+def _intra_scan_sparse(mb_w, mb_h, Yw, Uw, Vw, res_y, res_u, res_v, p,
+                       diags):
+    """Plane-carrying intra wavefront over a SUBSET of the diagonals
+    (numpy [r, K], -1 padding; TorchDecoder._intra_diags lists exactly
+    the populated ones, so the steps skip diagonals without an intra
+    MB). The compact-carry _intra_scan is only correct over the full
+    contiguous table: its top/left/tl buffers are fed by every MB it
+    processes, so a skipped diagonal (the inter neighbours of a sparse
+    intra MB, e.g. FMO-dispersed P frames, SVA_FM1_E) would leave zeros
+    where neighbour pixels belong. Here each lane gathers its [17,25] /
+    [9,9] context straight from the working planes, which already hold
+    the inter recon and every earlier diagonal's intra recon, and
+    writes its tiles back into them (ops/wavefront.scatter_tiles)."""
+    n = mb_w * mb_h
+    dev = Yw.device
+    cls = p["mb_class"].to(torch.int32)
+    avail = p["avail"]  # [n,4] bool: L, T, TL, TR
+    is_intra = (cls == 0) | (cls == 1) | (cls == 2)
+    i4m = p["i4_modes"].to(torch.int32)
+    i16m = p["i16_mode"].to(torch.int32)
+    t8 = p["transform8"].to(torch.int32)
+    cmode = p["chroma_mode"].to(torch.int32)
+    for mb_list in torch.tensor(diags, device=dev).long():
+        mb_c = torch.clamp(mb_list, 0, n - 1)
+        y0s = (mb_c // mb_w) * 16 + WPAD
+        x0s = (mb_c % mb_w) * 16 + WPAD
+        cys = (mb_c // mb_w) * 8 + WPAD
+        cxs = (mb_c % mb_w) * 8 + WPAD
+        loc = _gather_wins(Yw, y0s - 1, x0s - 1, 17, 25)
+        locu = _gather_wins(Uw, cys - 1, cxs - 1, 9, 9)
+        locv = _gather_wins(Vw, cys - 1, cxs - 1, 9, 9)
+        av = avail[mb_c]
+        cl = cls[mb_c]
+        tiles = _recon_mb_luma(loc, res_y[mb_c], cl, i4m[mb_c], i16m[mb_c],
+                               t8[mb_c], av[:, 0], av[:, 1], av[:, 2],
+                               av[:, 3])
+        tus = _recon_mb_chroma(locu, res_u[mb_c], cl, cmode[mb_c], av[:, 0],
+                               av[:, 1])
+        tvs = _recon_mb_chroma(locv, res_v[mb_c], cl, cmode[mb_c], av[:, 0],
+                               av[:, 1])
+        do = (mb_list >= 0) & is_intra[mb_c]
+        Yw = scatter_tiles(Yw, tiles, y0s, x0s, do)
+        Uw = scatter_tiles(Uw, tus, cys, cxs, do)
+        Vw = scatter_tiles(Vw, tvs, cys, cxs, do)
     return Yw, Uw, Vw
 
 
@@ -477,6 +571,46 @@ def _store_ref(ref_y, ref_u, ref_v, Y, U, V, slot):
     ref_v[slot] = _edge_pad(V, PAD // 2)
 
 
+def recon_intra_batch(mb_w, mb_h, planes_b, ref_y, ref_u, ref_v, diags,
+                      deblocks):
+    """B consecutive ALL-INTRA frames through ONE intra wavefront: intra
+    frames read no reference, so every diagonal step carries the B
+    frames' lanes together and the per-step cost that bounds
+    single-frame intra decode (the host launching ~900 small ops) is
+    paid once for the run. planes_b: the frames' plane dicts
+    (planes_to_torch); deblocks: per frame, whether any edge filters
+    (TorchDecoder._needs_deblock). Residuals per frame (no MC: the rings
+    are not read), the batched compact-carry wavefront over the full
+    table, then the deblock per frame (K2, one launch each) and the
+    crop. Returns the [B, H, W] / [B, H/2, W/2] uint8 planes."""
+    work = [_residual_and_inter(mb_w, mb_h, p, ref_y, ref_u, ref_v)
+            for p in planes_b]
+    Yw, Uw, Vw, ry, ru, rv = (torch.stack(a) for a in zip(*work))
+    pb = {k: torch.stack([p[k] for p in planes_b]) for k in INTRA_KEYS}
+    Yw, Uw, Vw = _intra_scan(mb_w, mb_h, Yw, Uw, Vw, ry, ru, rv, pb, diags)
+    out = []
+    for k, (p, db) in enumerate(zip(planes_b, deblocks)):
+        if db:
+            out.append(_deblock_crop(mb_w, mb_h, Yw[k], Uw[k], Vw[k], p))
+        else:
+            out.append(_crop(mb_w, mb_h, Yw[k], Uw[k], Vw[k]))
+    return tuple(torch.stack(a) for a in zip(*out))
+
+
+def _store_refs_k(ref_y, ref_u, ref_v, Yk, Uk, Vk, slots):
+    """Store a run's B frames ([B, ...] planes) into ring slots `slots`,
+    edge-padded, with one indexed write per plane (in place). A later
+    frame of the run wins a slot that two of them share, as stores in
+    decode order would give."""
+    last = {int(s): k for k, s in enumerate(slots)}
+    dev = ref_y.device
+    ks = torch.tensor(list(last.values()), device=dev)
+    ss = torch.tensor(list(last), device=dev)
+    ref_y[ss] = _edge_pad(Yk[ks], PAD)
+    ref_u[ss] = _edge_pad(Uk[ks], PAD // 2)
+    ref_v[ss] = _edge_pad(Vk[ks], PAD // 2)
+
+
 # ---------------------------------------------------------------------------
 # stream decoder
 # ---------------------------------------------------------------------------
@@ -515,6 +649,9 @@ class TorchDecoder:
         self._ec = error_concealment
         self._ec_mode = ec_mode if error_concealment else None
         self._frozen = error_concealment and ec_mode == "mv_copy_freeze"
+        # the intra route of every decoded frame, in decode order:
+        # ("batch", B), ("sparse", rows), ("full", rows) or ("none", 0)
+        self.routes = []
 
     def _prep_refs(self, mb_w, mb_h):
         H, W = mb_h * 16, mb_w * 16
@@ -529,14 +666,51 @@ class TorchDecoder:
             self.ref_v = torch.zeros_like(self.ref_u)
             self.slot_of = {}
 
+    INTRA_BATCH = 16  # frames per all-intra run (recon_intra_batch)
+
+    @staticmethod
+    def _intra_sel(mb_w, mb_h, intra_mask):
+        """The intra-pass plan of a frame, as JaxDecoder._intra_sel:
+        (kind, sel) with kind 0 = no intra MB, 1 = very sparse (<= 4
+        populated diagonals), 2 = sparse (<= 16), both listed in sel
+        [16, K] (-1 rows after them), 3 = dense (more than 16 populated
+        diagonals, or a table of at most 16: the full table)."""
+        diags = diagonals(mb_w, mb_h)
+        sel = np.full((16, diags.shape[1]), -1, np.int32)
+        has = intra_mask[np.maximum(diags, 0)] & (diags >= 0)
+        rows = np.flatnonzero(has.any(axis=1))
+        if len(rows) == 0:
+            return 0, sel
+        if len(rows) > 16 or diags.shape[0] <= 16:
+            return 3, sel
+        sel[:len(rows)] = diags[rows]
+        return 1 if len(rows) <= 4 else 2, sel
+
+    @staticmethod
+    def _intra_diags(mb_w, mb_h, intra_mask):
+        """(diags or None, is_full), as JaxDecoder._intra_diags: None
+        without intra MBs; the full table (is_full) for kind 3 of
+        _intra_sel; else exactly the populated diagonals, without the
+        -1 rows that JAX pads in to bound its compiled shapes (each
+        would cost a step of host launches here)."""
+        kind, sel = TorchDecoder._intra_sel(mb_w, mb_h, intra_mask)
+        if kind == 0:
+            return None, False
+        if kind == 3:
+            return diagonals(mb_w, mb_h), True
+        return sel[:int((sel[:, 0] >= 0).sum())], False
+
     def frames(self):
         it = iter(self.sym)
+        buf = []   # pending all-intra run (one geometry, undamaged)
         while True:
             try:
                 f = next(it)
             except StopIteration:
+                yield from self._flush_run(buf)
                 return
             except RuntimeError:
+                yield from self._flush_run(buf)
                 # unrecoverable symbol-layer error mid-stream: repeat the
                 # last output once and end (NpDecoder contract)
                 if not self._ec or self.out_idx == 0:
@@ -550,19 +724,81 @@ class TorchDecoder:
                        self.ref_u[prev][cp:-cp, cp:-cp],
                        self.ref_v[prev][cp:-cp, cp:-cp])
                 return
+            if self._batchable(f):
+                if buf and (buf[0]["mb_w"], buf[0]["mb_h"]) != \
+                        (f["mb_w"], f["mb_h"]):
+                    yield from self._flush_run(buf)
+                    buf = []
+                buf.append(f)
+                if len(buf) == self.INTRA_BATCH:
+                    yield from self._decode_intra_batch(buf)
+                    buf = []
+                continue
+            yield from self._flush_run(buf)
+            buf = []
             yield from self._decode_one(f)
+
+    @staticmethod
+    def _batchable(f):
+        """Undamaged all-intra frames (MB classes I4x4/I16x16/I8x8/PCM:
+        JaxDecoder._decode_run's test) join a run. JaxDecoder._batchable
+        also admits coefficient-sparse P frames into scanned mixed runs
+        (recon_run), which the port leaves out."""
+        return (f.get("lost_slices", 0) == 0 and bool(f["decoded"].all())
+                and bool(np.isin(f["mb_class"], [0, 1, 2, 8]).all()))
+
+    def _flush_run(self, buf):
+        """Drain a pending run: 3 or more frames in one batch (JaxDecoder
+        pads such a run to INTRA_BATCH and scans it, to reuse one
+        compiled shape; eager torch needs neither), shorter ones per
+        frame (JAX's threshold)."""
+        if len(buf) >= 3:
+            yield from self._decode_intra_batch(buf)
+            return
+        for f in buf:
+            yield from self._decode_one(f)
+
+    def _decode_intra_batch(self, fs):
+        """A run of all-intra frames: slots for the whole run assigned
+        first (each frame's prep sees the run's earlier assignments, as
+        in decode order), one recon_intra_batch, one _store_refs_k, then
+        the frames in order under freeze-output."""
+        mb_w, mb_h = fs[0]["mb_w"], fs[0]["mb_h"]
+        self._prep_refs(mb_w, mb_h)
+        preps, deblocks, slots = [], [], []
+        for f in fs:
+            planes_np = self._prep_planes(f)[0]
+            preps.append(planes_to_torch(planes_np, self.device))
+            deblocks.append(self._needs_deblock(f, planes_np["nnz"]))
+            slots.append(self._assign_slot(f))
+        Yb, Ub, Vb = recon_intra_batch(mb_w, mb_h, preps, self.ref_y,
+                                       self.ref_u, self.ref_v,
+                                       diagonals(mb_w, mb_h), deblocks)
+        _store_refs_k(self.ref_y, self.ref_u, self.ref_v, Yb, Ub, Vb, slots)
+        self.routes += [("batch", len(fs))] * len(fs)
+        for k, f in enumerate(fs):
+            self.crop_px = f.get("crop_px", (0, 0, 0, 0))
+            if self._advance_output(f, damaged=False):
+                yield Yb[k], Ub[k], Vb[k]
 
     def _decode_one(self, f):
         self.crop_px = f.get("crop_px", (0, 0, 0, 0))
         mb_w, mb_h = f["mb_w"], f["mb_h"]
         self._prep_refs(mb_w, mb_h)
-        planes_np, has_intra = self._prep_planes(f)
+        planes_np, diags, has_intra, full_intra = self._prep_planes(f)
         p = planes_to_torch(planes_np, self.device)
         Yw, Uw, Vw, ry, ru, rv = _residual_and_inter(
             mb_w, mb_h, p, self.ref_y, self.ref_u, self.ref_v)
         if has_intra:
-            Yw, Uw, Vw = _intra_scan(mb_w, mb_h, Yw, Uw, Vw, ry, ru, rv, p,
-                                     diagonals(mb_w, mb_h))
+            # the full table -> compact carry; a subset of the diagonals
+            # -> plane carrying (skipped diagonals would starve the
+            # compact buffers)
+            scan = _intra_scan if full_intra else _intra_scan_sparse
+            Yw, Uw, Vw = scan(mb_w, mb_h, Yw, Uw, Vw, ry, ru, rv, p, diags)
+            self.routes.append(("full" if full_intra else "sparse",
+                                len(diags)))
+        else:
+            self.routes.append(("none", 0))
         if self._needs_deblock(f, planes_np["nnz"]):
             Y, U, V = _deblock_crop(mb_w, mb_h, Yw, Uw, Vw, p)
         else:   # every edge has bS 0: the filter is an identity
@@ -628,8 +864,10 @@ class TorchDecoder:
 
     def _prep_planes(self, f):
         """Host-side symbol-plane prep for one frame: returns
-        (planes_np, has_intra). planes_np carries the keys of
-        JaxDecoder._prep_planes (numpy, the symbol layer's dtypes)."""
+        (planes_np, diags, has_intra, full_intra) as
+        JaxDecoder._prep_planes does: planes_np carries its keys (numpy,
+        the symbol layer's dtypes), diags the intra pass's table
+        (_intra_diags; None without intra MBs)."""
         mb_w, mb_h = f["mb_w"], f["mb_h"]
         # remap output-idx refs to ring slots
         rf = f["ref_frame"].astype(np.int32)
@@ -639,7 +877,8 @@ class TorchDecoder:
         ref_slot = np.where(
             rf >= 0, slot_map[np.clip(rf, 0, len(slot_map) - 1)], -1) \
             .astype(np.int32)
-        has_intra = bool(np.isin(f["mb_class"], [0, 1, 2]).any())
+        diags, full_intra = self._intra_diags(
+            mb_w, mb_h, np.isin(f["mb_class"], [0, 1, 2]))
         planes = {
             "mb_class": f["mb_class"],
             "qp": f["qp"],
@@ -691,7 +930,7 @@ class TorchDecoder:
             plan["mc_fast"] = np.bool_(False)
         plan["mc_any"] = np.bool_(bool((ref_slot >= 0).any()))
         planes.update(plan)
-        return planes, has_intra
+        return planes, diags, diags is not None, full_intra
 
     def _fetch_output(self, out_idx, mb_w, mb_h):
         """Host copy of a stored output frame (concealment source), or

@@ -23,18 +23,23 @@ RPLR and MMCO), long-term references, size-capped slices (row plans from
 the writer's measured row bits, with one re-encode), several slices, two
 references, parameter-set ids (simulcast.py), trellis-lite and cropping.
 
-Left out on purpose (TPU workarounds of JaxEncoder): the scanned
-multi-frame P program and its sparse transport (`_p_batch`,
-`_dispatch_p_run`; `encode_frames` is a loop over `encode_frame` and
-gives the same bytes), the int8 packing of the symbol fetch with its
-int16 re-fetch, and the masked lanes of the intra wavefront: a diagonal
-step runs only the MBs it encodes, and diagonals without one are skipped.
+`encode_frames(frames, batch)` chains runs of `batch` P frames on the
+device (`_p_batch`, `_dispatch_p_run`) and writes each run's entropy on a
+writer thread (`_drain_p_run`) while the next run's device work goes on,
+with the bytes of per-frame `encode_frame` calls.
+
+Left out on purpose (TPU workarounds of JaxEncoder): the sparse int8 +
+bitmask transport of `_p_batch`'s symbols, the int8 packing of the
+per-frame symbol fetch with its int16 re-fetch, and the masked lanes of
+the intra wavefront: a diagonal step runs only the MBs it encodes, and
+diagonals without one are skipped.
 
 Byte- and recon-exact vs JaxEncoder on the CPU (tests/test_torch_encoder*.py).
 """
 from __future__ import annotations
 
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -685,6 +690,65 @@ def _i_frame(mb_w, mb_h, idc, buf, qp, qpc, qp_plane, slice_id, row_slice,
     return rows, recY, recU, recV
 
 
+def _to_host(t):
+    """(a host copy of t, None) on the CPU; on CUDA (a pinned host tensor
+    that a non-blocking copy fills, the CUDA event that marks the copy
+    done), so the device's stream runs on while the copy is in flight."""
+    if t.device.type != "cuda":
+        return t, None
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    ready = torch.cuda.Event()
+    ready.record()
+    return host, ready
+
+
+def _p_batch(mb_w, mb_h, radius, idc, bufs, refY, refU, refV, qp, qpc,
+             slice_id, row_slice, rd_lam=None):
+    """K consecutive P frames chained on the device, each predicting from
+    the recon of the one before (JaxEncoder._p_batch, whose lax.scan is a
+    loop here). Per frame: the analysis (_p_analyze, K1 inside), one
+    small fetch of the intra-fallback mask, the intra fixup where an MB
+    falls back (_p_intra_fixup) or else _p_finish, each with the deblock
+    (K2) unless idc == 1, and the frame's [n, META_W + 427] int16 rows
+    (meta ++ symbol columns) on their way to the host (_to_host). JAX
+    decides the fixup on the device with lax.cond; the port's fixup
+    schedules its MBs from a host mask, hence the fetch.
+
+    bufs: [K, H + H/2, W] uint8 source frames (_upload layout); refY,
+    refU, refV: the unpadded recon planes of the frame before. Returns
+    ([(rows, ready, intra MBs)] per frame, the last frame's recon)."""
+    n = mb_w * mb_h
+    dev = bufs.device
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    rec = (refY, refU, refV)
+    out = []
+    for buf in bufs:
+        (packed, tile_y, tile_u, tile_v, Yd, Ud, Vd, use_intra_d, cls_d,
+         nnz_d, mvc, refc) = _p_analyze(mb_w, mb_h, radius, buf,
+                                        *(p[None] for p in rec), qp, qpc,
+                                        rd_lam=rd_lam)
+        use_intra = use_intra_d.cpu().numpy()
+        # the inter MBs' symbol rows (the constants _encode_p writes)
+        syms = _sym_rows(zero.expand(n, 16), packed[:, META_W:270],
+                         packed[:, 270:278], packed[:, 278:406],
+                         zero.expand(n), zero.expand(n), (zero + 1).expand(n),
+                         (zero + 2).expand(n, 16))
+        if use_intra.any():
+            rows, *rec = _p_intra_fixup(
+                mb_w, mb_h, idc, Yd, Ud, Vd, tile_y, tile_u, tile_v,
+                use_intra, use_intra_d, cls_d, nnz_d, mvc, refc, qp, qpc, qp,
+                slice_id, row_slice)
+            syms[torch.as_tensor(np.flatnonzero(use_intra), device=dev)] = \
+                rows
+        else:
+            rec = _p_finish(mb_w, mb_h, idc, tile_y, tile_u, tile_v, cls_d,
+                            nnz_d, mvc, refc, qp, slice_id)
+        out.append((*_to_host(torch.cat([packed[:, :META_W], syms], 1)),
+                    int(use_intra.sum())))
+    return out, tuple(rec)
+
+
 class StageTimer:
     """Wall milliseconds per encoder stage, summed over frames. Each stage
     ends with a torch.cuda.synchronize() on CUDA, so a stage holds its own
@@ -821,6 +885,9 @@ class TorchEncoder:
         self._lib = encoder_native.cfg_lib()
         self.stages = None     # a StageTimer to time encode_frame's stages
         self.encodes = []
+        # encode_frames' runs: ms of entropy writing on the writer thread,
+        # ms the caller waited for it, and the frames it wrote
+        self.prof = {"entropy_ms": 0.0, "writer_wait_ms": 0.0, "frames": 0}
 
     # -- helpers ----------------------------------------------------------
     def _stage(self, name):
@@ -1082,15 +1149,6 @@ class TorchEncoder:
         self._stage("fetch")
         meta = packed[:, :META_W]
         use_intra = meta[:, 2] != 0
-        no_res = meta[:, 3] != 0
-        part = meta[:, 4]
-        mv8 = np.ascontiguousarray(meta[:, 5:13], np.int16)
-        ref_plane = np.ascontiguousarray(meta[:, 13], np.int8)
-        ref_plane[use_intra] = 0
-        mv = np.zeros((n, 2), np.int16)
-        mv[:, 0] = meta[:, 0]
-        mv[:, 1] = meta[:, 1]
-        mv[use_intra] = 0
         lac = packed[:, 14:270].reshape(n, 16, 16).copy()
         cdc = packed[:, 270:278].reshape(n, 2, 4).copy()
         cac = packed[:, 278:406].reshape(n, 8, 16).copy()
@@ -1122,6 +1180,24 @@ class TorchEncoder:
         if self._cur_is_ref:
             self._ref2 = self.ref if self.refs == 2 else None
             self.ref = tuple(rec)
+        return self._write_p(meta, ldc, lac, cdc, cac, i16m, cm, cls, m4,
+                             n_refs)
+
+    def _write_p(self, meta, ldc, lac, cdc, cac, i16m, cm, cls, m4, n_refs):
+        """The host tail of a P frame of the fused path, from its meta
+        rows and symbol planes: MB classes, P_Skip where the residual is
+        zero and the MV equals the writer's skip predictor, the write."""
+        n = self.mb_w * self.mb_h
+        use_intra = meta[:, 2] != 0
+        no_res = meta[:, 3] != 0
+        part = meta[:, 4]
+        mv8 = np.ascontiguousarray(meta[:, 5:13], np.int16)
+        ref_plane = np.ascontiguousarray(meta[:, 13], np.int8)
+        ref_plane[use_intra] = 0
+        mv = np.zeros((n, 2), np.int16)
+        mv[:, 0] = meta[:, 0]
+        mv[:, 1] = meta[:, 1]
+        mv[use_intra] = 0
         # part -> MbClass: 0/1/2/3 = P16x16/P16x8/P8x16/P8x8 (3/4/5/6)
         mb_class = np.where(use_intra, 1, 3 + part).astype(np.uint8)
         skip_pred, _ = self._mv_preds(mb_class, mv, mv8, ref_plane)
@@ -1378,12 +1454,118 @@ class TorchEncoder:
         self.frame_idx += 1
         return data
 
+    def _write_p_packed(self, packed):
+        """Host entropy tail of a run's P frame: `packed` is its
+        [n, META_W + 427] int16 rows (_p_batch)."""
+        return self._write_p(packed[:, :META_W], *_unpack(packed[:, META_W:]),
+                             n_refs=1)
+
+    def _dispatch_p_run(self, frames):
+        """Chain K consecutive P frames on the device (_p_batch); self.ref
+        advances to the run's last recon. Returns the frames' rows for
+        _drain_p_run, whose copies to the host may still be in flight."""
+        bufs = torch.stack([self._upload(*f) for f in frames])
+        if self.denoise:
+            for buf in bufs:
+                self._denoise(buf)
+        qp_d, qpc_d = self._qp_maps()
+        rows, self.ref = _p_batch(
+            self.mb_w, self.mb_h, self.ME_RADIUS, self.deblock_idc, bufs,
+            *self.ref, qp_d, qpc_d, self._slice_id, self._row_slice_np,
+            self.trellis_lam)
+        return rows
+
+    def _drain_p_run(self, rows):
+        """Host half of a dispatched run, on encode_frames' writer thread:
+        per frame, wait for its rows, write its slices, then advance
+        frame_idx and _frame_num (every frame of a run is a reference).
+        The main thread touches none of the state this reads or writes
+        while a drain runs."""
+        out = []
+        for packed, ready, _ in rows:
+            if ready is not None:
+                ready.synchronize()
+            t0 = time.perf_counter()
+            out.append(self._write_p_packed(packed.numpy()))
+            self.prof["entropy_ms"] += (time.perf_counter() - t0) * 1e3
+            self._frame_num = (self._frame_num + 1) & 0xff
+            self.frame_idx += 1
+        self.prof["frames"] += len(rows)
+        return out
+
+    @property
+    def _batchable(self):
+        """Configurations whose P frames encode_frames runs in batches (as
+        JaxEncoder._batchable): the fused path with a flat QP, one
+        short-term reference and every frame a reference, with no
+        per-frame host decision in between."""
+        return (not self.intra_only and not self.aq and not self.gom_rc
+                and self.rc is None and not self.scene_cut
+                and self.refs == 1 and self.temporal_layers == 1
+                and not self.ltr and not self.bgd and not self.scroll_me
+                and not self.slice_max_bytes)
+
     def encode_frames(self, frames, batch=8):
-        """Encode a sequence of (Y, U, V) frames, one encode_frame each.
-        `batch` is taken and ignored: JaxEncoder runs `batch` P frames as
-        one scanned device program, with bytes equal to per-frame calls
-        (encoder_jax.py:1453-1457), which is what this loop gives."""
-        return [self.encode_frame(*f) for f in frames]
+        """Encode a sequence of (Y, U, V) frames, with the bytes of
+        per-frame encode_frame calls (JaxEncoder.encode_frames). When the
+        configuration allows (_batchable), each full run of `batch`
+        consecutive P frames (the same IDR / gop / force_intra_frame
+        segmentation as JAX) is chained on the device by _dispatch_p_run
+        and written by _drain_p_run on a writer thread: the native
+        writer is a ctypes call, which lets go of the interpreter lock,
+        so run N's entropy writing overlaps run N+1's device work (JAX
+        gets the same overlap from asynchronous dispatch, at most one run
+        ahead; so does this). IDRs and shorter runs take encode_frame.
+        `encodes` lists every encode of the call, a run's frames with path
+        "run"."""
+        frames = list(frames)
+        if not self._batchable:
+            return [self.encode_frame(*f) for f in frames]
+        out, log, pending = [], [], []
+        fidx = self.frame_idx   # segmentation-time frame counter
+        have_ref = self.ref is not None
+
+        def drain(keep=0):
+            while len(pending) > keep:
+                t0 = time.perf_counter()
+                out.extend(pending.pop(0).result())
+                self.prof["writer_wait_ms"] += (time.perf_counter()
+                                                - t0) * 1e3
+
+        def one(f):
+            drain()
+            out.append(self.encode_frame(*f))
+            log.extend(self.encodes)
+
+        with ThreadPoolExecutor(max_workers=1) as writer:
+            i = 0
+            while i < len(frames):
+                # _force_idr only affects the next encode_frame call,
+                # which consumes (clears) it
+                if (not have_ref or self._force_idr
+                        or (self.gop and fidx % self.gop == 0)):
+                    one(frames[i])
+                    fidx += 1
+                    have_ref = True
+                    i += 1
+                    continue
+                k = 1
+                while (i + k < len(frames) and k < batch
+                       and not (self.gop and (fidx + k) % self.gop == 0)):
+                    k += 1
+                if k < batch:
+                    for f in frames[i:i + k]:
+                        one(f)
+                else:
+                    rows = self._dispatch_p_run(frames[i:i + k])
+                    log += [("P", "run", True, n) for _, _, n in rows]
+                    pending.append(writer.submit(self._drain_p_run, rows))
+                    drain(keep=1)
+                fidx += k
+                i += k
+            drain()
+        self.encodes = log
+        return out
 
     @property
     def recon(self):

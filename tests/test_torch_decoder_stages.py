@@ -40,7 +40,7 @@ def _stage_parity(data, n_frames):
             break
         mb_w, mb_h = f["mb_w"], f["mb_h"]
         dec._prep_refs(mb_w, mb_h)
-        planes_np, has_intra = dec._prep_planes(f)
+        planes_np, _, has_intra, _ = dec._prep_planes(f)
         covered.add((has_intra, bool(planes_np["mc_fast"]),
                      bool(planes_np["mc_any"])))
         ring = [r.numpy().copy() for r in (dec.ref_y, dec.ref_u, dec.ref_v)]

@@ -193,8 +193,12 @@ def test_encoder_cuda_needs_a_gpu():
 
 def test_encode_frames_takes_batch():
     """JaxEncoder.encode_frames and the JAX SimulcastEncoder's take
-    `batch`; the port's take it too, and their bytes are those of the
-    calls without it (per-frame encodes, as JAX's docstring promises)."""
+    `batch`, and so do the port's. TorchEncoder.encode_frames uses it: a
+    full run of `batch` P frames is chained on the device and written on
+    a writer thread (tests/test_torch_encoder_runs.py), with the bytes of
+    the calls without it, as JAX's docstring promises (here an IDR and
+    one P frame, shorter than a run); SimulcastEncoder.encode_frames
+    stays one access unit at a time, as JAX's does."""
     from losslessh264_tpu_torch.encoder_torch import TorchEncoder
     from losslessh264_tpu_torch.simulcast import SimulcastEncoder
     frames = _panning(5, 2)

@@ -224,7 +224,7 @@ def test_mc_fast_plan_copy_matches_original():
     dec = TorchDecoder(data, device="cpu")
     kinds = set()
     for i, f in enumerate(dec.sym):
-        planes, _ = dec._prep_planes(f)
+        planes = dec._prep_planes(f)[0]
         dec._assign_slot(f)
         if i == 0:
             continue

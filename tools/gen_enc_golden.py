@@ -2,11 +2,12 @@
 """Write the JAX encode goldens of the configurations that chip_smoke.py
 runs with the torch port on the card:
 
-    JAX_PLATFORMS=cpu python tools/gen_enc_golden.py [A B C D E F]
+    JAX_PLATFORMS=cpu python tools/gen_enc_golden.py [A B C D E F G]
 
 A and B go to tests/data/synth720p_enc_golden.json, C, D and E to
 tests/data/synth720p_enc_golden_cde.json, F to
-tests/data/synth720p_enc_golden_f.json (all six by default; a run for
+tests/data/synth720p_enc_golden_f.json, G to
+tests/data/synth720p_enc_golden_g.json (all seven by default; a run for
 some rewrites only those entries).
 
 The source frames are the first frames of tests/data/synth720p.264 as
@@ -43,6 +44,14 @@ display size), and the CPU seconds each configuration took to encode
      (ops/me.full_search_sad, radius 16) and no loop filter. Frames 0-2.
      That search holds one [3600, 256, 1089] patch tensor per P frame,
      about 4 GB as float32 on the CPU.
+  G: A's settings (qp=28, gop=0, scene_cut off) on frames 0-6 through
+     JaxEncoder.encode_frames(frames, batch=3): an IDR, then two runs of
+     3 P frames (_p_batch), the second queued before the first's
+     entropy is written. The frames are also encoded one encode_frame
+     call each, which must give the same bytes; the golden's per-frame
+     recon CRC32s come from those calls (a run's recon is not visible
+     between its frames), and `run_recon_crc32` is the recon after
+     encode_frames, which must equal the last frame's.
 """
 import hashlib
 import json
@@ -61,6 +70,7 @@ OUT = {"A": os.path.join(DATA, "synth720p_enc_golden.json"),
 OUT["B"] = OUT["A"]
 OUT["D"] = OUT["E"] = OUT["C"]
 OUT["F"] = os.path.join(DATA, "synth720p_enc_golden_f.json")
+OUT["G"] = os.path.join(DATA, "synth720p_enc_golden_g.json")
 
 CONFIGS = {
     "A": {"kwargs": {"qp": 28, "gop": 0}, "frames": 4},
@@ -76,6 +86,7 @@ CONFIGS = {
     "E": {"simulcast": {"spatial_layers": 2, "qp": 28, "inter_layer": True},
           "frames": 2},
     "F": {"older": {"qp": 26}, "frames": 3},
+    "G": {"kwargs": {"qp": 28, "gop": 0}, "batch": 3, "frames": 7},
 }
 
 
@@ -148,6 +159,8 @@ def encode(name, cfg, frames):
                              enc.ref if "older" in cfg else enc.recon)})
             if name not in ("A", "B", "F"):
                 rows[-1]["is_ref"] = bool(enc._cur_is_ref)
+    if "batch" in cfg:
+        return rows, run_frames(cfg, frames, rows, encoder_jax.JaxEncoder)
     if name in ("A", "B"):
         return rows, None
     if "simulcast" in cfg:
@@ -158,6 +171,23 @@ def encode(name, cfg, frames):
         pics = decoder_np.NpDecoder(b"".join(streams),
                                     error_concealment=False)
     return rows, [recon_crc(p) for p in pics.frames()]
+
+
+def run_frames(cfg, frames, rows, encoder_cls):
+    """The recon CRC32 after encode_frames(frames, batch) on a fresh
+    encoder, whose bytes must equal the per-frame `rows`."""
+    H, W = frames[0][0].shape
+    enc = encoder_cls(W, H, **cfg["kwargs"])
+    out = enc.encode_frames(frames[:cfg["frames"]], batch=cfg["batch"])
+    got = [hashlib.sha256(d).hexdigest() for d in out]
+    if got != [r["sha256"] for r in rows]:
+        raise SystemExit("encode_frames(batch=%d) differs from the "
+                         "per-frame encodes" % cfg["batch"])
+    crc = recon_crc(enc.recon)
+    if crc != rows[-1]["recon_crc32"]:
+        raise SystemExit("the recon after encode_frames differs from the "
+                         "last per-frame encode's")
+    return crc
 
 
 def main(argv):
@@ -177,7 +207,9 @@ def main(argv):
         dt = time.perf_counter() - t0
         entry = {k: v for k, v in cfg.items() if k != "frames"}
         entry["frames"] = rows
-        if decoded is not None:
+        if "batch" in cfg:
+            entry["run_recon_crc32"] = decoded
+        elif decoded is not None:
             entry["decoded_crc32"] = decoded
             entry["jax_cpu_s"] = round(dt, 1)
         outs[OUT[name]][name] = entry
