@@ -20,8 +20,9 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
      2x7; 20 launches per case, each exact against the plain result.
   5. decode: all 25 frames of synth720p with TorchDecoder(device="cuda");
      every frame's CRC32 of Y|U|V must equal the committed NpDecoder
-     goldens (tests/data/synth720p_np_crc.json), K1 must launch, and K2
-     must launch exactly once per frame that is deblocked.
+     goldens (tests/data/synth720p_np_crc.json), K1 must launch, K2
+     exactly once per frame that is deblocked, K3 once per frame with
+     intra MBs (frames 0, 10 and 20), K4 never.
   6. encode: TorchEncoder(device="cuda") at 1280x720 on the first frames
      of phase 5's decode, in the configurations of
      tests/data/synth720p_enc_golden.json and its sibling
@@ -39,9 +40,10 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
      on the card must give back the encoder's recon after every reference
      frame and, for C, D and E, the JAX decoders' pictures of the golden
      (TorchDecoder; E: the port's SimulcastDecoder). K1 must launch once
-     per P encode and K2 once per encode that deblocks, as JaxEncoder's
-     control flow implies (not for a fused-path non-reference P frame
-     without intra MBs; a size-capped slice's re-encode counts again).
+     per P encode, K2 once per encode that deblocks and K4 once per
+     encode with intra MBs, as JaxEncoder's control flow implies (no K2
+     for a fused-path non-reference P frame without intra MBs; a
+     size-capped slice's re-encode counts again), K3 never.
      A first pass gives encode fps, a second the per-stage wall times of
      every frame (encoder_torch.StageTimer).
   7. older encoder: losslessh264_tpu_torch.encoder.Encoder(1280, 720,
@@ -50,14 +52,14 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
      configuration F of tests/data/synth720p_enc_golden_f.json (SHA-256
      and reference CRC32 per frame); TorchDecoder on the card must give
      back the encoder's reference and NpDecoder's picture of every frame;
-     K1 and K2 must launch 0 times (no loop filter, integer-pel). Prints
+     no kernel may launch (no loop filter, integer-pel, host intra). Prints
      fps and the split between the device search and the host loops.
   8. GOP-parallel decode: synth720p.264 written twice in a row (2 GOPs,
      50 frames) through parallel.decode_yuv_gop_parallel with 2 workers
      (a TorchDecoder and a CUDA stream each), then through one sequential
      TorchDecoder; every frame's CRC32 must equal the golden,
-     twice over, and each decode must launch K1 and K2 twice as often as
-     phase 5's decode (44 and 50). Prints both fps.
+     twice over, and each decode must launch K1-K3 twice as often as
+     phase 5's decode (44, 50 and 6). Prints both fps.
   9. CLI: `python -m losslessh264_tpu_torch walk_analog.264 x.pip
      --shards 4` (must equal native.compress_sharded and decompress to
      the input) and `roundtrip ... --shards 4` (must print bit-exact), as
@@ -65,27 +67,38 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
  10. graft: graft_entry.dryrun_multichip(2) on the card, two gloo ranks
      at 80x45 MBs; each rank's recY, mvx and bits must equal the step in
      this process, the all-reduced total their sum, and each rank must
-     launch K1 and K2 once.
+     launch K1 and K2 once (K3 and K4 never, in this process's runs).
  11. runs decode: tests/data/runs720p.264 (tools/gen_run_streams.py)
      with TorchDecoder on the card: four IDRs as one all-intra batch
      (recon_intra_batch), then P frames whose intra MBs populate 0, 1, 8
      and 42 of the 168 diagonals (no intra pass, the sparse pass over the
      populated ones, the full table). Every frame's CRC32 must equal
      NpDecoder's (tests/data/runs720p_np_crc.json), each frame must take
-     its route, K2 must launch once per deblocked frame and K1 as the MC
-     plans imply. A stage-timed decode prints each frame's intra ms on its
-     route beside the full-table pass on the same planes (and requires
-     the two equal).
+     its route, K2 must launch once per deblocked frame, K1 as the MC
+     plans imply and K3 once per route with an intra pass (the batch of 4
+     once: 4 in all). A stage-timed decode prints each frame's intra ms on
+     its route (K3) beside the plain full-table pass on the same planes
+     (and requires the two equal).
  12. encode runs: configuration G (tests/data/synth720p_enc_golden_g.json,
      A's settings on frames 0-6) through TorchEncoder.encode_frames(batch=
      3): an IDR and two runs of 3 P frames, each run's entropy written on
      a writer thread while the next run's device work goes on. SHA-256 of
      every frame, the recon after the runs, frames 0-3 also against
-     golden A, K1 / K2 as the encodes imply; then the 6 P frames in turns
+     golden A, K1 / K2 / K4 as the encodes imply; then the 6 P frames in
+     turns
      one encode_frame each and in runs, from the IDR's state, each turn
      held to the golden: P-frame fps of both, the writer's ms and the ms
      the caller waited for it.
- 13. times: K1 at 720p, 1080p, 2160p and on the encoder's refs=2 plane
+ 13. K3 and K4 against their plain versions on the card, exact: K3 on
+     random cases (cases.random_intra_case: every class and mode, I8x8,
+     slices starting mid-row; 9x4 .. 80x45 MBs, 1 or 4 frames, a column
+     and a row of MBs; 5 launches each) and on synth720p's intra frames
+     0, 10 and 20; K4 on random cases (random_intra_encode_case, qp 0 ..
+     51 and per-MB planes; 3 launches each), A's IDR and C's per-MB-QP
+     IDR (phase 5's frame 0 at C's IDR qp plane). Their times at 720p
+     (K3: synth720p frame 0's full pass; K4: A's IDR): wrapper, kernel
+     alone, plain version, bound and chain length.
+ 14. times: K1 at 720p, 1080p, 2160p and on the encoder's refs=2 plane
      (784x2688), both entries, wrapper and kernel alone, beside their
      bounds, its plain version and the conv2d yardstick; K2 against its
      plain version at 720p (CUDA events); a per-stage breakdown of every
@@ -98,8 +111,9 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
 The line before the last is the kernel report
 {"kernels": [{"name", "route", "source", "replaces", "launches",
 "launches_per_decode", "launches_per_encode", "max_abs_err", "ms",
-"plain_ms", "bound_ms", "bound_by", "library_ms"}, ...]}, preceded by the
-card line; `launches` counts phases 5-12, and `launches_per_decode`,
+"plain_ms", "bound_ms", "bound_by", "library_ms"}, ...]} for K1-K4,
+preceded by the card line; `launches` counts phases 5-12, and
+`launches_per_decode`,
 `_per_encode`, `_per_older_encode`, `_per_gop_parallel_decode`,
 `_per_graft_ranks`, `_per_runs_decode` and `_per_encode_runs` each path's
 own count. For K1:
@@ -119,7 +133,11 @@ rounding pass). `sizes` holds, for "720p", "1080p", "2160p" and
 `bound_by_*`, `bound_share_*` (bound over kernel time), `plain_ms` and
 `library_ms`. K2's `ms` is its wrapper (packing, plane copies, launch)
 and `kernel_ms` the bare C entry by CUDA events, each launch on fresh
-planes. The last line is {"ok": true, "device": {"platform": "gpu",
+planes. K3's and K4's `ms` is the wrapper, `kernel_ms` the bare C entry
+(CUDA events, each launch on its own copy of the planes), `chain_steps`
+the wavefront's dependent MB steps, `library_ms` null (no PyTorch call
+computes them); K3's `replaces_also` names the two other JAX scans it
+serves. The last line is {"ok": true, "device": {"platform": "gpu",
 ...}}. Without a GPU, or without the package beside it, the script
 exits non-zero and prints no result.
 
@@ -127,7 +145,9 @@ Bounds: the larger of the bytes each kernel must move (every input read
 once, every output written once) over 3.35 TB/s, and its integer
 operations over 33.5 TOP/s (the H100 SXM's 67 TFLOP/s float32 rate
 outside the tensor cores, halved: an SM has half as many int32 lanes as
-float32 lanes). Both kernels are bound by bytes.
+float32 lanes). K1, K2 and K3 are bound by bytes, K4 by operations
+(K3_OPS_PER_MB, K4_OPS_PER_MB); K2, K3 and K4 are far from the bound, a
+chain of dependent MB steps.
 """
 import ctypes
 import json
@@ -171,6 +191,33 @@ K1_OPS_PER_POSITION = 50
 
 def log(*a):
     print(*a, flush=True)
+
+
+KERNELS = ("K1", "K2", "K3", "K4")
+
+
+def wrappers():
+    """The wrappers whose `launches` count K1-K4, in KERNELS order."""
+    from losslessh264_tpu_torch import encoder_torch as et
+    from losslessh264_tpu_torch.ops import deblock as tdb
+    from losslessh264_tpu_torch.ops import intra as tintra
+    from losslessh264_tpu_torch.ops import mc as tmc
+    return (tmc.halfpel_planes, tdb.deblock_wavefront, tintra.intra_recon,
+            et.intra_wavefront)
+
+
+def reset_launches():
+    for w in wrappers():
+        w.launches = 0
+
+
+def launches_now():
+    """(K1, K2, K3, K4) launches since the last reset_launches()."""
+    return tuple(w.launches for w in wrappers())
+
+
+def launch_str(counts):
+    return ", ".join(f"{k} {v}" for k, v in zip(KERNELS, counts))
 
 
 def card_line():
@@ -402,30 +449,33 @@ def stage_decode(data, device):
 
 
 def expected_launches(runs):
-    """K1 and K2 launches that JaxEncoder's control flow implies for the
-    encodes `runs` ((deblock_idc, kind, path, is_ref, intra MBs) each, from
-    TorchEncoder.encodes): K1 once per P encode; K2 once per encode that
-    deblocks, which is every encode with the filter on but a fused-path
-    P frame that is not a reference and has no intra MB."""
+    """(K1, K2, K3, K4) launches that JaxEncoder's control flow implies
+    for the encodes `runs` ((deblock_idc, kind, path, is_ref, intra MBs)
+    each, from TorchEncoder.encodes): K1 once per P encode; K2 once per
+    encode that deblocks, which is every encode with the filter on but a
+    fused-path P frame that is not a reference and has no intra MB; K3
+    never (an encoder decodes nothing); K4 once per encode with an intra
+    MB (every IDR, and each P frame with intra-fallback MBs)."""
     k1 = sum(kind == "P" for _, kind, _, _, _ in runs)
-    k2 = sum(idc != 1 and (path == "aq" or kind == "I" or is_ref or n_intra)
+    k2 = sum(idc != 1 and bool(path == "aq" or kind == "I" or is_ref
+                               or n_intra)
              for idc, kind, path, is_ref, n_intra in runs)
-    return k1, k2
+    k4 = sum(kind == "I" or n_intra > 0 for _, kind, _, _, n_intra in runs)
+    return k1, k2, 0, k4
 
 
 def encode_phase(frames, dev, card):
     """Phase 6: configurations A and B of the encode golden, and C, D and
     E of its sibling, on the card. `frames` are phase 5's decoded frames
     (host tensors), which that phase held to the NpDecoder CRCs the
-    golden's source frames also match. Returns the K1 / K2 launches of
-    the encode pass and the number of frames encoded."""
+    golden's source frames also match. Returns the K1-K4 launches of the
+    encode pass, the number of frames encoded, and C's per-MB qp plane of
+    its IDR (phase 13 holds K4 to its plain version on it)."""
     import hashlib
     from losslessh264_tpu_torch import decoder_torch as dt
     from losslessh264_tpu_torch import encoder_torch as et
     from losslessh264_tpu_torch import simulcast
     from losslessh264_tpu_torch.cases import golden_encoder
-    from losslessh264_tpu_torch.ops import deblock as tdb
-    from losslessh264_tpu_torch.ops import mc as tmc
     configs = []
     for path, names in ((ENC_GOLDEN, "AB"), (ENC_GOLDEN_CDE, "CDE")):
         gold = json.load(open(path))
@@ -440,7 +490,7 @@ def encode_phase(frames, dev, card):
         encode of cfg's frames."""
         enc = golden_encoder(cfg, W, H, dev)
         layers = enc.encs if "simulcast" in cfg else [enc]
-        out, recon, rows, runs = [], [], [], []
+        out, recon, rows, runs, qp_planes = [], [], [], [], []
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for i, f in enumerate(src[:len(cfg["frames"])]):
@@ -452,11 +502,12 @@ def encode_phase(frames, dev, card):
             out.append(enc.encode_frame_layers(*f) if "simulcast" in cfg
                        else enc.encode_frame(*f))
             recon.append([tuple(p.clone() for p in e.ref) for e in layers])
+            qp_planes.append(getattr(enc, "_qp_plane", None))
             runs += [(e.deblock_idc,) + r for e in layers for r in e.encodes]
             if stages:
                 rows.append([e.stages.ms for e in layers])
         torch.cuda.synchronize()
-        return out, recon, time.perf_counter() - t0, rows, runs
+        return out, recon, time.perf_counter() - t0, rows, runs, qp_planes
 
     def crc(planes):
         return zlib.crc32(b"".join(p.cpu().numpy().tobytes() for p in planes))
@@ -511,14 +562,15 @@ def encode_phase(frames, dev, card):
 
     # pass 1: encode fps, the golden, the launch counts (set to 0 before
     # each configuration, checked against what its encodes imply)
-    launches = {"K1": 0, "K2": 0}
+    launches = dict.fromkeys(KERNELS, 0)
     streams, n_frames = {}, 0
     for name, cfg in configs:
-        tmc.halfpel_planes.launches = 0
-        tdb.deblock_wavefront.launches = 0
-        out, recon, wall, _, runs = encode(cfg, False)
-        got = (tmc.halfpel_planes.launches, tdb.deblock_wavefront.launches)
+        reset_launches()
+        out, recon, wall, _, runs, qp_planes = encode(cfg, False)
+        got = launches_now()
         check(name, cfg, out, recon)
+        if name == "C":
+            c_idr_qp = qp_planes[0].copy()
         streams[name] = (out, recon)
         n_frames += len(out)
         want = expected_launches(runs)
@@ -529,15 +581,15 @@ def encode_phase(frames, dev, card):
             f"recon CRC32); {wall:.3f} s = {len(out) / wall:.4f} fps on "
             f"{card}; bytes {sizes}; "
             f"encodes (kind, path, is_ref, intra MBs) "
-            f"{[r[1:] for r in runs]}; launches K1 {got[0]}, K2 {got[1]}, "
-            f"implied {want[0]}, {want[1]}")
+            f"{[r[1:] for r in runs]}; launches {launch_str(got)}, implied "
+            f"{launch_str(want)}")
         if got != want or want[0] == 0:
-            raise SystemExit(f"encode {name}: K1/K2 launched {got}, the "
+            raise SystemExit(f"encode {name}: K1-K4 launched {got}, the "
                              f"encodes imply {want}")
-        launches["K1"] += got[0]
-        launches["K2"] += got[1]
-    log(f"launches during encode: K1 halfpel {launches['K1']}, K2 deblock "
-        f"{launches['K2']} for {n_frames} frames")
+        for k, v in zip(KERNELS, got):
+            launches[k] += v
+    log(f"launches during encode: {launch_str(launches.values())} for "
+        f"{n_frames} frames")
 
     for name, cfg in configs:
         closed_loop(name, cfg, *streams[name])
@@ -545,7 +597,7 @@ def encode_phase(frames, dev, card):
     # pass 2: per-stage wall times of every frame (a synchronize ends
     # each stage)
     for name, cfg in configs:
-        out, recon, wall, rows, _ = encode(cfg, True)
+        out, recon, wall, rows, _, _ = encode(cfg, True)
         check(name, cfg, out, recon)
         for i, per_layer in enumerate(rows):
             for li, ms in enumerate(per_layer):
@@ -558,7 +610,7 @@ def encode_phase(frames, dev, card):
                     + f" total {sum(ms.values()):.3f} ms on {card}")
         log(f"encode stage {name}: {wall:.3f} s for {len(out)} frames with "
             f"stage timing on {card}")
-    return launches, n_frames
+    return launches, n_frames, c_idr_qp
 
 
 def older_encode_phase(frames, dev, card):
@@ -569,21 +621,19 @@ def older_encode_phase(frames, dev, card):
     tests/data/synth720p_enc_golden_f.json. Every frame's SHA-256 and
     reference CRC32 must equal the JAX golden, TorchDecoder on the card
     must decode the stream to the encoder's reference after every frame
-    and to NpDecoder's pictures, and neither kernel may launch (the
-    streams switch the loop filter off and the search is integer-pel)."""
+    and to NpDecoder's pictures, and no kernel may launch (the streams
+    switch the loop filter off, the search is integer-pel, and the older
+    encoder's intra coding is its own host loop)."""
     import hashlib
     from losslessh264_tpu_torch import decoder_torch as dt
     from losslessh264_tpu_torch.cases import golden_encoder
-    from losslessh264_tpu_torch.ops import deblock as tdb
-    from losslessh264_tpu_torch.ops import mc as tmc
     gold = json.load(open(ENC_GOLDEN_F))
     cfg = gold["F"]
     W, H = gold["source"]["width"], gold["source"]["height"]
     src = [tuple(np.ascontiguousarray(p.numpy()) for p in f)
            for f in frames[:len(cfg["frames"])]]
     enc = golden_encoder(cfg, W, H, dev)
-    tmc.halfpel_planes.launches = 0
-    tdb.deblock_wavefront.launches = 0
+    reset_launches()
     out, refs = [], []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -592,7 +642,7 @@ def older_encode_phase(frames, dev, card):
         refs.append(tuple(np.copy(p) for p in enc.ref))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    got = (tmc.halfpel_planes.launches, tdb.deblock_wavefront.launches)
+    got = launches_now()
     for i, (d, ref, g) in enumerate(zip(out, refs, cfg["frames"])):
         sha = hashlib.sha256(d).hexdigest()
         c = zlib.crc32(b"".join(p.tobytes() for p in ref))
@@ -601,16 +651,16 @@ def older_encode_phase(frames, dev, card):
                              f"sha256 {sha[:16]} ref crc {c}, golden "
                              f"{g['bytes']} {g['sha256'][:16]} "
                              f"{g['recon_crc32']}")
-    if got != (0, 0):
-        raise SystemExit(f"older encoder: K1/K2 launched {got}; the "
-                         "integer-pel, unfiltered path launches neither")
+    if got != (0, 0, 0, 0):
+        raise SystemExit(f"older encoder: K1-K4 launched {got}; the "
+                         "integer-pel, unfiltered path launches none")
     split = {k: round(v, 3) for k, v in enc.times.items()}
     log(f"older encoder F {cfg['older']}: {len(out)} frames {W}x{H} match "
         f"the JAX golden; {wall:.3f} s = {len(out) / wall:.4f} fps on "
         f"{card}; ms: {json.dumps(split)} (me: the device search with its "
         f"upload and fetch; mb_loops: the host per-MB loops; write: MV "
         f"predictors and the native writer); bytes "
-        f"{[len(d) for d in out]}; launches K1 {got[0]}, K2 {got[1]}")
+        f"{[len(d) for d in out]}; launches {launch_str(got)}")
     pics = [tuple(p.cpu().numpy() for p in pic) for pic in dt.TorchDecoder(
         b"".join(out), device=dev, error_concealment=False).frames()]
     for i, (pic, ref) in enumerate(zip(pics, refs)):
@@ -625,7 +675,7 @@ def older_encode_phase(frames, dev, card):
     log(f"older encoder: TorchDecoder on the card reproduces the "
         f"encoder's reference and NpDecoder's picture of all {len(pics)} "
         f"frames")
-    return {"K1": got[0], "K2": got[1]}
+    return dict(zip(KERNELS, got))
 
 
 def gop_parallel_phase(data, golden, dec_launches, dev, card):
@@ -635,17 +685,15 @@ def gop_parallel_phase(data, golden, dec_launches, dev, card):
     TorchDecoder: one pair keeps the smoke short (PERF.md has four runs
     in turns).
     Every frame's CRC32 must equal the NpDecoder golden, twice over, and
-    each decode must launch K1 and K2 twice as often as phase 5's."""
+    each decode must launch K1-K3 twice as often as phase 5's."""
     from losslessh264_tpu_torch import decoder_torch as dt
     from losslessh264_tpu_torch import native
-    from losslessh264_tpu_torch.ops import deblock as tdb
-    from losslessh264_tpu_torch.ops import mc as tmc
     from losslessh264_tpu_torch.parallel import decode_yuv_gop_parallel
     data2 = data + data
     starts = native.gop_starts(data2)
     if starts != [0, len(data)]:
         raise SystemExit(f"GOP starts of synth720p x2: {starts}")
-    want = (2 * dec_launches[0], 2 * dec_launches[1])
+    want = tuple(2 * v for v in dec_launches)
 
     def sequential():
         dec = dt.TorchDecoder(data2, device=dev)
@@ -657,15 +705,13 @@ def gop_parallel_phase(data, golden, dec_launches, dev, card):
     fps = {"sequential": [], "parallel": []}
     launches = None
     for name, fn in (("parallel", parallel), ("sequential", sequential)):
-        tmc.halfpel_planes.launches = 0
-        tdb.deblock_wavefront.launches = 0
+        reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         got = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts = (tmc.halfpel_planes.launches,
-                  tdb.deblock_wavefront.launches)
+        counts = launches_now()
         crcs = [zlib.crc32(b"".join(p.tobytes() for p in f)) for f in got]
         if crcs != golden + golden:
             bad = next(i for i, (a, b) in enumerate(zip(crcs + [None] * 50,
@@ -674,19 +720,19 @@ def gop_parallel_phase(data, golden, dec_launches, dev, card):
             raise SystemExit(f"{name} decode of synth720p x2: {len(got)} "
                              f"frames, frame {bad} differs from the golden")
         if counts != want:
-            raise SystemExit(f"{name} decode of synth720p x2 launched K1/K2 "
+            raise SystemExit(f"{name} decode of synth720p x2 launched K1-K4 "
                              f"{counts}, expected {want}")
         if name == "parallel":
             launches = counts
         fps[name].append(len(got) / wall)
         log(f"gop-parallel phase: {name} decode of synth720p x2 ({len(got)} "
             f"frames, 2 GOPs) matches the CRCs; {wall:.3f} s = "
-            f"{len(got) / wall:.3f} fps; launches K1 {counts[0]}, K2 "
-            f"{counts[1]} on {card}")
+            f"{len(got) / wall:.3f} fps; launches {launch_str(counts)} on "
+            f"{card}")
     rates = {k: [round(v, 4) for v in fs] for k, fs in fps.items()}
     log(f"gop-parallel decode, 2 workers on one card: {json.dumps(rates)} "
         f"fps (parallel first)")
-    return {"K1": launches[0], "K2": launches[1]}
+    return dict(zip(KERNELS, launches))
 
 
 def cli_phase(card):
@@ -731,8 +777,10 @@ def graft_phase(dev, card, mb_w=80, mb_h=45):
     _p_finish with K2, the coded-bits proxy) on its frame of a seeded
     batch, the bits all-reduced. Each rank's recY, mvx and bits must equal
     the same step run in this process, the reduced total their sum, and
-    each rank must launch K1 and K2 once."""
+    each rank must launch K1 and K2 once; the step has no intra pass, so
+    its runs in this process launch neither K3 nor K4."""
     from losslessh264_tpu_torch import graft_entry as ge
+    reset_launches()
     t0 = time.perf_counter()
     ranks = ge.dryrun_multichip(2, device=dev.type, mb_w=mb_w, mb_h=mb_h)
     wall = time.perf_counter() - t0
@@ -758,10 +806,14 @@ def graft_phase(dev, card, mb_w=80, mb_h=45):
     # the step's warm time in this process
     args = ge.frame_args(mb_w, mb_h, 2, 0, dev)
     step = cuda_ms(lambda: ge.per_frame(mb_w, mb_h, *args), 5, warmup=1)
+    k3, k4 = launches_now()[2:]
+    if (k3, k4) != (0, 0):
+        raise SystemExit(f"graft: the step launched K3/K4 {(k3, k4)}")
     log(f"graft dryrun: 2 ranks, total bits {sum(bits)} == the all-reduce; "
         f"{wall:.3f} s with process start; warm step {step:.3f} ms per rank "
         f"frame (CUDA events) on {card}")
-    return {"K1": sum(r[5] for r in ranks), "K2": sum(r[6] for r in ranks)}
+    return {"K1": sum(r[5] for r in ranks), "K2": sum(r[6] for r in ranks),
+            "K3": k3, "K4": k4}
 
 
 def runs_routes(gold):
@@ -779,12 +831,13 @@ def runs_routes(gold):
 
 def runs_stage_decode(data, routes, dev):
     """A second decode of runs720p, by hand along TorchDecoder's routes:
-    the intra pass of every frame timed (synchronised) beside the
-    compact-carry pass over the full table on the same planes, which it
-    must equal; the leading all-intra frames as one batched pass against
-    one full pass per frame. Returns per-frame rows and the K1 launches
-    that the frames' MC plans imply (one per bucketed P frame, two when
-    it reads two ring slots)."""
+    the intra pass of every frame on its route (K3: one launch over the
+    leading all-intra frames together, one per P frame with intra MBs)
+    timed (synchronised) beside the plain compact-carry pass over the
+    full table on the same planes (one frame at a time), which it must
+    equal. Returns per-frame rows and the K1 launches that the frames' MC
+    plans imply (one per bucketed P frame, two when it reads two ring
+    slots)."""
     from losslessh264_tpu_torch import decoder_torch as dt
 
     def now():
@@ -807,7 +860,7 @@ def runs_stage_decode(data, routes, dev):
         slots.append(dec._assign_slot(f))
     if lead:
         t0 = now()
-        singles = [dt._intra_scan(mb_w, mb_h, *w, p, diags)
+        singles = [dt._intra_scan_plain(mb_w, mb_h, *w, p, diags)
                    for w, p in zip(works, preps)]
         t1 = now()
         pb = {k: torch.stack([p[k] for p in preps]) for k in dt.INTRA_KEYS}
@@ -818,11 +871,11 @@ def runs_stage_decode(data, routes, dev):
         for k in range(lead):
             if not all(torch.equal(b[k], s) for b, s in
                        zip(batched, singles[k])):
-                raise SystemExit(f"runs720p frame {k}: the batched intra "
-                                 "pass differs from the frame's own")
+                raise SystemExit(f"runs720p frame {k}: K3 over the batch "
+                                 "differs from the frame's plain pass")
             rows.append(dict(frame=k, route=routes[k],
                              intra_ms=(t2 - t1) * 1e3 / lead,
-                             full_table_ms=(t1 - t0) * 1e3 / lead))
+                             plain_ms=(t1 - t0) * 1e3 / lead))
         out = [dt._deblock_crop(mb_w, mb_h, *pl, p)
                for pl, p in zip(singles, preps)]
         dt._store_refs_k(dec.ref_y, dec.ref_u, dec.ref_v,
@@ -834,20 +887,21 @@ def runs_stage_decode(data, routes, dev):
             k1 += 1 + (int(planes_np["mc_nslots"]) > 1)
         work = dt._residual_and_inter(mb_w, mb_h, p, dec.ref_y, dec.ref_u,
                                       dec.ref_v)
-        planes, t_route, t_full = work[:3], 0.0, 0.0
+        planes, t_route, t_plain = work[:3], 0.0, 0.0
         if has_intra:
             t0 = now()
-            planes = dt._intra_scan(mb_w, mb_h, *work, p, diags)
-            t_full = t_route = (now() - t0) * 1e3
-        if has_intra and not full:
+            planes = dt._intra_scan_plain(mb_w, mb_h, *work, p, diags)
+            t_plain = (now() - t0) * 1e3
+            scan = dt._intra_scan if full else dt._intra_scan_sparse
             t0 = now()
-            sparse = dt._intra_scan_sparse(mb_w, mb_h, *work, p, sel)
+            routed = scan(mb_w, mb_h, *work, p, sel)
             t_route = (now() - t0) * 1e3
-            if not all(torch.equal(a, b) for a, b in zip(sparse, planes)):
-                raise SystemExit(f"runs720p frame {i}: the sparse intra "
-                                 "pass differs from the full one")
+            if not all(torch.equal(a, b) for a, b in zip(routed, planes)):
+                raise SystemExit(f"runs720p frame {i}: K3 on the "
+                                 f"{routes[i][0]} route differs from the "
+                                 "plain pass")
         rows.append(dict(frame=i, route=routes[i], intra_ms=t_route,
-                         full_table_ms=t_full))
+                         plain_ms=t_plain))
         dec._finish_frame(f, *dt._deblock_crop(mb_w, mb_h, *planes, p),
                           False)
     return rows, k1
@@ -860,27 +914,28 @@ def runs_decode_phase(dev, card):
     diagonal, 1, 8 or 42 of the 168 (no pass, the sparse pass over the
     populated ones, the full table). Every frame's CRC32 must equal
     NpDecoder's, each frame must take its route, K2 must launch once per
-    deblocked frame and K1 as the frames' MC plans imply. Then a
-    stage-timed decode prints each frame's intra ms beside the full-table
-    pass on the same planes."""
+    deblocked frame, K1 as the frames' MC plans imply and K3 once per
+    route that has an intra pass (the batch once). Then a stage-timed
+    decode prints each frame's intra ms on its route (K3) beside the
+    plain full-table pass on the same planes."""
     from losslessh264_tpu_torch import decoder_torch as dt
     from losslessh264_tpu_torch import native
-    from losslessh264_tpu_torch.ops import deblock as tdb
-    from losslessh264_tpu_torch.ops import mc as tmc
     data = open(RUNS_STREAM, "rb").read()
     gold = json.load(open(RUNS_GOLDEN))["runs720p"]
     routes = runs_routes(gold)
     deblocked = sum(bool(dt.TorchDecoder._needs_deblock(
         f, dt.TorchDecoder._nnz_plane(f))) for f in native.SymbolDecoder(data))
-    tmc.halfpel_planes.launches = 0
-    tdb.deblock_wavefront.launches = 0
+    # K3: one launch for the batch, one per P frame with an intra pass
+    k3 = (routes[0][0] == "batch") + sum(r[0] in ("sparse", "full")
+                                         for r in routes)
+    reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     dec = dt.TorchDecoder(data, device=dev)
     frames = [tuple(a.cpu() for a in yuv) for yuv in dec.frames()]
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    got = (tmc.halfpel_planes.launches, tdb.deblock_wavefront.launches)
+    got = launches_now()
     crcs = [zlib.crc32(b"".join(p.numpy().tobytes() for p in f))
             for f in frames]
     if crcs != gold["crc32"]:
@@ -891,13 +946,14 @@ def runs_decode_phase(dev, card):
     if dec.routes != routes:
         raise SystemExit(f"runs720p routes {dec.routes}, expected {routes}")
     rows, k1 = runs_stage_decode(data, routes, dev)
-    if got != (k1, deblocked):
-        raise SystemExit(f"runs720p: K1/K2 launched {got}, the frames imply "
-                         f"{(k1, deblocked)}")
+    want = (k1, deblocked, k3, 0)
+    if got != want:
+        raise SystemExit(f"runs720p: K1-K4 launched {got}, the frames imply "
+                         f"{want}")
     log(f"runs decode: {len(frames)} frames of runs720p match the NpDecoder "
         f"CRCs; {wall:.3f} s = {len(frames) / wall:.3f} fps on {card}; "
-        f"routes {dec.routes}; launches K1 {got[0]}, K2 {got[1]}, implied "
-        f"{k1}, {deblocked}")
+        f"routes {dec.routes}; launches {launch_str(got)}, implied "
+        f"{launch_str(want)}")
     for r in rows:
         log("runs stage " + json.dumps(
             {k: (round(v, 3) if isinstance(v, float) else v)
@@ -906,11 +962,11 @@ def runs_decode_phase(dev, card):
         sel = [r for r in rows if r["route"][0] == name]
         if sel:
             route = sum(r["intra_ms"] for r in sel) / len(sel)
-            full = sum(r["full_table_ms"] for r in sel) / len(sel)
-            log(f"runs intra route {name}: {len(sel)} frames, {route:.3f} ms "
-                f"per frame against {full:.3f} ms for the full-table pass on "
-                f"the same planes on {card}")
-    return {"K1": got[0], "K2": got[1]}
+            plain = sum(r["plain_ms"] for r in sel) / len(sel)
+            log(f"runs intra route {name}: {len(sel)} frames, K3 {route:.3f} "
+                f"ms per frame against {plain:.3f} ms for the plain "
+                f"full-table pass on the same planes on {card}")
+    return dict(zip(KERNELS, got))
 
 
 def encode_runs_phase(frames, dev, card):
@@ -928,8 +984,6 @@ def encode_runs_phase(frames, dev, card):
     the time the caller waited for it."""
     import hashlib
     from losslessh264_tpu_torch.cases import golden_encoder
-    from losslessh264_tpu_torch.ops import deblock as tdb
-    from losslessh264_tpu_torch.ops import mc as tmc
     gold = json.load(open(ENC_GOLDEN_G))
     cfg = gold["G"]
     gold_a = json.load(open(ENC_GOLDEN))["A"]["frames"]
@@ -950,15 +1004,14 @@ def encode_runs_phase(frames, dev, card):
                                  f"sha256 {sha[:16]}, golden {g['bytes']} "
                                  f"{g['sha256'][:16]}")
 
-    tmc.halfpel_planes.launches = 0
-    tdb.deblock_wavefront.launches = 0
+    reset_launches()
     enc = golden_encoder(cfg, W, H, dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = enc.encode_frames(src, batch=cfg["batch"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    got = (tmc.halfpel_planes.launches, tdb.deblock_wavefront.launches)
+    got = launches_now()
     runs = [(enc.deblock_idc,) + r for r in enc.encodes]
     want = expected_launches(runs)
     check("encode_frames", out)
@@ -967,13 +1020,13 @@ def encode_runs_phase(frames, dev, card):
                          "from the golden")
     if [r[2] for r in runs] != ["fused"] + ["run"] * 6 or got != want:
         raise SystemExit(f"encode G: encodes {[r[1:] for r in runs]}, "
-                         f"K1/K2 launched {got}, implied {want}")
+                         f"K1-K4 launched {got}, implied {want}")
     log(f"encode G {cfg['kwargs']} batch {cfg['batch']}: {len(out)} frames "
         f"{W}x{H} match the JAX golden (SHA-256, the recon after the runs; "
         f"frames 0-3 golden A's); {wall:.3f} s = {len(out) / wall:.4f} fps "
         f"on {card}; encodes (kind, path, is_ref, intra MBs) "
-        f"{[r[1:] for r in runs]}; launches K1 {got[0]}, K2 {got[1]}, "
-        f"implied {want[0]}, {want[1]}; writer {json.dumps(enc.prof)}")
+        f"{[r[1:] for r in runs]}; launches {launch_str(got)}, implied "
+        f"{launch_str(want)}; writer {json.dumps(enc.prof)}")
 
     # the P frames in turns: one encode_frame each, then runs, runs, one
     # each; the first turn encodes the IDR whose state the others load
@@ -1019,7 +1072,270 @@ def encode_runs_phase(frames, dev, card):
         f"the writer thread's ms less the ms the caller waited for it (at "
         f"most the writer time that left the critical path): "
         f"{[round(h, 3) for h in hidden]} on {card}")
-    return {"K1": got[0], "K2": got[1]}
+    return dict(zip(KERNELS, got))
+
+
+# K3 / K4 random cases (as tests/test_torch_kernels.py's): K3 (mb_w, mb_h,
+# B, seed), K4 (mb_w, mb_h, seed, qp; odd seeds encode half the MBs)
+K3_CASES = [(9, 4, 1, 0), (9, 4, 4, 1), (22, 18, 1, 2), (80, 45, 1, 3),
+            (80, 45, 4, 4), (1, 9, 2, 5), (7, 1, 3, 6)]
+K4_CASES = [(9, 4, 0, 26), (9, 4, 1, "aq"), (22, 18, 2, 0), (80, 45, 4, 28),
+            (80, 45, 5, "aq"), (1, 9, 6, 51), (7, 1, 7, 26)]
+# integer operations per intra MB (estimates from the kernels' code, for
+# the bound): K3 ~12 per luma and chroma sample of the coded mode (a
+# table row: 3 products, 3 sums, a shift, the residual, two clamps) plus
+# the edges, ~5000; K4 the I4x4 search (16 blocks x 9 modes x 16 samples
+# x ~12), the I16x16 and chroma SADs of 4 modes (~3 per sample) and the
+# transforms (~200 per 4x4 block), ~48000
+K3_OPS_PER_MB = 5000
+K4_OPS_PER_MB = 48000
+
+
+def k3_bytes(mb_w, mb_h, B, n_intra):
+    """Bytes K3 must move: the int32 working planes (WPAD margin
+    included: they are the function's input and output) read and written
+    once, and the residuals and MB rows of the intra MBs read once."""
+    from losslessh264_tpu_torch.ops import intra as tintra
+    plane = ((16 * mb_h + 16) * (16 * mb_w + 16)
+             + 2 * (8 * mb_h + 16) * (8 * mb_w + 16))
+    return 2 * 4 * B * plane + 4 * n_intra * (256 + 128 + tintra.K3_INFO_W)
+
+
+def k4_bytes(mb_w, mb_h, n_intra):
+    """Bytes K4 must move: the uint8 source and recon planes once each,
+    the inter tiles of the MBs that are not intra, qp and qpc of the intra
+    MBs, and the [n, 427] int32 symbol rows written once."""
+    n = mb_w * mb_h
+    pixels = 256 * n * 3 // 2
+    return (2 * pixels + 4 * (n - n_intra) * 384 + 8 * n_intra
+            + 4 * n * 427)
+
+
+def chain_steps(mb_w, mb_h):
+    """Dependent MB steps of a slope-2 wavefront frame."""
+    return 2 * (mb_h - 1) + mb_w
+
+
+def synth_intra_inputs(data, dev):
+    """The intra pass's inputs of every synth720p frame with intra MBs
+    (frames 0, 10 and 20), from a decode by hand along _decode_one:
+    (frame, (Yw, Uw, Vw, res_y, res_u, res_v), the INTRA_KEYS planes)."""
+    from losslessh264_tpu_torch import decoder_torch as dt
+    dec = dt.TorchDecoder(data, device=dev)
+    out = []
+    for i, f in enumerate(dec.sym):
+        mb_w, mb_h = f["mb_w"], f["mb_h"]
+        dec._prep_refs(mb_w, mb_h)
+        planes_np, diags, has_intra, full = dec._prep_planes(f)
+        p = dt.planes_to_torch(planes_np, dev)
+        work = dt._residual_and_inter(mb_w, mb_h, p, dec.ref_y, dec.ref_u,
+                                      dec.ref_v)
+        planes = work[:3]
+        if has_intra:
+            out.append((i, work, {k: p[k] for k in dt.INTRA_KEYS}))
+            scan = dt._intra_scan if full else dt._intra_scan_sparse
+            planes = scan(mb_w, mb_h, *work, p, diags)
+        if dec._needs_deblock(f, planes_np["nnz"]):
+            yuv = dt._deblock_crop(mb_w, mb_h, *planes, p)
+        else:
+            yuv = dt._crop(mb_w, mb_h, *planes)
+        dec._finish_frame(f, *yuv, False)
+    return out
+
+
+def encode_args(case, dev):
+    """intra_wavefront's arguments after (mb_w, mb_h) from a
+    cases.random_intra_encode_case on the card."""
+    def T(k):
+        return torch.as_tensor(case[k], device=dev)
+    return (T("srcY"), T("srcU"), T("srcV"), T("inter_y"), T("inter_u"),
+            T("inter_v"), case["is_intra"], T("qp"), T("qpc"),
+            case["row_slice"])
+
+
+def idr_args(cfg, frame, qp_plane, dev):
+    """intra_wavefront's arguments after (mb_w, mb_h) for an IDR of
+    configuration `cfg` on `frame` (host Y, U, V): the encoder's own flat
+    (qp, qpc) planes, or the per-MB qp plane `qp_plane` with its chroma
+    qp, and the encoder's row_slice."""
+    from losslessh264_tpu_torch.cases import golden_encoder
+    from losslessh264_tpu_torch.ref_np import CHROMA_QP
+    H, W = frame[0].shape
+    enc = golden_encoder(cfg, W, H, dev)
+    n = (H // 16) * (W // 16)
+    if qp_plane is None:
+        qp, qpc = enc._qp_maps()
+    else:
+        qp_plane = np.asarray(qp_plane, np.int64)
+        qp = torch.as_tensor(qp_plane.astype(np.int32), device=dev)
+        qpc = torch.as_tensor(CHROMA_QP[qp_plane].astype(np.int32),
+                              device=dev)
+    z16 = torch.zeros((n, 16, 16), dtype=torch.int32, device=dev)
+    z8 = torch.zeros((n, 8, 8), dtype=torch.int32, device=dev)
+    return (*(p.to(dev) for p in frame), z16, z8, z8, np.ones(n, bool), qp,
+            qpc, enc._row_slice_np)
+
+
+def k3_launchers(lib, mb_w, mb_h, work, p, count):
+    """`count` no-argument calls of lib's bare K3 entry (pip_intra_dec),
+    each on its own copy of the working planes (the kernel writes them in
+    place)."""
+    from losslessh264_tpu_torch import _build
+    from losslessh264_tpu_torch.ops import intra as tintra
+    ops = tintra.k3_operands(mb_w, mb_h, *work, p)
+    B = ops[0].shape[0]
+    calls = []
+    for _ in range(count):
+        mine = [a.clone() for a in ops[:3]] + list(ops[3:8]) + [
+            torch.empty_like(ops[8])]
+
+        def run(mine=mine):
+            _build.check(lib.pip_intra_dec(
+                *(ctypes.c_void_p(a.data_ptr()) for a in mine), mb_w, mb_h,
+                B, _build.stream(mine[0].device)), "intra")
+        calls.append(run)
+    return calls
+
+
+def k4_launchers(lib, mb_w, mb_h, args, count):
+    """`count` no-argument calls of lib's bare K4 entry (pip_intra_enc),
+    each on its own copy of the working planes and symbol rows."""
+    from losslessh264_tpu_torch import _build
+    from losslessh264_tpu_torch import encoder_torch as et
+    ops = et.k4_operands(mb_w, mb_h, *args)
+    calls = []
+    for _ in range(count):
+        mine = [a.clone() for a in ops[:3]] + list(ops[3:10]) + [
+            ops[10].clone(), torch.empty_like(ops[11])]
+
+        def run(mine=mine):
+            _build.check(lib.pip_intra_enc(
+                *(ctypes.c_void_p(a.data_ptr()) for a in mine), mb_w, mb_h,
+                _build.stream(mine[0].device)), "intra encode")
+        calls.append(run)
+    return calls
+
+
+def intra_kernels_phase(data, frames, c_idr_qp, dev, card):
+    """Phase 13: K3 (csrc/intra_dec.cu) and K4 (csrc/intra_enc.cu)
+    against their plain versions on the card, torch.equal on every
+    output: K3 on the random cases of K3_CASES (5 launches each) and on
+    the intra pass of synth720p's frames 0, 10 and 20; K4 on K4_CASES (3
+    launches each), A's IDR (frame 0 of phase 5's decode at A's flat qp)
+    and C's per-MB-QP IDR (the same frame at the qp plane C's IDR used in
+    phase 6). Then their times at 720p: `ms` the wrapper (CUDA events
+    around back-to-back calls), `kernel_ms` the bare C entry (CUDA events,
+    each launch on its own copy of the planes), `plain_ms` the plain
+    version, beside the byte and operation bounds and the chain of
+    dependent MB steps. Returns the K3 and K4 rows of the kernel report."""
+    from losslessh264_tpu_torch import _build
+    from losslessh264_tpu_torch import decoder_torch as dt
+    from losslessh264_tpu_torch import encoder_torch as et
+    from losslessh264_tpu_torch.cases import (random_intra_case,
+                                              random_intra_encode_case)
+    from losslessh264_tpu_torch.ops import intra as tintra
+    lib = _build.lib()
+
+    def same(got, want, what):
+        torch.cuda.synchronize()
+        err = max(max_abs_err(g, w) for g, w in zip(got, want))
+        if err or not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise SystemExit(f"{what}: the kernel differs from its plain "
+                             f"version (max abs err {err})")
+        return err
+
+    k3_err = k4_err = 0
+    for mb_w, mb_h, B, seed in K3_CASES:
+        case = random_intra_case(mb_w, mb_h, B, seed, dev)
+        want = dt._intra_scan_plain(mb_w, mb_h, *case,
+                                    dt.diagonals(mb_w, mb_h))
+        for _ in range(5):
+            k3_err = max(k3_err, same(tintra.intra_recon(mb_w, mb_h, *case),
+                                      want, f"K3 {mb_w}x{mb_h} B {B}"))
+        log(f"K3 intra_recon == plain: {mb_w}x{mb_h} MBs x {B} frames seed "
+            f"{seed}, 5 launches")
+    synth = synth_intra_inputs(data, dev)
+    for i, work, p in synth:
+        want = dt._intra_scan_plain(80, 45, *work, p, dt.diagonals(80, 45))
+        k3_err = max(k3_err, same(tintra.intra_recon(80, 45, *work, p), want,
+                                  f"K3 synth720p frame {i}"))
+        n_intra = int(sum((p["mb_class"] == c).sum() for c in (0, 1, 2)))
+        log(f"K3 intra_recon == plain: synth720p frame {i} ({n_intra} intra "
+            f"MBs)")
+    for mb_w, mb_h, seed, qp in K4_CASES:
+        args = encode_args(random_intra_encode_case(mb_w, mb_h, seed, qp),
+                           dev)
+        want = et.intra_wavefront_plain(mb_w, mb_h, *args)
+        for _ in range(3):
+            k4_err = max(k4_err, same(et.intra_wavefront(mb_w, mb_h, *args),
+                                      want, f"K4 {mb_w}x{mb_h} qp {qp}"))
+        log(f"K4 intra_wavefront == plain: {mb_w}x{mb_h} MBs seed {seed} qp "
+            f"{qp}, 3 launches")
+    gold = json.load(open(ENC_GOLDEN))
+    gold_c = json.load(open(ENC_GOLDEN_CDE))
+    idrs = {"A": idr_args(gold["A"], frames[0], None, dev),
+            "C": idr_args(gold_c["C"], frames[0], c_idr_qp, dev)}
+    idr_plain = {}
+    for name, args in idrs.items():
+        t0 = time.perf_counter()
+        want = et.intra_wavefront_plain(80, 45, *args)
+        torch.cuda.synchronize()
+        idr_plain[name] = (time.perf_counter() - t0) * 1e3
+        k4_err = max(k4_err, same(et.intra_wavefront(80, 45, *args), want,
+                                  f"K4 {name}'s IDR"))
+        qps = sorted(set(args[7].cpu().tolist()))
+        log(f"K4 intra_wavefront == plain: {name}'s IDR, 1280x720, qp "
+            f"{qps[0]}..{qps[-1]} ({len(qps)} values), plain "
+            f"{idr_plain[name]:.1f} ms")
+
+    # ---- times at 720p (80x45 MBs) ----
+    i0, work0, p0 = synth[0]
+    n_intra0 = int(sum((p0["mb_class"] == c).sum() for c in (0, 1, 2)))
+    k3 = {"ms": cuda_ms(lambda: tintra.intra_recon(80, 45, *work0, p0), 20),
+          "kernel_ms": cuda_ms_each(k3_launchers(lib, 80, 45, work0, p0, 22)),
+          "plain_ms": cuda_ms(lambda: dt._intra_scan_plain(
+              80, 45, *work0, p0, dt.diagonals(80, 45)), 2, warmup=0),
+          "chain_steps": chain_steps(80, 45), "intra_mbs": n_intra0}
+    k3["bound_ms"], k3["bound_by"] = bound_ms(
+        k3_bytes(80, 45, 1, n_intra0), n_intra0 * K3_OPS_PER_MB)
+    k3["bytes"] = k3_bytes(80, 45, 1, n_intra0)
+    k3["byte_bound_ms"] = k3["bytes"] / HBM_BYTES_PER_S * 1e3
+    per_frame = {}
+    for i, work, p in synth[1:]:
+        per_frame[f"frame_{i}_ms"] = cuda_ms(
+            lambda: tintra.intra_recon(80, 45, *work, p), 10)
+    case = random_intra_case(80, 45, 4, 4, dev)
+    per_frame["batch4_ms_per_frame"] = cuda_ms(
+        lambda: tintra.intra_recon(80, 45, *case), 10) / 4
+    k3["per_frame"] = per_frame
+    log(f"time K3 intra_recon, synth720p frame {i0} (80x45 MBs, {n_intra0} "
+        f"intra): wrapper {k3['ms']:.4f} ms, kernel alone "
+        f"{k3['kernel_ms']:.4f} ms = "
+        f"{k3['kernel_ms'] * 1e3 / k3['chain_steps']:.3f} us per step of "
+        f"the {k3['chain_steps']}-MB chain; bound {k3['bound_ms']:.5f} ms by "
+        f"{k3['bound_by']} ({k3['bytes']} bytes); plain torch "
+        f"{k3['plain_ms']:.1f} ms; {json.dumps(per_frame)} on {card}")
+    argsA = idrs["A"]
+    k4 = {"ms": cuda_ms(lambda: et.intra_wavefront(80, 45, *argsA), 10),
+          "kernel_ms": cuda_ms_each(k4_launchers(lib, 80, 45, argsA, 12)),
+          "plain_ms": idr_plain["A"], "chain_steps": chain_steps(80, 45),
+          "intra_mbs": 3600,
+          "c_idr_ms": cuda_ms(lambda: et.intra_wavefront(80, 45, *idrs["C"]),
+                              10)}
+    k4["bound_ms"], k4["bound_by"] = bound_ms(k4_bytes(80, 45, 3600),
+                                              3600 * K4_OPS_PER_MB)
+    k4["bytes"] = k4_bytes(80, 45, 3600)
+    k4["byte_bound_ms"] = k4["bytes"] / HBM_BYTES_PER_S * 1e3
+    log(f"time K4 intra_wavefront, A's IDR (80x45 MBs, all intra): wrapper "
+        f"{k4['ms']:.4f} ms (C's IDR {k4['c_idr_ms']:.4f}), kernel alone "
+        f"{k4['kernel_ms']:.4f} ms = "
+        f"{k4['kernel_ms'] * 1e3 / k4['chain_steps']:.3f} us per step of "
+        f"the {k4['chain_steps']}-MB chain; bound {k4['bound_ms']:.5f} ms by "
+        f"{k4['bound_by']} ({3600 * K4_OPS_PER_MB} ops; {k4['bytes']} bytes "
+        f"take {k4['byte_bound_ms']:.5f} ms); plain torch "
+        f"{k4['plain_ms']:.1f} ms on {card}")
+    k3["max_abs_err"], k4["max_abs_err"] = k3_err, k4_err
+    return k3, k4
 
 
 def profile_report(prof, wall_ms, what, card):
@@ -1191,18 +1507,22 @@ def main():
             f"20 launches")
 
     # ---- 5. decode the stream on the card ----
+    syms = list(native.SymbolDecoder(data))
     deblocked = sum(bool(dt.TorchDecoder._needs_deblock(
-        f, dt.TorchDecoder._nnz_plane(f))) for f in native.SymbolDecoder(data))
-    tmc.halfpel_planes.launches = 0
-    tdb.deblock_wavefront.launches = 0
+        f, dt.TorchDecoder._nnz_plane(f))) for f in syms)
+    # frames with intra MBs: one K3 launch each (no run of all-intra
+    # frames in this stream, so no batch)
+    intra_frames = sum(bool(np.isin(f["mb_class"], [0, 1, 2]).any())
+                       for f in syms)
+    reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     dec = dt.TorchDecoder(data, device=dev)
     frames = [tuple(a.cpu() for a in yuv) for yuv in dec.frames()]
     torch.cuda.synchronize()
     decode_s = time.perf_counter() - t0
-    k1_launches = tmc.halfpel_planes.launches
-    k2_launches = tdb.deblock_wavefront.launches
+    dec_launches = launches_now()
+    k1_launches, k2_launches, k3_launches, _ = dec_launches
     if len(frames) != len(golden):
         raise SystemExit(f"decoded {len(frames)} frames, expected "
                          f"{len(golden)}")
@@ -1217,16 +1537,18 @@ def main():
     log(f"decode: {len(frames)} frames of synth720p match the NpDecoder "
         f"CRCs; {decode_s:.3f} s = {len(frames) / decode_s:.3f} fps "
         f"(incl. host symbol decode) on {card}")
-    log(f"launches during decode: K1 halfpel {k1_launches}, "
-        f"K2 deblock {k2_launches} for {deblocked} deblocked frames")
-    if k1_launches <= 0 or k2_launches <= 0:
+    log(f"launches during decode: {launch_str(dec_launches)} for "
+        f"{deblocked} deblocked frames and {intra_frames} frames with intra "
+        f"MBs; routes {dec.routes}")
+    if k1_launches <= 0 or k2_launches <= 0 or k3_launches <= 0:
         raise SystemExit("a kernel of the decode path was never launched")
-    if k2_launches != deblocked:
-        raise SystemExit(f"K2 launched {k2_launches} times for {deblocked} "
-                         "deblocked frames; one launch per frame expected")
+    if dec_launches[1:] != (deblocked, intra_frames, 0):
+        raise SystemExit(f"K2-K4 launched {dec_launches[1:]} times for "
+                         f"{deblocked} deblocked frames and {intra_frames} "
+                         "with intra MBs; one launch per frame expected")
 
     # ---- 6. encode on the card ----
-    enc_launches, enc_frames = encode_phase(frames, dev, card)
+    enc_launches, enc_frames, c_idr_qp = encode_phase(frames, dev, card)
 
     # ---- 7-10. the older encoder, GOP-parallel decode, the CLI's
     # recompression verbs, the graft dryrun: each path's counts are set
@@ -1234,7 +1556,7 @@ def main():
     path_launches = {
         "older_encode": older_encode_phase(frames, dev, card),
         "gop_parallel_decode": gop_parallel_phase(
-            data, golden, (k1_launches, k2_launches), dev, card),
+            data, golden, dec_launches, dev, card),
     }
     cli_phase(card)
     path_launches["graft_ranks"] = graft_phase(dev, card)
@@ -1244,7 +1566,10 @@ def main():
     path_launches["runs_decode"] = runs_decode_phase(dev, card)
     path_launches["encode_runs"] = encode_runs_phase(frames, dev, card)
 
-    # ---- 13. times ----
+    # ---- 13. K3 and K4 against their plain versions, and their times ----
+    k3, k4 = intra_kernels_phase(data, frames, c_idr_qp, dev, card)
+
+    # ---- 14. times ----
     # K1 at each size, both entries: `ms` the wrapper by CUDA events over
     # back-to-back calls, `kernel_ms` the bare C entry's kernel alone (a
     # CUDA graph's replays, cold L2), beside the bound, the plain version
@@ -1312,6 +1637,8 @@ def main():
         log(f"stage total {key}: {sum(r[key] for r in rows):.3f} ms over "
             f"{len(rows)} frames on {card}")
     k1 = k1_sizes["720p"]
+    all_paths = {"decode": dict(zip(KERNELS, dec_launches)),
+                 "encode": enc_launches, **path_launches}
     profile_windows(data, dev, card,
                     [tuple(p.numpy() for p in f) for f in frames[:4]])
 
@@ -1342,6 +1669,23 @@ def main():
          "max_abs_err": k2_err, "ms": k2_ms, "kernel_ms": k2_kernel_ms,
          "plain_ms": k2_plain_ms,
          "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": None},
+        *({"name": name, "route": "cuda", "source": source,
+           "replaces": replaces, "replaces_also": also,
+           "launches": sum(v[key] for v in all_paths.values()),
+           **{f"launches_per_{k}": v[key] for k, v in all_paths.items()},
+           "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+           "kernel_ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
+           "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+           "chain_steps": row["chain_steps"], "library_ms": None,
+           **{k: row[k] for k in ("bytes", "byte_bound_ms", "per_frame",
+                                  "c_idr_ms") if k in row}}
+          for name, source, replaces, also, key, row in (
+              ("intra_recon", "losslessh264_tpu_torch/csrc/intra_dec.cu",
+               "losslessh264_tpu/decoder_jax.py:420",
+               ["losslessh264_tpu/decoder_jax.py:594",
+                "losslessh264_tpu/decoder_jax.py:702"], "K3", k3),
+              ("intra_wavefront", "losslessh264_tpu_torch/csrc/intra_enc.cu",
+               "losslessh264_tpu/encoder_jax.py:281", [], "K4", k4))),
     ]}))
     log(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -5,8 +5,9 @@ interface, build/kernels/libpip_kernels.so under the checkout, and
 loaded with ctypes. Each C entry point takes device pointers, sizes and
 the CUDA stream, launches on that stream, and returns
 cudaGetLastError(); `check` raises when that is not 0. The library is
-rebuilt only when a source is newer than it. Nothing here runs at
-import: the CPU tests import every module on a machine without nvcc.
+rebuilt only when a source or a header (csrc/*.cuh) is newer than it.
+Nothing here runs at import: the CPU tests import every module on a
+machine without nvcc.
 """
 from __future__ import annotations
 
@@ -39,6 +40,12 @@ _SIGNATURES = {
     # (Y, U, V, y_stride, c_stride, params, sync scratch [1 + 2*mb_h],
     #  mb_w, mb_h, stream)
     "pip_deblock_frame": [_P, _P, _P, _I, _I, _P, _P, _I, _I, _P],
+    # (Y, U, V, res_y, res_u, res_v, MB rows, tables, sync scratch
+    #  [1 + B*mb_h], mb_w, mb_h, B, stream)
+    "pip_intra_dec": [_P] * 9 + [_I, _I, _I, _P],
+    # (Y, U, V, srcY, srcU, srcV, MB rows, qp, qpc, tables, symbol rows,
+    #  sync scratch [1 + mb_h], mb_w, mb_h, stream)
+    "pip_intra_enc": [_P] * 12 + [_I, _I, _P],
 }
 
 _lib = None
@@ -73,7 +80,8 @@ def needs_build():
     if not os.path.exists(LIB_PATH):
         return True
     t = os.path.getmtime(LIB_PATH)
-    return any(os.path.getmtime(s) > t for s in sources())
+    headers = glob.glob(os.path.join(_SRC_DIR, "*.cuh"))
+    return any(os.path.getmtime(s) > t for s in sources() + headers)
 
 
 def build():

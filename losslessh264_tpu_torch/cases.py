@@ -1,6 +1,7 @@
 """Seeded inputs shared by the tests, chip_smoke.py and tools/kernel_ab.py:
-random cases for holding K2 (csrc/deblock.cu) against its plain version,
-so that all three check and time the same cases, the translating noise
+random cases for holding K2 (csrc/deblock.cu), K3 (csrc/intra_dec.cu)
+and K4 (csrc/intra_enc.cu) against their plain versions, so that all
+three check and time the same cases, the translating noise
 frames the encoder's tests encode, the frames of the decoder's intra
 routes (tests/data/runs720p.264 and the run tests), and the encoders of
 the encode goldens' configurations (tests/data/synth720p_enc_golden*.json)."""
@@ -124,3 +125,118 @@ def golden_encoder(cfg, width, height, device):
             spec.pop("bitrate_bps"), spec.pop("fps"), **spec)
     return TorchEncoder(width, height, device=device, **kw)
 
+
+
+# I4x4 (I8x8 with transform8), I16x16, I8x8, P, PCM
+INTRA_CLASSES = (0, 1, 2, 3, 8)
+
+
+def _slice_rows(rng, mb_w, mb_h):
+    """[n] slice ids: slices that start at random MBs, so a slice boundary
+    can fall in the middle of a row (aT false below it mid-frame)."""
+    n = mb_w * mb_h
+    k = rng.randint(0, min(4, n))
+    starts = np.sort(rng.choice(np.arange(1, n), k, replace=False)) \
+        if n > 1 and k else np.zeros(0, np.int64)
+    sid = np.zeros(n, np.int64)
+    for s in starts:
+        sid[s:] += 1
+    return sid
+
+
+def random_intra_case(mb_w, mb_h, B, seed, device="cpu"):
+    """The inputs of the decoder's intra pass for B frames, as numpy-made
+    tensors on `device`, each with a leading frame axis: the WPAD-padded
+    int32 working planes (Yw, Uw, Vw: random pixels at inter and PCM MBs,
+    0 at intra MBs and in the margin), the residuals (res_y [B,n,16,16],
+    res_u / res_v [B,n,8,8]: sparse, some large enough to clip) and the
+    INTRA_KEYS planes of decoder_torch as a dict p: every class of
+    INTRA_CLASSES, transform8 on some I4x4 MBs (I8x8), every I4x4 / I8x8
+    / I16x16 / chroma mode, and availability from slices that start
+    mid-row, with some flags dropped as constrained intra drops them."""
+    rng = np.random.RandomState(seed)
+    n = mb_w * mb_h
+    H, W = mb_h * 16, mb_w * 16
+    P = tdb.WPAD
+    planes = {k: np.zeros((B,) + s, np.int32) for k, s in (
+        ("Y", (H + 2 * P, W + 2 * P)), ("U", (H // 2 + 2 * P, W // 2 + 2 * P)),
+        ("V", (H // 2 + 2 * P, W // 2 + 2 * P)))}
+    p = {k: [] for k in ("mb_class", "avail", "transform8", "i4_modes",
+                         "i16_mode", "chroma_mode")}
+    my, mx = np.divmod(np.arange(n), mb_w)
+    for b in range(B):
+        cls = rng.choice(INTRA_CLASSES, n, p=[0.3, 0.2, 0.2, 0.2, 0.1])
+        sid = _slice_rows(rng, mb_w, mb_h)
+        grid = sid.reshape(mb_h, mb_w)
+
+        def same(dy, dx):
+            y, x = my + dy, mx + dx
+            ok = (y >= 0) & (x >= 0) & (x < mb_w)
+            return ok & (grid[np.clip(y, 0, mb_h - 1),
+                              np.clip(x, 0, mb_w - 1)] == sid)
+
+        avail = np.stack([same(0, -1), same(-1, 0), same(-1, -1),
+                          same(-1, 1)], 1) & (rng.rand(n, 4) < 0.85)
+        p["mb_class"].append(cls.astype(np.uint8))
+        p["avail"].append(avail)
+        p["transform8"].append((rng.rand(n) < 0.4).astype(np.uint8))
+        p["i4_modes"].append(rng.randint(0, 9, (n, 16)).astype(np.int8))
+        p["i16_mode"].append(rng.randint(0, 4, n).astype(np.uint8))
+        p["chroma_mode"].append(rng.randint(0, 4, n).astype(np.uint8))
+        keep = ~np.isin(cls, [0, 1, 2]).reshape(mb_h, mb_w)
+        for k, t in (("Y", 16), ("U", 8), ("V", 8)):
+            pix = rng.randint(0, 256, (mb_h * t, mb_w * t))
+            pix *= np.kron(keep, np.ones((t, t), np.int64))
+            planes[k][b, P:P + mb_h * t, P:P + mb_w * t] = pix
+
+    def residual(t):
+        r = rng.randint(-40, 41, (B, n, t, t))
+        r[rng.rand(B, n, t, t) < 0.4] = 0
+        big = rng.rand(B, n, t, t) < 0.03
+        r[big] = rng.choice([-255, 255], int(big.sum()))
+        return r.astype(np.int32)
+
+    res = [residual(16), residual(8), residual(8)]
+
+    def T(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=device)
+
+    return (T(planes["Y"]), T(planes["U"]), T(planes["V"]), *map(T, res),
+            {k: T(np.stack(v)) for k, v in p.items()})
+
+
+def random_intra_encode_case(mb_w, mb_h, seed, qp):
+    """The numpy inputs of the encoder's intra wavefront for one frame:
+    source planes (uint8: smooth ramps, flat MBs and noise, so that both
+    I16x16 and I4x4 win somewhere), inter tiles (random at the MBs that
+    are not intra, 0 at intra ones), the intra mask (all MBs on even
+    seeds, a random half on odd ones), per-MB qp (the int `qp`
+    everywhere, or "aq": a random plane over 0..51) and chroma qp, and a
+    row_slice with a slice boundary on some rows. Returns a dict."""
+    from .ref_np import CHROMA_QP
+    rng = np.random.RandomState(seed)
+    n = mb_w * mb_h
+    H, W = mb_h * 16, mb_w * 16
+    yy, xx = np.mgrid[:H, :W]
+    Y = (yy * rng.randint(1, 6) + xx * rng.randint(1, 6)) % 256
+    kind = rng.randint(0, 3, (mb_h, mb_w))       # 0 ramp, 1 flat, 2 noise
+    kind = np.kron(kind, np.ones((16, 16), np.int64))
+    Y = np.where(kind == 1, 120 + rng.randint(-2, 3, (H, W)), Y)
+    Y = np.where(kind == 2, rng.randint(0, 256, (H, W)), Y)
+    U = rng.randint(90, 110, (H // 2, W // 2))
+    V = (yy[:H // 2, :W // 2] * 7 + rng.randint(0, 9, (H // 2, W // 2))) % 256
+    is_intra = (np.ones(n, bool) if seed % 2 == 0
+                else rng.rand(n) < 0.5)
+    inter = [rng.randint(0, 256, (n, t, t)).astype(np.int32)
+             * (~is_intra)[:, None, None] for t in (16, 8, 8)]
+    if qp == "aq":
+        qps = rng.randint(0, 52, n)
+    else:
+        qps = np.full(n, qp)
+    row_slice = np.concatenate([[0], np.cumsum(rng.rand(mb_h - 1) < 0.4)])
+    return dict(srcY=Y.astype(np.uint8), srcU=U.astype(np.uint8),
+                srcV=V.astype(np.uint8), inter_y=inter[0], inter_u=inter[1],
+                inter_v=inter[2], is_intra=is_intra,
+                qp=qps.astype(np.int32),
+                qpc=np.asarray(CHROMA_QP)[qps].astype(np.int32),
+                row_slice=row_slice.astype(np.int32))

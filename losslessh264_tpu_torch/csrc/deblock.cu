@@ -60,7 +60,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "wavefront.cuh"
+
 namespace {
+
+using rows::publish;
+using rows::wait_row;
 
 // packed parameter row offsets (int32 lanes)
 constexpr int OFF_BSV = 0;      // [4,16]
@@ -87,16 +92,6 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
 }
 
 __device__ __forceinline__ int iabs(int v) { return v < 0 ? -v : v; }
-
-__device__ __forceinline__ int ld_acquire(const int* p) {
-  int v;
-  asm volatile("ld.acquire.gpu.b32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void st_release(int* p, int v) {
-  asm volatile("st.release.gpu.b32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
-}
 
 // One luma line across an edge, p0/q0 nearest to it; filters p0..p2,
 // q0..q2 in place (same math as ops/deblock.filter_luma).
@@ -202,21 +197,6 @@ struct Smem {
   __align__(16) int y[16][LRS];
   __align__(16) int c[2][8][CRS];
 };
-
-// wait until `prog` (the row above) has reached `need`; lane 0 polls
-__device__ __forceinline__ void wait_row(const int* prog, int need,
-                                         int& seen, int lane) {
-  if (lane == 0)
-    while (seen < need) seen = ld_acquire(prog);
-  __syncwarp();
-}
-
-// publish `done` MBs of this row once every lane's stores are visible
-__device__ __forceinline__ void publish(int* prog, int done, int lane) {
-  __threadfence();
-  __syncwarp();
-  if (lane == 0) st_release(prog, done);
-}
 
 __device__ void luma_row(Smem& sm, int* Y, int ys, const int* P,
                          int* prog, int r, int mb_w, int lane) {
@@ -391,6 +371,8 @@ deblock_rows_kernel(int* __restrict__ Y, int* __restrict__ U,
   }
 }
 
+std::atomic<int> resident[rows::MAX_DEVICES];   // 0: not asked yet
+
 }  // namespace
 
 // Y/U/V: int32 working planes (row strides ys, cs elements), filtered in
@@ -399,41 +381,11 @@ deblock_rows_kernel(int* __restrict__ Y, int* __restrict__ U,
 // 1 + 2*mb_h int32, zeroed here on `stream` before the launch. Launches
 // one kernel of min(2*mb_h, SMs x resident CTAs per SM) one-warp CTAs on
 // `stream`.
-// The number of CTAs that the card `dev` holds at once: SMs times
-// resident CTAs per SM, asked once per device and cached.
-static cudaError_t resident_ctas(int dev, int* out) {
-  constexpr int MAX_DEVICES = 64;
-  static std::atomic<int> cache[MAX_DEVICES];   // 0: not asked yet
-  if (dev >= 0 && dev < MAX_DEVICES) {
-    *out = cache[dev].load(std::memory_order_relaxed);
-    if (*out > 0) return cudaSuccess;
-  }
-  int sms = 0, per_sm = 0;
-  cudaError_t err =
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, deblock_rows_kernel, NTHREADS, 0);
-  if (err != cudaSuccess) return err;
-  *out = max(sms * per_sm, 1);
-  if (dev >= 0 && dev < MAX_DEVICES)
-    cache[dev].store(*out, std::memory_order_relaxed);
-  return cudaSuccess;
-}
-
 extern "C" int pip_deblock_frame(void* Y, void* U, void* V, int ys, int cs,
                                  const void* P, void* sync, int mb_w,
                                  int mb_h, void* stream) {
-  const cudaStream_t st = (cudaStream_t)stream;
-  int dev = 0, resident = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = resident_ctas(dev, &resident);
-  if (err == cudaSuccess)
-    err = cudaMemsetAsync(sync, 0, sizeof(int) * (size_t)(1 + 2 * mb_h), st);
-  if (err != cudaSuccess) return (int)err;
-  const int grid = min(2 * mb_h, resident);
-  deblock_rows_kernel<<<grid, NTHREADS, 0, st>>>(
-      (int*)Y, (int*)U, (int*)V, ys, cs, (const int*)P, (int*)sync, mb_w,
-      mb_h);
-  return (int)cudaGetLastError();
+  return rows::launch_rows(deblock_rows_kernel, resident, NTHREADS, 2 * mb_h,
+                           sync, (size_t)(1 + 2 * mb_h),
+                           (cudaStream_t)stream, (int*)Y, (int*)U, (int*)V,
+                           ys, cs, (const int*)P, (int*)sync, mb_w, mb_h);
 }

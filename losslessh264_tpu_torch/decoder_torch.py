@@ -3,12 +3,14 @@
 Port of losslessh264_tpu/decoder_jax.py's decode paths. Per frame:
 residuals (dequant + IDCT, batched over the frame), inter prediction
 (bucketed dense-shift MC over the K1 half-pel planes, or the general
-per-cell gather), the intra wavefront (plain torch, one batched step
+per-cell gather), the intra wavefront (in plain torch one batched step
 per slope-2 MB diagonal: the compact-carry scan over the full table, or
 the plane-carrying scan over only the populated diagonals of a sparse
-frame) and the deblocking wavefront (the K2 kernel on CUDA). Runs of 3
-to INTRA_BATCH consecutive all-intra frames go through one wavefront
-together (recon_intra_batch). The DPB ring lives on the device.
+frame; on CUDA either is one launch of the K3 kernel, csrc/intra_dec.cu)
+and the deblocking wavefront (the K2 kernel on CUDA). Runs of 3 to
+INTRA_BATCH consecutive all-intra frames go through one wavefront
+together (recon_intra_batch; one K3 launch on CUDA). The DPB ring
+lives on the device.
 
 Left out on purpose (TPU workarounds of JaxDecoder): the sparse
 upload (_sparsify_run / _densify_planes / _unify_stack), the scanned
@@ -37,18 +39,8 @@ PAD = 32          # reference-plane padding (luma)
 WPAD = 8          # working-plane padding for wavefront gathers
 BLK = tintra.BLK_ORDER
 
-# static per-block above-right availability kind for I4x4 decode order:
-# 0 = never, 1 = always (in-MB), 2 = needs MB availT, 3 = needs MB availTR
-_I4_TR_KIND = np.zeros(16, np.int64)
-for _d, _r in enumerate(BLK):
-    _by, _bx = divmod(int(_r), 4)
-    if _by == 0:
-        _I4_TR_KIND[_r] = 2 if _bx < 3 else 3
-    elif _bx == 3:
-        _I4_TR_KIND[_r] = 0
-    else:
-        _nb = (_by - 1) * 4 + _bx + 1
-        _I4_TR_KIND[_r] = 1 if list(BLK).index(_nb) < _d else 0
+# static per-block above-right availability kind for I4x4 decode order
+_I4_TR_KIND = tintra.I4_TR_KIND
 
 # plane-dict entries that stay on the host: the bucketed MC's unique
 # (slot, mv) table and slot list drive host-side slicing
@@ -309,6 +301,19 @@ INTRA_KEYS = ("mb_class", "avail", "transform8", "i4_modes", "i16_mode",
 
 
 def _intra_scan(mb_w, mb_h, Yw, Uw, Vw, res_y, res_u, res_v, p, diags):
+    """The intra pass over the full diagonal table `diags`: one K3 launch
+    (ops/intra.intra_recon) for CUDA tensors, the plain compact-carry
+    wavefront (_intra_scan_plain) for CPU tensors. Takes a leading frame
+    axis as _intra_scan_plain does."""
+    if Yw.device.type == "cuda":
+        return tintra.intra_recon(mb_w, mb_h, Yw, Uw, Vw, res_y, res_u,
+                                  res_v, p)
+    return _intra_scan_plain(mb_w, mb_h, Yw, Uw, Vw, res_y, res_u, res_v, p,
+                             diags)
+
+
+def _intra_scan_plain(mb_w, mb_h, Yw, Uw, Vw, res_y, res_u, res_v, p,
+                      diags):
     """Compact-carry intra wavefront over the FULL diagonal table
     `diags` (numpy [nd, K], -1 padding): one batched step per diagonal.
 
@@ -489,6 +494,20 @@ def _gather_wins(plane, y0s, x0s, rows, cols):
 
 def _intra_scan_sparse(mb_w, mb_h, Yw, Uw, Vw, res_y, res_u, res_v, p,
                        diags):
+    """The intra pass over the populated diagonals `diags` of a sparse
+    frame: one K3 launch for CUDA tensors (the kernel runs every intra MB
+    of the frame, which are exactly the MBs of those diagonals), the
+    plain plane-carrying wavefront (_intra_scan_sparse_plain) for CPU
+    tensors."""
+    if Yw.device.type == "cuda":
+        return tintra.intra_recon(mb_w, mb_h, Yw, Uw, Vw, res_y, res_u,
+                                  res_v, p)
+    return _intra_scan_sparse_plain(mb_w, mb_h, Yw, Uw, Vw, res_y, res_u,
+                                    res_v, p, diags)
+
+
+def _intra_scan_sparse_plain(mb_w, mb_h, Yw, Uw, Vw, res_y, res_u, res_v,
+                             p, diags):
     """Plane-carrying intra wavefront over a SUBSET of the diagonals
     (numpy [r, K], -1 padding; TorchDecoder._intra_diags lists exactly
     the populated ones, so the steps skip diagonals without an intra
@@ -580,9 +599,10 @@ def recon_intra_batch(mb_w, mb_h, planes_b, ref_y, ref_u, ref_v, diags,
     paid once for the run. planes_b: the frames' plane dicts
     (planes_to_torch); deblocks: per frame, whether any edge filters
     (TorchDecoder._needs_deblock). Residuals per frame (no MC: the rings
-    are not read), the batched compact-carry wavefront over the full
-    table, then the deblock per frame (K2, one launch each) and the
-    crop. Returns the [B, H, W] / [B, H/2, W/2] uint8 planes."""
+    are not read), the batched intra pass (_intra_scan: one K3 launch
+    over the B frames on CUDA, the compact-carry wavefront over the full
+    table on the CPU), then the deblock per frame (K2, one launch each)
+    and the crop. Returns the [B, H, W] / [B, H/2, W/2] uint8 planes."""
     work = [_residual_and_inter(mb_w, mb_h, p, ref_y, ref_u, ref_v)
             for p in planes_b]
     Yw, Uw, Vw, ry, ru, rv = (torch.stack(a) for a in zip(*work))

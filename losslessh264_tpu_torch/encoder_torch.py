@@ -8,7 +8,8 @@ scroll, the partition decision, the half-pel planes of the
 width-concatenated reference (the K1 kernel on CUDA), quarter-pel
 refinement, the intra-fallback test, chroma MC and the forward transform /
 quantization / recon of every MB; intra MBs (all of an IDR, the fallback
-MBs of a P frame) go through the slope-2 intra wavefront (plain torch, 16
+MBs of a P frame) go through the intra wavefront (the K4 kernel,
+csrc/intra_enc.cu, on CUDA; in plain torch a slope-2 wavefront of 16
 sequential I4x4 blocks per MB, batched over a diagonal's MBs), and the
 reference is deblocked by the K2 kernel on CUDA. The host reads the
 frame's symbol planes, decides P_Skip with the native writer's MV
@@ -38,6 +39,7 @@ Byte- and recon-exact vs JaxEncoder on the CPU (tests/test_torch_encoder*.py).
 """
 from __future__ import annotations
 
+import ctypes
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -45,6 +47,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from . import _build
 from . import encoder_native
 from . import processing
 from . import ratectl
@@ -263,6 +266,16 @@ def _encode_chroma_mb(locu, locv, srcu, srcv, qpc, aL, aT):
 # ---------------------------------------------------------------------------
 # intra wavefront over a frame (IDR frames and P intra-fallback MBs)
 # ---------------------------------------------------------------------------
+def _mb_avail(mb_w, mb_h, row_slice):
+    """[n, 3] host bool (aL, aT, aTR) per MB: aT needs the row above in
+    the same slice."""
+    mb = np.arange(mb_w * mb_h)
+    my, mx = mb // mb_w, mb % mb_w
+    rs = np.asarray(row_slice)
+    aT = (my > 0) & (rs[my] == rs[np.maximum(my - 1, 0)])
+    return np.stack([mx > 0, aT, aT & (mx < mb_w - 1)], 1)
+
+
 def _intra_schedule(mb_w, mb_h, is_intra, row_slice):
     """Host plan of the wavefront: the intra MBs in diagonal order, the
     [start, end) of each diagonal that has any, and per listed MB its
@@ -275,81 +288,175 @@ def _intra_schedule(mb_w, mb_h, is_intra, row_slice):
         if len(d):
             lists.append(d.astype(np.int64))
     mb = np.concatenate(lists) if lists else np.zeros(0, np.int64)
-    my, mx = mb // mb_w, mb % mb_w
-    rs = np.asarray(row_slice)
-    aT = (my > 0) & (rs[my] == rs[np.maximum(my - 1, 0)])
-    info = np.stack([mb, mx > 0, aT, aT & (mx < mb_w - 1)], 1).astype(
-        np.int64)
+    info = np.concatenate([mb[:, None], _mb_avail(mb_w, mb_h, row_slice)[mb]],
+                          1).astype(np.int64)
     ends = np.cumsum([len(v) for v in lists])
     return info, list(zip(np.concatenate([[0], ends[:-1]]), ends))
 
 
+# K4's constant tables, packed in the order csrc/intra_enc.cu reads them:
+# the 4x4 decode order, the top-right kinds, the quantizer and
+# dequantizer scales [qp % 6, position], LAMBDA, the flat weights, the
+# zigzag and the directional 4x4 table
+K4_TABLES = np.concatenate([
+    BLK, _I4_TR_KIND, tt.MF4_V.reshape(-1), tt.DEQ4_V.reshape(-1), LAMBDA,
+    FLAT4.reshape(-1), tt.ZZ4, tintra._TAB4.reshape(-1)]).astype(np.int32)
+# K4's per-MB output row, the 427 symbol columns of the fetch layout (the
+# comment at META_W, _sym_rows): (name, columns) in order, filled with
+# the plain version's values for MBs that are not intra
+K4_ROW = (("luma_dc", 16), ("luma_ac", 256), ("chroma_dc", 8),
+          ("chroma_ac", 128), ("i16_mode", 1), ("chroma_mode", 1),
+          ("intra_cls", 1), ("i4_modes", 16))
+K4_ROW_DEFAULT = np.zeros(sum(w for _, w in K4_ROW), np.int32)
+K4_ROW_DEFAULT[410] = 1        # intra_cls 1 where not intra
+K4_ROW_DEFAULT[411:] = 2       # i4_modes 2 where not intra
+
+
 def intra_wavefront(mb_w, mb_h, srcY, srcU, srcV, inter_y, inter_u, inter_v,
                     is_intra, qp, qpc, row_slice):
-    """Encode the intra MBs of a frame as a slope-2 wavefront.
+    """Encode the intra MBs of a frame (K4 wrapper).
 
     srcY/U/V: source planes [H,W] / [H/2,W/2]; inter_*: [n,16,16] /
     [n,8,8] reconstructed inter tiles (zeros where intra); is_intra:
     host bool [n]; qp/qpc: per-MB [n] int32 tensors; row_slice: host
-    [mb_h] slice index per MB row. One batched step per diagonal that
-    holds an intra MB, over those MBs only (JAX computes every lane of
-    every diagonal and drops the others' results). Returns per-MB symbol
-    planes (i16_mode, intra_cls (1 where not intra), i4_modes (2 where
-    not intra), chroma_mode, luma_dc, luma_ac zigzag [n,16,16],
-    chroma_dc [n,2,4], chroma_ac [n,2,4,16]) and the recon planes
-    (uint8)."""
+    [mb_h] slice index per MB row. Returns per-MB symbol planes
+    (i16_mode, intra_cls (1 where not intra), i4_modes (2 where not
+    intra), chroma_mode, luma_dc, luma_ac zigzag [n,16,16], chroma_dc
+    [n,2,4], chroma_ac [n,2,4,16]) and the recon planes (uint8). CPU
+    tensors take the plain version (intra_wavefront_plain); CUDA tensors
+    launch csrc/intra_enc.cu once."""
+    if srcY.device.type == "cpu":
+        return intra_wavefront_plain(mb_w, mb_h, srcY, srcU, srcV, inter_y,
+                                     inter_u, inter_v, is_intra, qp, qpc,
+                                     row_slice)
+    return _intra_wavefront_launch(mb_w, mb_h, srcY, srcU, srcV, inter_y,
+                                   inter_u, inter_v, is_intra, qp, qpc,
+                                   row_slice)
+
+
+intra_wavefront.launches = 0
+
+
+def _working_planes(mb_w, mb_h, inter_y, inter_u, inter_v):
+    """The WPAD-padded int32 working planes holding the inter tiles."""
+    i32 = torch.int32
+    return tuple(F.pad(_tiles_to_plane(t.to(i32), mb_w, mb_h, s), (WPAD,) * 4)
+                 for t, s in ((inter_y, 16), (inter_u, 8), (inter_v, 8)))
+
+
+def _intra_wavefront_launch(mb_w, mb_h, srcY, srcU, srcV, inter_y, inter_u,
+                            inter_v, is_intra, qp, qpc, row_slice):
+    """One launch of csrc/intra_enc.cu; CUDA tensors only."""
+    ops = k4_operands(mb_w, mb_h, srcY, srcU, srcV, inter_y, inter_u,
+                      inter_v, is_intra, qp, qpc, row_slice)
+    _build.check(_build.lib().pip_intra_enc(
+        *(ctypes.c_void_p(a.data_ptr()) for a in ops), mb_w, mb_h,
+        _build.stream(srcY.device)), "intra encode")
+    _build.count_launch(intra_wavefront)
+    n = mb_w * mb_h
+    H, W = mb_h * 16, mb_w * 16
+    Yw, Uw, Vw, sym = ops[0], ops[1], ops[2], ops[10]
+    cols, o = {}, 0
+    for name, w in K4_ROW:
+        cols[name] = sym[:, o:o + w]
+        o += w
+    u8 = torch.uint8
+    return (cols["i16_mode"][:, 0], cols["intra_cls"][:, 0],
+            cols["i4_modes"], cols["chroma_mode"][:, 0], cols["luma_dc"],
+            cols["luma_ac"].reshape(n, 16, 16),
+            cols["chroma_dc"].reshape(n, 2, 4),
+            cols["chroma_ac"].reshape(n, 2, 4, 16),
+            Yw[WPAD:WPAD + H, WPAD:WPAD + W].to(u8),
+            Uw[WPAD:WPAD + H // 2, WPAD:WPAD + W // 2].to(u8),
+            Vw[WPAD:WPAD + H // 2, WPAD:WPAD + W // 2].to(u8))
+
+
+def k4_operands(mb_w, mb_h, srcY, srcU, srcV, inter_y, inter_u, inter_v,
+                is_intra, qp, qpc, row_slice):
+    """The device operands of pip_intra_enc, checked: the working planes
+    (the kernel writes them), int32 sources, the [n, 4] MB rows (is
+    intra, aL, aT, aTR; one host-to-device copy), qp, qpc, the tables,
+    the [n, 427] symbol rows filled with K4_ROW_DEFAULT, and the sync
+    scratch."""
+    dev = srcY.device
+    if dev.type != "cuda":
+        raise ValueError(f"intra encode kernel takes CUDA tensors, got {dev}")
+    n = mb_w * mb_h
+    H, W = mb_h * 16, mb_w * 16
+    i32 = torch.int32
+    src = [a.to(i32).contiguous() for a in (srcY, srcU, srcV)]
+    want = [(H, W), (H // 2, W // 2), (H // 2, W // 2)]
+    if [tuple(a.shape) for a in src] != want:
+        raise ValueError(f"source planes {[tuple(a.shape) for a in src]} "
+                         f"are not {mb_w}x{mb_h} MBs")
+    planes = _working_planes(mb_w, mb_h, inter_y, inter_u, inter_v)
+    info = np.concatenate([np.asarray(is_intra, bool).reshape(n, 1),
+                           _mb_avail(mb_w, mb_h, row_slice)], 1)
+    info = torch.as_tensor(info.astype(np.int32), device=dev)
+    qp_t, qpc_t = (a.to(i32).reshape(n).contiguous() for a in (qp, qpc))
+    sym = on(K4_ROW_DEFAULT, dev).repeat(n, 1)
+    # the row counter and each MB row's progress; the C entry zeroes them
+    sync = torch.empty(1 + mb_h, dtype=i32, device=dev)
+    return (*planes, *src, info, qp_t, qpc_t, on(K4_TABLES, dev), sym, sync)
+
+
+def _encode_intra_mbs(mb_w, planes, srcs, qp, qpc, outs, mbs, aL, aT, aTR):
+    """Encode the intra MBs `mbs` (int64 tensor; no two of them neighbours,
+    as on one wavefront diagonal) as one batched step over the working
+    planes `planes` (Yw, Uw, Vw): their symbols go into the [n, ...]
+    planes `outs` (i16_mode, intra_cls, i4_modes, chroma_mode, luma_dc,
+    luma_ac [n,16,4,4], chroma_dc, chroma_ac) in place. Returns the new
+    working planes."""
+    Yw, Uw, Vw = planes
+    srcY_t, srcU_t, srcV_t = srcs
+    my, mx = mbs // mb_w, mbs % mb_w
+    y0, x0 = my * 16 + WPAD, mx * 16 + WPAD
+    cy, cx = my * 8 + WPAD, mx * 8 + WPAD
+    cls, mode, m4, qdc, qac, tile = _encode_luma_mb(
+        _windows(Yw, y0 - 1, x0 - 1, 17, 25), srcY_t[mbs], qp[mbs],
+        aL, aT, aTR)
+    cmode, cdc, cac, tu, tv = _encode_chroma_mb(
+        _windows(Uw, cy - 1, cx - 1, 9, 9),
+        _windows(Vw, cy - 1, cx - 1, 9, 9), srcU_t[mbs], srcV_t[mbs],
+        qpc[mbs], aL, aT)
+    for out, v in zip(outs, (mode, cls, m4, cmode, qdc, qac, cdc, cac)):
+        out[mbs] = v
+    # every lane of the step encodes, and its tiles lie inside the planes
+    do = torch.ones_like(mbs, dtype=torch.bool)
+    return (scatter_tiles(Yw, tile, y0, x0, do),
+            scatter_tiles(Uw, tu, cy, cx, do),
+            scatter_tiles(Vw, tv, cy, cx, do))
+
+
+def intra_wavefront_plain(mb_w, mb_h, srcY, srcU, srcV, inter_y, inter_u,
+                          inter_v, is_intra, qp, qpc, row_slice):
+    """Plain version of K4: the intra MBs of a frame as a slope-2
+    wavefront, one batched step per diagonal that holds an intra MB, over
+    those MBs only (JAX computes every lane of every diagonal and drops
+    the others' results). Arguments and results as intra_wavefront."""
     n = mb_w * mb_h
     H, W = mb_h * 16, mb_w * 16
     dev = srcY.device
     i32 = torch.int32
-    srcY_t = _plane_to_tiles(srcY.to(i32), mb_w, mb_h, 16)
-    srcU_t = _plane_to_tiles(srcU.to(i32), mb_w, mb_h, 8)
-    srcV_t = _plane_to_tiles(srcV.to(i32), mb_w, mb_h, 8)
-    Yw = F.pad(_tiles_to_plane(inter_y.to(i32), mb_w, mb_h, 16), (WPAD,) * 4)
-    Uw = F.pad(_tiles_to_plane(inter_u.to(i32), mb_w, mb_h, 8), (WPAD,) * 4)
-    Vw = F.pad(_tiles_to_plane(inter_v.to(i32), mb_w, mb_h, 8), (WPAD,) * 4)
+    srcs = (_plane_to_tiles(srcY.to(i32), mb_w, mb_h, 16),
+            _plane_to_tiles(srcU.to(i32), mb_w, mb_h, 8),
+            _plane_to_tiles(srcV.to(i32), mb_w, mb_h, 8))
+    planes = _working_planes(mb_w, mb_h, inter_y, inter_u, inter_v)
 
     def z(*shape, fill=0):
         return torch.full(shape, fill, dtype=i32, device=dev)
 
-    i16_mode, intra_cls, chroma_mode = z(n), z(n, fill=1), z(n)
-    i4_modes = z(n, 16, fill=2)
-    luma_dc, luma_ac = z(n, 16), z(n, 16, 4, 4)
-    chroma_dc, chroma_ac = z(n, 2, 4), z(n, 2, 4, 16)
-
+    outs = (z(n), z(n, fill=1), z(n, 16, fill=2), z(n), z(n, 16),
+            z(n, 16, 4, 4), z(n, 2, 4), z(n, 2, 4, 16))
     info, steps = _intra_schedule(mb_w, mb_h, is_intra, row_slice)
     info = torch.as_tensor(info, device=dev)
     for a, b in steps:
-        mbs = info[a:b, 0]
-        aL, aT, aTR = (info[a:b, k] != 0 for k in (1, 2, 3))
-        my, mx = mbs // mb_w, mbs % mb_w
-        y0, x0 = my * 16 + WPAD, mx * 16 + WPAD
-        cy, cx = my * 8 + WPAD, mx * 8 + WPAD
-        cls, mode, m4, qdc, qac, tile = _encode_luma_mb(
-            _windows(Yw, y0 - 1, x0 - 1, 17, 25), srcY_t[mbs], qp[mbs],
-            aL, aT, aTR)
-        cmode, cdc, cac, tu, tv = _encode_chroma_mb(
-            _windows(Uw, cy - 1, cx - 1, 9, 9),
-            _windows(Vw, cy - 1, cx - 1, 9, 9), srcU_t[mbs], srcV_t[mbs],
-            qpc[mbs], aL, aT)
-        i16_mode[mbs] = mode
-        intra_cls[mbs] = cls
-        i4_modes[mbs] = m4
-        chroma_mode[mbs] = cmode
-        luma_dc[mbs] = qdc
-        luma_ac[mbs] = qac
-        chroma_dc[mbs] = cdc
-        chroma_ac[mbs] = cac
-        # every lane of the step encodes (the schedule lists intra MBs
-        # only), and its tiles lie inside the planes
-        do = torch.ones_like(mbs, dtype=torch.bool)
-        Yw = scatter_tiles(Yw, tile, y0, x0, do)
-        Uw = scatter_tiles(Uw, tu, cy, cx, do)
-        Vw = scatter_tiles(Vw, tv, cy, cx, do)
-
+        planes = _encode_intra_mbs(mb_w, planes, srcs, qp, qpc, outs,
+                                   info[a:b, 0],
+                                   *(info[a:b, k] != 0 for k in (1, 2, 3)))
+    Yw, Uw, Vw = planes
     u8 = torch.uint8
-    return (i16_mode, intra_cls, i4_modes, chroma_mode, luma_dc,
-            tt.zigzag4(luma_ac), chroma_dc, chroma_ac,
+    return (*outs[:5], tt.zigzag4(outs[5]), *outs[6:],
             Yw[WPAD:WPAD + H, WPAD:WPAD + W].to(u8),
             Uw[WPAD:WPAD + H // 2, WPAD:WPAD + W // 2].to(u8),
             Vw[WPAD:WPAD + H // 2, WPAD:WPAD + W // 2].to(u8))

@@ -1,4 +1,5 @@
-"""Intra predictors (torch, batched over a leading lane axis).
+"""Intra predictors (torch, batched over a leading lane axis), and the K3
+kernel's wrapper (intra_recon).
 
 Port of losslessh264_tpu/ops/intra.py. Each predictor computes every
 candidate mode for K lanes at once and the caller selects by mode index.
@@ -17,9 +18,12 @@ JAX predictors (tests/test_torch_intra.py).
 """
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
+from .. import _build
 from .consts import on
 
 
@@ -248,3 +252,102 @@ def pred_chroma_all(left, top, tl, availL, availT):
 
 # 4x4 block decode order within an MB (raster index per step)
 BLK_ORDER = np.array([0, 1, 4, 5, 2, 3, 6, 7, 8, 9, 12, 13, 10, 11, 14, 15])
+
+# static per-block above-right availability kind for I4x4 decode order
+# (raster index): 0 = never, 1 = always (in-MB), 2 = needs MB availT,
+# 3 = needs MB availTR
+I4_TR_KIND = np.zeros(16, np.int64)
+for _d, _r in enumerate(BLK_ORDER):
+    _by, _bx = divmod(int(_r), 4)
+    if _by == 0:
+        I4_TR_KIND[_r] = 2 if _bx < 3 else 3
+    elif _bx == 3:
+        I4_TR_KIND[_r] = 0
+    else:
+        _nb = (_by - 1) * 4 + _bx + 1
+        I4_TR_KIND[_r] = 1 if list(BLK_ORDER).index(_nb) < _d else 0
+
+
+# ---------------------------------------------------------------------------
+# K3: the decoder's intra reconstruction as one kernel (csrc/intra_dec.cu)
+# ---------------------------------------------------------------------------
+# the kernel's constant tables, packed in the order csrc/intra_dec.cu reads
+# them: the decode order, the top-right kinds, the 4x4 and 8x8 tables
+K3_TABLES = np.concatenate([BLK_ORDER, I4_TR_KIND, _TAB4.reshape(-1),
+                            _TAB8.reshape(-1)]).astype(np.int32)
+# the per-MB planes K3 reads (decoder_torch.INTRA_KEYS), packed into one
+# int32 row of K3_INFO_W per MB: class, avail L/T/TL/TR, transform8,
+# i16 mode, chroma mode, the 16 I4x4 modes
+K3_INFO_W = 24
+
+
+def intra_recon(mb_w, mb_h, Yw, Uw, Vw, res_y, res_u, res_v, p):
+    """K3 wrapper: reconstruct every intra MB (classes 0-2) of one frame
+    or, with a leading frame axis on every argument, of B frames, in
+    decode order, from the WPAD-padded int32 working planes (inter recon
+    in place, 0 at intra MBs), the residuals and p's INTRA_KEYS planes
+    (decoder_torch). Returns new planes. CPU tensors take the plain
+    version (decoder_torch._intra_scan_plain over the full diagonal
+    table); CUDA tensors launch csrc/intra_dec.cu once."""
+    if Yw.device.type == "cpu":
+        from ..decoder_torch import _intra_scan_plain
+        from .wavefront import diagonals
+        return _intra_scan_plain(mb_w, mb_h, Yw, Uw, Vw, res_y, res_u,
+                                 res_v, p, diagonals(mb_w, mb_h))
+    return _intra_recon_launch(mb_w, mb_h, Yw, Uw, Vw, res_y, res_u, res_v,
+                               p)
+
+
+intra_recon.launches = 0
+
+
+def _intra_recon_launch(mb_w, mb_h, Yw, Uw, Vw, res_y, res_u, res_v, p):
+    """One launch of csrc/intra_dec.cu on int32 copies of the planes;
+    CUDA tensors only."""
+    ops = k3_operands(mb_w, mb_h, Yw, Uw, Vw, res_y, res_u, res_v, p)
+    B = ops[0].shape[0]
+    _build.check(_build.lib().pip_intra_dec(
+        *(ctypes.c_void_p(a.data_ptr()) for a in ops), mb_w, mb_h, B,
+        _build.stream(Yw.device)), "intra")
+    _build.count_launch(intra_recon)
+    if Yw.dim() == 2:
+        return ops[0][0], ops[1][0], ops[2][0]
+    return ops[0], ops[1], ops[2]
+
+
+def k3_operands(mb_w, mb_h, Yw, Uw, Vw, res_y, res_u, res_v, p):
+    """The device operands of pip_intra_dec, checked: int32 copies of the
+    working planes [B, Hw, Ww] (which the kernel writes), the residuals
+    [B*n, 256] / [B*n, 64], the [B*n, K3_INFO_W] MB rows, the tables and
+    the sync scratch."""
+    dev = Yw.device
+    if dev.type != "cuda":
+        raise ValueError(f"intra kernel takes CUDA tensors, got {dev}")
+    B = Yw.shape[0] if Yw.dim() == 3 else 1
+    n = mb_w * mb_h
+    wp = 8   # decoder_torch.WPAD
+    shapes = ((B, mb_h * 16 + 2 * wp, mb_w * 16 + 2 * wp),
+              (B, mb_h * 8 + 2 * wp, mb_w * 8 + 2 * wp))
+    Y, U, V = (a.reshape((B,) + tuple(a.shape[-2:])).to(torch.int32)
+               .contiguous().clone() for a in (Yw, Uw, Vw))
+    if (tuple(Y.shape) != shapes[0] or tuple(U.shape) != shapes[1]
+            or tuple(V.shape) != shapes[1]):
+        raise ValueError("intra planes must be WPAD-padded "
+                         f"{shapes}, got {Yw.shape} {Uw.shape} {Vw.shape}")
+    ry, ru, rv = (r.to(torch.int32).reshape(B * n, -1).contiguous()
+                  for r in (res_y, res_u, res_v))
+    if ry.shape[1] != 256 or ru.shape[1] != 64 or rv.shape[1] != 64:
+        raise ValueError("intra residuals must be [.., n, 16, 16] and "
+                         "[.., n, 8, 8]")
+
+    def col(k, w):
+        return p[k].reshape(B * n, w).to(torch.int32)
+
+    info = torch.cat([col("mb_class", 1), col("avail", 4),
+                      col("transform8", 1), col("i16_mode", 1),
+                      col("chroma_mode", 1), col("i4_modes", 16)],
+                     1).contiguous()
+    # the work-item counter and each MB row's progress; the C entry
+    # zeroes them on the stream before the launch
+    sync = torch.empty(1 + B * mb_h, dtype=torch.int32, device=dev)
+    return Y, U, V, ry, ru, rv, info, on(K3_TABLES, dev), sync

@@ -1,7 +1,9 @@
-"""The port's two CUDA kernels against their plain torch versions.
+"""The port's CUDA kernels against their plain torch versions.
 
-K1 (csrc/halfpel.cu, ops/mc.halfpel_planes) and K2 (csrc/deblock.cu,
-ops/deblock.deblock_wavefront) have no CPU mode. The tests marked
+K1 (csrc/halfpel.cu, ops/mc.halfpel_planes), K2 (csrc/deblock.cu,
+ops/deblock.deblock_wavefront), K3 (csrc/intra_dec.cu,
+ops/intra.intra_recon) and K4 (csrc/intra_enc.cu,
+encoder_torch.intra_wavefront) have no CPU mode. The tests marked
 `cuda` build them with nvcc and compare them on the card with
 torch.equal, and run the decoder and the encoder, which launch them, on
 the card against the committed goldens and the port's CPU run; they
@@ -24,8 +26,11 @@ import torch
 from losslessh264_tpu_torch import decoder_torch as dt
 from losslessh264_tpu_torch import encoder_torch as et
 from losslessh264_tpu_torch import native
-from losslessh264_tpu_torch.cases import moving_frames, random_deblock_case
+from losslessh264_tpu_torch.cases import (moving_frames, random_deblock_case,
+                                          random_intra_case,
+                                          random_intra_encode_case)
 from losslessh264_tpu_torch.ops import deblock as tdb
+from losslessh264_tpu_torch.ops import intra as tintra
 from losslessh264_tpu_torch.ops import mc as tmc
 
 DATA = os.path.join(os.path.dirname(__file__), "data")
@@ -47,6 +52,17 @@ def test_wrappers_take_plain_version_on_cpu():
     want = tdb.deblock_wavefront_plain(5, 4, *planes, params)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
     assert not torch.equal(got[0], planes[0])   # the filter fired
+    case = random_intra_case(5, 4, 2, 3, "cpu")
+    got = tintra.intra_recon(5, 4, *case)
+    want = dt._intra_scan_plain(5, 4, *case, dt.diagonals(5, 4))
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert not torch.equal(got[0], case[0])   # intra MBs reconstructed
+    args = _encode_args(random_intra_encode_case(5, 4, 1, "aq"), "cpu")
+    for g, w in zip(et.intra_wavefront(5, 4, *args),
+                    et.intra_wavefront_plain(5, 4, *args)):
+        assert torch.equal(g, w)
+    assert tintra.intra_recon.launches == 0
+    assert et.intra_wavefront.launches == 0
 
 
 def test_kernel_entries_refuse_cpu_tensors():
@@ -56,6 +72,67 @@ def test_kernel_entries_refuse_cpu_tensors():
     planes, _, params = random_deblock_case(3, 2, 0, "cpu")
     with pytest.raises(ValueError, match="CUDA"):
         tdb.deblock_wavefront(3, 2, *planes, params)
+    with pytest.raises(ValueError, match="CUDA"):
+        tintra._intra_recon_launch(3, 2, *random_intra_case(3, 2, 1, 0))
+    with pytest.raises(ValueError, match="CUDA"):
+        et._intra_wavefront_launch(3, 2, *_encode_args(
+            random_intra_encode_case(3, 2, 0, 26), "cpu"))
+
+
+def _encode_args(case, device):
+    """intra_wavefront's arguments after (mb_w, mb_h) from a
+    random_intra_encode_case: tensors on `device`, the intra mask and
+    row_slice on the host."""
+    def T(k):
+        return torch.as_tensor(case[k], device=device)
+    return (T("srcY"), T("srcU"), T("srcV"), T("inter_y"), T("inter_u"),
+            T("inter_v"), case["is_intra"], T("qp"), T("qpc"),
+            case["row_slice"])
+
+
+# K3 on random cases: (mb_w, mb_h, B, seed), 720p single and batched,
+# a row of one MB and a frame of one MB row
+K3_CASES = [(9, 4, 1, 0), (9, 4, 4, 1), (22, 18, 1, 2), (80, 45, 1, 3),
+            (80, 45, 4, 4), (1, 9, 2, 5), (7, 1, 3, 6)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mb_w,mb_h,B,seed", K3_CASES)
+def test_intra_dec_kernel_on_card(cuda_device, mb_w, mb_h, B, seed):
+    """K3 equals the plain compact-carry pass on the card, 5 launches over
+    the B frames and one on the first frame alone: a race on the row
+    progress flags would show as a launch that differs."""
+    case = random_intra_case(mb_w, mb_h, B, seed, cuda_device)
+    want = dt._intra_scan_plain(mb_w, mb_h, *case, dt.diagonals(mb_w, mb_h))
+    before = tintra.intra_recon.launches
+    for _ in range(5):
+        got = tintra.intra_recon(mb_w, mb_h, *case)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    one = [a[0] for a in case[:6]] + [{k: v[0] for k, v in case[6].items()}]
+    got = tintra.intra_recon(mb_w, mb_h, *one)
+    assert all(torch.equal(g, w[0]) for g, w in zip(got, want))
+    assert tintra.intra_recon.launches == before + 6
+
+
+# K4 on random cases: (mb_w, mb_h, seed, qp); odd seeds mask half the MBs
+K4_CASES = [(9, 4, 0, 26), (9, 4, 1, "aq"), (22, 18, 2, 0), (80, 45, 4, 28),
+            (80, 45, 5, "aq"), (1, 9, 6, 51), (7, 1, 7, 26)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mb_w,mb_h,seed,qp", K4_CASES)
+def test_intra_enc_kernel_on_card(cuda_device, mb_w, mb_h, seed, qp):
+    """K4's 11 outputs equal the plain wavefront's on the card, 3
+    launches."""
+    args = _encode_args(random_intra_encode_case(mb_w, mb_h, seed, qp),
+                        cuda_device)
+    want = et.intra_wavefront_plain(mb_w, mb_h, *args)
+    before = et.intra_wavefront.launches
+    for _ in range(3):
+        got = et.intra_wavefront(mb_w, mb_h, *args)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and torch.equal(g, w)
+    assert et.intra_wavefront.launches == before + 3
 
 
 # The decode path's edge-padded luma references (720p, 1080p, 2160p),
@@ -188,7 +265,7 @@ def test_encoder_on_card(cuda_device, kw):
 def _k2_implied(encs):
     """K2 launches JaxEncoder's control flow implies for the encodes of
     TorchEncoder.encodes (see chip_smoke.expected_launches)."""
-    return sum(path == "aq" or kind == "I" or is_ref or n_intra
+    return sum(bool(path == "aq" or kind == "I" or is_ref or n_intra)
                for kind, path, is_ref, n_intra in encs)
 
 
