@@ -95,9 +95,13 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
      and a row of MBs; 5 launches each) and on synth720p's intra frames
      0, 10 and 20; K4 on random cases (random_intra_encode_case, qp 0 ..
      51 and per-MB planes; 3 launches each), A's IDR and C's per-MB-QP
-     IDR (phase 5's frame 0 at C's IDR qp plane). Their times at 720p
-     (K3: synth720p frame 0's full pass; K4: A's IDR): wrapper, kernel
-     alone, plain version, bound and chain length.
+     IDR (phase 5's frame 0 at C's IDR qp plane); and the cases of the
+     multi-warp designs: a 720p frame of I4x4 MBs only (K3), 720p all intra
+     at qp 0 and 51 and striped intra/inter MBs (K4), and 720p's MB row
+     (80x1) and MB column (1x45). Their times at 720p (K3: synth720p frame
+     0's full pass; K4: A's IDR): wrapper, kernel alone, plain version,
+     bound and chain length; and each kernel alone on the 80x1 row (the MB's
+     own compute) and the 1x45 column (compute and hand-off), per MB.
  14. times: K1 at 720p, 1080p, 2160p and on the encoder's refs=2 plane
      (784x2688), both entries, wrapper and kernel alone, beside their
      bounds, its plain version and the conv2d yardstick; K2 against its
@@ -135,10 +139,12 @@ rounding pass). `sizes` holds, for "720p", "1080p", "2160p" and
 and `kernel_ms` the bare C entry by CUDA events, each launch on fresh
 planes. K3's and K4's `ms` is the wrapper, `kernel_ms` the bare C entry
 (CUDA events, each launch on its own copy of the planes), `chain_steps`
-the wavefront's dependent MB steps, `library_ms` null (no PyTorch call
-computes them); K3's `replaces_also` names the two other JAX scans it
-serves. The last line is {"ok": true, "device": {"platform": "gpu",
-...}}. Without a GPU, or without the package beside it, the script
+the wavefront's dependent MB steps, `row_80x1_ms` / `column_1x45_ms`
+the kernel alone on one 720p MB row (the MB's own compute, no wait) and
+one MB column (compute and hand-off at every MB), with their
+`_us_per_mb`, `library_ms` null (no PyTorch call computes them); K3's
+`replaces_also` names the two other JAX scans it serves. The last line
+is {"ok": true, "device": {"platform": "gpu", ...}}. Without a GPU, or without the package beside it, the script
 exits non-zero and prints no result.
 
 Bounds: the larger of the bytes each kernel must move (every input read
@@ -1076,11 +1082,18 @@ def encode_runs_phase(frames, dev, card):
 
 
 # K3 / K4 random cases (as tests/test_torch_kernels.py's): K3 (mb_w, mb_h,
-# B, seed), K4 (mb_w, mb_h, seed, qp; odd seeds encode half the MBs)
-K3_CASES = [(9, 4, 1, 0), (9, 4, 4, 1), (22, 18, 1, 2), (80, 45, 1, 3),
-            (80, 45, 4, 4), (1, 9, 2, 5), (7, 1, 3, 6)]
-K4_CASES = [(9, 4, 0, 26), (9, 4, 1, "aq"), (22, 18, 2, 0), (80, 45, 4, 28),
-            (80, 45, 5, "aq"), (1, 9, 6, 51), (7, 1, 7, 26)]
+# B, seed, options of cases.random_intra_case: a 720p frame of I4x4 MBs
+# only), K4 (mb_w, mb_h, seed, qp, intra mask of random_intra_encode_case;
+# odd seeds encode half the MBs, "stripes" two MBs in three along a row)
+K3_CASES = [(9, 4, 1, 0, {}), (9, 4, 4, 1, {}), (22, 18, 1, 2, {}),
+            (80, 45, 1, 3, {}), (80, 45, 4, 4, {}), (1, 9, 2, 5, {}),
+            (7, 1, 3, 6, {}), (80, 45, 1, 7, {"classes": (0,), "t8_share": 0}),
+            (80, 1, 1, 8, {}), (1, 45, 1, 9, {})]
+K4_CASES = [(9, 4, 0, 26, None), (9, 4, 1, "aq", None), (22, 18, 2, 0, None),
+            (80, 45, 4, 28, None), (80, 45, 5, "aq", None),
+            (1, 9, 6, 51, None), (7, 1, 7, 26, None), (80, 45, 8, 0, None),
+            (80, 45, 10, 51, None), (80, 45, 12, 28, "stripes"),
+            (80, 1, 14, 26, None), (1, 45, 16, 26, None)]
 # integer operations per intra MB (estimates from the kernels' code, for
 # the bound): K3 ~12 per luma and chroma sample of the coded mode (a
 # table row: 3 products, 3 sums, a shift, the residual, two clamps) plus
@@ -1112,8 +1125,9 @@ def k4_bytes(mb_w, mb_h, n_intra):
 
 
 def chain_steps(mb_w, mb_h):
-    """Dependent MB steps of a slope-2 wavefront frame."""
-    return 2 * (mb_h - 1) + mb_w
+    """Dependent MB steps of a slope-2 wavefront frame: its non-empty
+    diagonals (one MB column has one MB per row)."""
+    return mb_h if mb_w == 1 else 2 * (mb_h - 1) + mb_w
 
 
 def synth_intra_inputs(data, dev):
@@ -1216,6 +1230,35 @@ def k4_launchers(lib, mb_w, mb_h, args, count):
     return calls
 
 
+# the 720p wavefront's MB row (never waits: the MB's own compute) and MB
+# column (waits on the row above at every MB: compute and hand-off), on
+# the cases tools/kernel_ab.py k3|k4 times: K3 random_intra_case seeds 1
+# and 2, K4 random_intra_encode_case seeds 2 and 4 (all intra) at qp 28
+SPLIT_SHAPES = (("row_80x1", 80, 1, 1), ("column_1x45", 1, 45, 2))
+
+
+def split_times(kernel, lib, dev, card):
+    """Kernel-alone ms of K3 or K4 on SPLIT_SHAPES, and us per MB of the
+    shape's chain (CUDA events, each launch on its own planes)."""
+    from losslessh264_tpu_torch.cases import (random_intra_case,
+                                              random_intra_encode_case)
+    out = {}
+    for name, mb_w, mb_h, seed in SPLIT_SHAPES:
+        if kernel == "K3":
+            case = random_intra_case(mb_w, mb_h, 1, seed, dev)
+            calls = k3_launchers(lib, mb_w, mb_h, case[:6], case[6], 22)
+        else:
+            args = encode_args(random_intra_encode_case(mb_w, mb_h, 2 * seed,
+                                                        28), dev)
+            calls = k4_launchers(lib, mb_w, mb_h, args, 22)
+        ms = cuda_ms_each(calls)
+        out[f"{name}_ms"] = ms
+        out[f"{name}_us_per_mb"] = ms * 1e3 / chain_steps(mb_w, mb_h)
+        log(f"time {kernel} alone, {mb_w}x{mb_h} MBs: {ms:.4f} ms = "
+            f"{out[f'{name}_us_per_mb']:.3f} us per MB on {card}")
+    return out
+
+
 def intra_kernels_phase(data, frames, c_idr_qp, dev, card):
     """Phase 13: K3 (csrc/intra_dec.cu) and K4 (csrc/intra_enc.cu)
     against their plain versions on the card, torch.equal on every
@@ -1245,15 +1288,15 @@ def intra_kernels_phase(data, frames, c_idr_qp, dev, card):
         return err
 
     k3_err = k4_err = 0
-    for mb_w, mb_h, B, seed in K3_CASES:
-        case = random_intra_case(mb_w, mb_h, B, seed, dev)
+    for mb_w, mb_h, B, seed, opts in K3_CASES:
+        case = random_intra_case(mb_w, mb_h, B, seed, dev, **opts)
         want = dt._intra_scan_plain(mb_w, mb_h, *case,
                                     dt.diagonals(mb_w, mb_h))
         for _ in range(5):
             k3_err = max(k3_err, same(tintra.intra_recon(mb_w, mb_h, *case),
                                       want, f"K3 {mb_w}x{mb_h} B {B}"))
         log(f"K3 intra_recon == plain: {mb_w}x{mb_h} MBs x {B} frames seed "
-            f"{seed}, 5 launches")
+            f"{seed}{' ' + str(opts) if opts else ''}, 5 launches")
     synth = synth_intra_inputs(data, dev)
     for i, work, p in synth:
         want = dt._intra_scan_plain(80, 45, *work, p, dt.diagonals(80, 45))
@@ -1262,15 +1305,15 @@ def intra_kernels_phase(data, frames, c_idr_qp, dev, card):
         n_intra = int(sum((p["mb_class"] == c).sum() for c in (0, 1, 2)))
         log(f"K3 intra_recon == plain: synth720p frame {i} ({n_intra} intra "
             f"MBs)")
-    for mb_w, mb_h, seed, qp in K4_CASES:
-        args = encode_args(random_intra_encode_case(mb_w, mb_h, seed, qp),
-                           dev)
+    for mb_w, mb_h, seed, qp, mask in K4_CASES:
+        args = encode_args(random_intra_encode_case(mb_w, mb_h, seed, qp,
+                                                    mask), dev)
         want = et.intra_wavefront_plain(mb_w, mb_h, *args)
         for _ in range(3):
             k4_err = max(k4_err, same(et.intra_wavefront(mb_w, mb_h, *args),
                                       want, f"K4 {mb_w}x{mb_h} qp {qp}"))
         log(f"K4 intra_wavefront == plain: {mb_w}x{mb_h} MBs seed {seed} qp "
-            f"{qp}, 3 launches")
+            f"{qp}{' ' + mask if mask else ''}, 3 launches")
     gold = json.load(open(ENC_GOLDEN))
     gold_c = json.load(open(ENC_GOLDEN_CDE))
     idrs = {"A": idr_args(gold["A"], frames[0], None, dev),
@@ -1308,6 +1351,7 @@ def intra_kernels_phase(data, frames, c_idr_qp, dev, card):
     per_frame["batch4_ms_per_frame"] = cuda_ms(
         lambda: tintra.intra_recon(80, 45, *case), 10) / 4
     k3["per_frame"] = per_frame
+    k3.update(split_times("K3", lib, dev, card))
     log(f"time K3 intra_recon, synth720p frame {i0} (80x45 MBs, {n_intra0} "
         f"intra): wrapper {k3['ms']:.4f} ms, kernel alone "
         f"{k3['kernel_ms']:.4f} ms = "
@@ -1322,6 +1366,7 @@ def intra_kernels_phase(data, frames, c_idr_qp, dev, card):
           "intra_mbs": 3600,
           "c_idr_ms": cuda_ms(lambda: et.intra_wavefront(80, 45, *idrs["C"]),
                               10)}
+    k4.update(split_times("K4", lib, dev, card))
     k4["bound_ms"], k4["bound_by"] = bound_ms(k4_bytes(80, 45, 3600),
                                               3600 * K4_OPS_PER_MB)
     k4["bytes"] = k4_bytes(80, 45, 3600)
@@ -1678,7 +1723,9 @@ def main():
            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
            "chain_steps": row["chain_steps"], "library_ms": None,
            **{k: row[k] for k in ("bytes", "byte_bound_ms", "per_frame",
-                                  "c_idr_ms") if k in row}}
+                                  "c_idr_ms", "row_80x1_ms",
+                                  "row_80x1_us_per_mb", "column_1x45_ms",
+                                  "column_1x45_us_per_mb") if k in row}}
           for name, source, replaces, also, key, row in (
               ("intra_recon", "losslessh264_tpu_torch/csrc/intra_dec.cu",
                "losslessh264_tpu/decoder_jax.py:420",

@@ -144,16 +144,19 @@ def _slice_rows(rng, mb_w, mb_h):
     return sid
 
 
-def random_intra_case(mb_w, mb_h, B, seed, device="cpu"):
+def random_intra_case(mb_w, mb_h, B, seed, device="cpu", classes=None,
+                      t8_share=0.4):
     """The inputs of the decoder's intra pass for B frames, as numpy-made
     tensors on `device`, each with a leading frame axis: the WPAD-padded
     int32 working planes (Yw, Uw, Vw: random pixels at inter and PCM MBs,
     0 at intra MBs and in the margin), the residuals (res_y [B,n,16,16],
     res_u / res_v [B,n,8,8]: sparse, some large enough to clip) and the
     INTRA_KEYS planes of decoder_torch as a dict p: every class of
-    INTRA_CLASSES, transform8 on some I4x4 MBs (I8x8), every I4x4 / I8x8
-    / I16x16 / chroma mode, and availability from slices that start
-    mid-row, with some flags dropped as constrained intra drops them."""
+    INTRA_CLASSES (or, given `classes`, those drawn uniformly), transform8
+    on a `t8_share` of the MBs (I8x8 where the class is I4x4), every I4x4
+    / I8x8 / I16x16 / chroma mode, and availability from slices that
+    start mid-row, with some flags dropped as constrained intra drops
+    them. classes=(0,), t8_share=0 gives a frame of I4x4 MBs only."""
     rng = np.random.RandomState(seed)
     n = mb_w * mb_h
     H, W = mb_h * 16, mb_w * 16
@@ -165,7 +168,8 @@ def random_intra_case(mb_w, mb_h, B, seed, device="cpu"):
                          "i16_mode", "chroma_mode")}
     my, mx = np.divmod(np.arange(n), mb_w)
     for b in range(B):
-        cls = rng.choice(INTRA_CLASSES, n, p=[0.3, 0.2, 0.2, 0.2, 0.1])
+        cls = (rng.choice(INTRA_CLASSES, n, p=[0.3, 0.2, 0.2, 0.2, 0.1])
+               if classes is None else rng.choice(classes, n))
         sid = _slice_rows(rng, mb_w, mb_h)
         grid = sid.reshape(mb_h, mb_w)
 
@@ -179,7 +183,7 @@ def random_intra_case(mb_w, mb_h, B, seed, device="cpu"):
                           same(-1, 1)], 1) & (rng.rand(n, 4) < 0.85)
         p["mb_class"].append(cls.astype(np.uint8))
         p["avail"].append(avail)
-        p["transform8"].append((rng.rand(n) < 0.4).astype(np.uint8))
+        p["transform8"].append((rng.rand(n) < t8_share).astype(np.uint8))
         p["i4_modes"].append(rng.randint(0, 9, (n, 16)).astype(np.int8))
         p["i16_mode"].append(rng.randint(0, 4, n).astype(np.uint8))
         p["chroma_mode"].append(rng.randint(0, 4, n).astype(np.uint8))
@@ -205,14 +209,17 @@ def random_intra_case(mb_w, mb_h, B, seed, device="cpu"):
             {k: T(np.stack(v)) for k, v in p.items()})
 
 
-def random_intra_encode_case(mb_w, mb_h, seed, qp):
+def random_intra_encode_case(mb_w, mb_h, seed, qp, mask=None):
     """The numpy inputs of the encoder's intra wavefront for one frame:
     source planes (uint8: smooth ramps, flat MBs and noise, so that both
     I16x16 and I4x4 win somewhere), inter tiles (random at the MBs that
-    are not intra, 0 at intra ones), the intra mask (all MBs on even
-    seeds, a random half on odd ones), per-MB qp (the int `qp`
-    everywhere, or "aq": a random plane over 0..51) and chroma qp, and a
-    row_slice with a slice boundary on some rows. Returns a dict."""
+    are not intra, 0 at intra ones), the intra mask, per-MB qp (the int
+    `qp` everywhere, or "aq": a random plane over 0..51) and chroma qp,
+    and a row_slice with a slice boundary on some rows. The mask is all
+    MBs on even seeds and a random half on odd ones, or with
+    mask="stripes" every MB but those with (x + y) % 3 == 2: along each
+    row two intra MBs, then an inter one, so that intra MBs have intra
+    and inter left, top and top-right neighbours. Returns a dict."""
     from .ref_np import CHROMA_QP
     rng = np.random.RandomState(seed)
     n = mb_w * mb_h
@@ -227,6 +234,11 @@ def random_intra_encode_case(mb_w, mb_h, seed, qp):
     V = (yy[:H // 2, :W // 2] * 7 + rng.randint(0, 9, (H // 2, W // 2))) % 256
     is_intra = (np.ones(n, bool) if seed % 2 == 0
                 else rng.rand(n) < 0.5)
+    if mask == "stripes":
+        my, mx = np.divmod(np.arange(n), mb_w)
+        is_intra = (mx + my) % 3 != 2
+    elif mask is not None:
+        raise ValueError(f"unknown intra mask {mask!r}")
     inter = [rng.randint(0, 256, (n, t, t)).astype(np.int32)
              * (~is_intra)[:, None, None] for t in (16, 8, 8)]
     if qp == "aq":

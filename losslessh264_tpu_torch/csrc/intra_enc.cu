@@ -22,26 +22,52 @@
 // What bounds it on the H100:
 // - dependencies: as K3 (csrc/intra_dec.cu), a chain of 2*(mb_h-1)+mb_w
 //   dependent MB steps (168 at 720p), and inside each MB the I4x4 search:
-//   16 dependent blocks, each 9 candidate modes, a transform, the
-//   quantizer and the recon that the next block predicts from.
+//   blocks that predict from the recon of their left, top, top-left and
+//   (where _I4_TR_KIND is 1) top-right neighbours, each 9 candidate
+//   modes, a transform, the quantizer and the recon. At most 45 MB rows
+//   are in flight at 720p, so ~87 of the 132 SMs have no row: the step
+//   is one MB's latency, and an MB can use a whole SM.
 // - bytes and operations: the uint8 source and recon planes (1.38 MB
 //   each at 720p) and the int32 symbol rows (6.15 MB) move ~9 MB, 2.7 us
 //   at 3.35 TB/s; the I4x4 search alone is ~35k int32 operations per MB
 //   (16 blocks x 9 modes x 16 samples), ~48k with the rest, 173 M at
 //   720p, 5.2 us at 33.5 TOP/s. Either is far below the chain.
 // What the design does about each:
-// - K2's schedule: one-warp CTAs claim MB rows from a device counter;
-//   an intra MB waits (ld.acquire.gpu by lane 0) until the row above has
-//   published progress >= min(x+2, mb_w) and publishes x+1 after its
-//   stores (st.release.gpu); a non-intra MB only publishes.
-// - one warp per MB runs I16x16, then I4x4, then chroma, one after the
-//   other: the I4x4 chain is the MB's critical path in any split; I16x16
-//   and chroma on warps of their own would shorten the step by their
-//   part, at the cost of a block-wide barrier in every step (a later
-//   PR's choice). Inside a step the lanes split the work: a lane per
-//   candidate mode (its SAD over the block), a warp-wide first minimum,
-//   four lanes for the rows and then the columns of each transform, a
-//   lane per coefficient of the quantizer.
+// - one CTA of 11 warps per MB row (rows claimed in order from a device
+//   counter, csrc/wavefront.cuh). Warps 0-8 run the I4x4 search, warp 9
+//   I16x16 and warp 10 chroma, all at once: I16x16 and chroma need only
+//   the MB's context, which is complete when the step starts. Chroma
+//   writes its symbols itself; its recon and I16x16's levels and recon
+//   wait in shared memory for the I4x4-or-I16x16 decision.
+// - the I4x4 blocks go by the levels of their dependency graph, (by, bx)
+//   at level bx + 2 by: 10 levels of at most 2 blocks instead of 16
+//   blocks in turn (the summed cost is an integer sum, so the order does
+//   not change it; the MPM border stays DC). Each level gives every
+//   (block, mode, sample) its own thread, 2 x 9 x 16 = 288: a thread
+//   holds its _TAB4 row in registers, takes its 3 edge samples from its
+//   16 lanes by shuffles, its mode's SAD is one warp reduction (redux),
+//   and one lane per mode puts (cost << 4 | mode) into a shared atomicMin,
+//   whose least key is the first minimum, as torch.argmin takes it. After
+//   a group barrier only the warps that hold a chosen mode run its
+//   transform, quantizer, inverse and recon by shuffles (running them for
+//   all 9 modes before the choice cost more issue slots than the latency
+//   it hid), and a second barrier ends the level. The 10 levels' search
+//   and transform chains are now the longest part of an MB step, then
+//   the hand-off and stores, then I16x16 and chroma beside them
+//   (`tools/kernel_ab.py k4 --parts` times builds without each part).
+// - only the row above crosses the hand-off: the next intra MB's source
+//   tiles are staged by cp.async one MB ahead, its MB row (int4) is read
+//   an MB ahead, the left column of an intra left neighbour stays in
+//   shared memory from the CTA's own previous MB (the final recon, after
+//   the I4x4/I16x16 decision), and that of an inter one is loaded from the
+//   plane before the wait. After the wait (ld.acquire.gpu by one thread
+//   until the row above has published >= min(x+2, mb_w)) warp 0 reads the
+//   25 + 9 + 9 words of the row above. The CTA stores the bottom rows that
+//   the row below reads, publishes x+1 (__syncthreads, __threadfence,
+//   st.release.gpu), and then stores the rest of the recon and the symbol
+//   row, which no other MB reads. A non-intra MB only publishes.
+// - the I16x16 and chroma DC sums and plane parameters are computed once
+//   per MB, not once per sample.
 #include <atomic>
 #include <climits>
 
@@ -56,8 +82,7 @@ using namespace intra;
 
 constexpr int BIG = 1 << 30;   // encoder_torch.BIG
 // the packed tables (encoder_torch.K4_TABLES)
-constexpr int T_BLK = 0;       // BLK_ORDER [16]
-constexpr int T_TRK = 16;      // _I4_TR_KIND [16]
+constexpr int T_TRK = 16;      // _I4_TR_KIND [16] (after BLK_ORDER [16])
 constexpr int T_MF = 32;       // MF4_V [6, 16]
 constexpr int T_DEQ = 128;     // DEQ4_V [6, 16]
 constexpr int T_LAM = 224;     // LAMBDA [52]
@@ -68,56 +93,74 @@ constexpr int T_LEN = T_TAB4 + 9 * 16 * 8;
 // a symbol row: the fetch layout (encoder_torch.K4_ROW, _sym_rows)
 constexpr int O_LDC = 0, O_LAC = 16, O_CDC = 272, O_CAC = 280, O_I16 = 408,
               O_CM = 409, O_CLS = 410, O_I4 = 411, ROW = 427;
+// the CTA: 2 I4x4 slots of 9 modes x 16 samples, then a warp for I16x16
+// and one for chroma
+constexpr int SLOT = 9 * 16;
+constexpr int I4_THREADS = 2 * SLOT;            // warps 0-8
+constexpr int W16 = I4_THREADS / 32;            // warp 9
+constexpr int WCH = W16 + 1;                    // warp 10
+constexpr int NTHREADS = (WCH + 1) * 32;        // 352
+constexpr int BAR_I4 = 1;                       // the I4x4 warps' barrier
 
 struct Smem {
-  int tab[T_LEN];
-  int ctx[17][25];   // luma recon context; I4x4 reconstructs in place
+  alignas(16) int src[2][384];   // staged source tiles: Y 256, U 64, V 64
+  alignas(16) int tab[T_LEN];
+  int ctx[17][25];   // row 0: above (col 0 the above-left), col 0: left;
+                     // I4x4 reconstructs in place
   int cu[9][9];
   int cv[9][9];
-  int src[256];
-  int su[64];
-  int sv[64];
   int p16[256];      // the chosen I16x16 prediction
   int t16[256];      // the I16x16 recon
   int q16[16][16];   // I16x16 AC levels, raster position per block
   int q4[16][16];    // I4x4 levels
-  int dcs[16];       // the 16 DC coefficients, raster block order
-  int qdc[16];       // their quantized Hadamard transform
-  int dcd[16];       // the dequantized DC per block
-  int edge[13];
+  int qdc[16];       // the quantized Hadamard transform of the DC terms
   int grid[5][5];    // the MPM grid of chosen I4x4 modes (2 outside)
   int m4[16];
-  int pb[16];        // the current 4x4 block's prediction
-  int blk[16];       // its transform in place
+  int keys[2][2];    // per level parity and slot: the least (cost << 4 |
+                     // mode) of the level's block
+  int total[2];      // the summed I4x4 cost per slot
+  int sad16, mode16;
   int pc[2][64];     // the chosen chroma predictions
   int qc[2][4][16];  // chroma AC levels
   int wdc[2][4];     // chroma DC coefficients
   int cdq[2][4];     // their quantized 2x2 transform
   int cdd[2][4];     // the dequantized chroma DC per block
+  int claim;
 };
 
-__device__ __forceinline__ int warp_sum(int v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
+// output i of the forward 4-point core transform (ops/transform.
+// _fwd4_last) of (a0, a1, a2, a3)
+__device__ __forceinline__ int fwd4_at(int a0, int a1, int a2, int a3,
+                                       int i) {
+  const int s0 = a0 + a3, s1 = a1 + a2, d0 = a0 - a3, d1 = a1 - a2;
+  return i == 0 ? s0 + s1 : i == 1 ? 2 * d0 + d1 : i == 2 ? s0 - s1
+                                                          : d0 - 2 * d1;
 }
 
-// the first (lowest-index) minimum of (cost, idx) over the warp, as
-// torch.argmin picks it
-__device__ __forceinline__ void warp_argmin(int& cost, int& idx) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const int oc = __shfl_xor_sync(0xffffffffu, cost, off);
-    const int oi = __shfl_xor_sync(0xffffffffu, idx, off);
-    if (oc < cost || (oc == cost && oi < idx)) {
-      cost = oc;
-      idx = oi;
-    }
-  }
+// output i of the inverse 4-point core transform (ops/transform.
+// _idct4_1d)
+__device__ __forceinline__ int inv4_at(int a0, int a1, int a2, int a3,
+                                       int i) {
+  const int e0 = a0 + a2, e1 = a0 - a2, e2 = (a1 >> 1) - a3,
+            e3 = a1 + (a3 >> 1);
+  return i == 0 ? e0 + e3 : i == 1 ? e1 + e2 : i == 2 ? e1 - e2 : e0 - e3;
 }
 
-// the forward 4-point core transform (ops/transform._fwd4_last)
+// output i of the 4-point Hadamard transform of the luma DC terms
+// (fhadamard4x4's rows and columns)
+__device__ __forceinline__ int had_at(int a0, int a1, int a2, int a3, int i) {
+  const int s0 = a0 + a3, s1 = a1 + a2, d0 = a0 - a3, d1 = a1 - a2;
+  return i == 0 ? s0 + s1 : i == 1 ? d0 + d1 : i == 2 ? s0 - s1 : d0 - d1;
+}
+
+// output i of its inverse (hadamard4x4's rows and columns)
+__device__ __forceinline__ int ihad_at(int a0, int a1, int a2, int a3,
+                                       int i) {
+  const int e0 = a0 + a2, e1 = a0 - a2, e2 = a1 - a3, e3 = a1 + a3;
+  return i == 0 ? e0 + e3 : i == 1 ? e1 + e2 : i == 2 ? e1 - e2 : e0 - e3;
+}
+
+// the forward 4-point core transform in place
 __device__ __forceinline__ void fwd4(int& a0, int& a1, int& a2, int& a3) {
   const int s0 = a0 + a3, s1 = a1 + a2, d0 = a0 - a3, d1 = a1 - a2;
   a0 = s0 + s1;
@@ -126,7 +169,7 @@ __device__ __forceinline__ void fwd4(int& a0, int& a1, int& a2, int& a3) {
   a3 = d0 - 2 * d1;
 }
 
-// the inverse 4-point core transform (ops/transform._idct4_1d)
+// the inverse 4-point core transform in place
 __device__ __forceinline__ void inv4(int& a0, int& a1, int& a2, int& a3) {
   const int e0 = a0 + a2, e1 = a0 - a2, e2 = (a1 >> 1) - a3,
             e3 = a1 + (a3 >> 1);
@@ -181,25 +224,24 @@ __device__ __forceinline__ int dequant(const Smem& sm, int c, int pos,
   return (v + (1 << (3 - qdiv))) >> (4 - qdiv);
 }
 
-// I16x16: the four modes' SADs, the first legal minimum, the transform of
-// the residual, the DC Hadamard path and the decoder-exact recon into
-// sm.t16. Returns the mode; *sad its SAD.
-__device__ int encode_i16(Smem& sm, int qp, bool aL, bool aT, int lane,
-                          int* sad_out) {
-  int lsum = 0, tsum = 0;
-  for (int i = 0; i < 16; ++i) {
-    lsum += sm.ctx[1 + i][0];
-    tsum += sm.ctx[0][1 + i];
-  }
-  const int dc = dc_value(lsum, tsum, aL, aT, 4);
+// I16x16 on one warp: the four modes' SADs, the first legal minimum
+// (sm.mode16, its SAD sm.sad16), the transform of the residual, the DC
+// Hadamard path and the decoder-exact recon into sm.t16
+__device__ void encode_i16(Smem& sm, const int* src, int qp, bool aL,
+                           bool aT, int lane) {
+  const int i = lane & 15;
+  const int lt = lane < 16 ? sm.ctx[1 + i][0] | (sm.ctx[0][1 + i] << 16) : 0;
+  const int sums = warp_sum(lt);   // low 16 bits the left, high the top
+  const int dc = dc_value(sums & 0xffff, sums >> 16, aL, aT, 4);
+  const Plane pl = plane_params(&sm.ctx[1][0], 25, &sm.ctx[0][1],
+                                sm.ctx[0][0], 16);
   int sad[4] = {0, 0, 0, 0};
-  for (int p = lane; p < 256; p += NTHREADS) {
-    const int y = p >> 4, x = p & 15, s = sm.src[p];
+  for (int p = lane; p < 256; p += 32) {
+    const int y = p >> 4, x = p & 15, s = src[p];
     sad[0] += abs(s - sm.ctx[0][1 + x]);
     sad[1] += abs(s - sm.ctx[1 + y][0]);
     sad[2] += abs(s - dc);
-    sad[3] += abs(s - plane_sample(&sm.ctx[1][0], 25, &sm.ctx[0][1],
-                                   sm.ctx[0][0], 16, x, y));
+    sad[3] += abs(s - pl.at(x, y));
   }
   const bool legal[4] = {aT, aL, true, aL && aT};
   int mode = 0, best = 0;
@@ -211,209 +253,254 @@ __device__ int encode_i16(Smem& sm, int qp, bool aL, bool aT, int lane,
       mode = m;
     }
   }
-  *sad_out = best;
-  for (int p = lane; p < 256; p += NTHREADS) {
+  if (lane == 0) {
+    sm.sad16 = best;
+    sm.mode16 = mode;
+  }
+  for (int p = lane; p < 256; p += 32) {
     const int y = p >> 4, x = p & 15;
     sm.p16[p] = mode == 0   ? sm.ctx[0][1 + x]
                 : mode == 1 ? sm.ctx[1 + y][0]
                 : mode == 2 ? dc
-                            : plane_sample(&sm.ctx[1][0], 25, &sm.ctx[0][1],
-                                           sm.ctx[0][0], 16, x, y);
+                            : pl.at(x, y);
   }
   __syncwarp();
-  if (lane < 16) {   // block `lane`: the transform and its AC levels
-    const int by = lane >> 2, bx = lane & 3;
-    int w[16];
+  // block b = lane % 16 (both half warps compute it; the lower half
+  // writes): the transform and its AC levels, in registers
+  const int b = lane & 15, by = b >> 2, bx = b & 3;
+  int w[16], lv[16];
 #pragma unroll
-    for (int k = 0; k < 16; ++k) {
-      const int o = (4 * by + (k >> 2)) * 16 + 4 * bx + (k & 3);
-      w[k] = sm.src[o] - sm.p16[o];
-    }
-    fdct16(w);
-    sm.dcs[lane] = w[0];
-    sm.q16[lane][0] = 0;
-#pragma unroll
-    for (int k = 1; k < 16; ++k) sm.q16[lane][k] = quant(sm, w[k], k, qp);
+  for (int k = 0; k < 16; ++k) {
+    const int o = (4 * by + (k >> 2)) * 16 + 4 * bx + (k & 3);
+    w[k] = src[o] - sm.p16[o];
   }
-  __syncwarp();
-  if (lane == 0) {   // the DC terms: Hadamard, quantizer, and back
-    int h[16];
+  fdct16(w);
+  // the quantizer's and dequantizer's scales of this qp, by position
+  int mf[16], dq[16];
+  {
+    const int4* const m4 = reinterpret_cast<const int4*>(
+        &sm.tab[T_MF + (qp % 6) * 16]);
+    const int4* const d4 = reinterpret_cast<const int4*>(
+        &sm.tab[T_DEQ + (qp % 6) * 16]);
+    const int4* const f4 = reinterpret_cast<const int4*>(&sm.tab[T_FLAT]);
 #pragma unroll
-    for (int k = 0; k < 16; ++k) h[k] = sm.dcs[k];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {   // fhadamard4x4, rows then columns
-      const int s0 = h[4 * i] + h[4 * i + 3], s1 = h[4 * i + 1] + h[4 * i + 2];
-      const int d0 = h[4 * i] - h[4 * i + 3], d1 = h[4 * i + 1] - h[4 * i + 2];
-      h[4 * i] = s0 + s1;
-      h[4 * i + 1] = d0 + d1;
-      h[4 * i + 2] = s0 - s1;
-      h[4 * i + 3] = d0 - d1;
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int s0 = h[j] + h[12 + j], s1 = h[4 + j] + h[8 + j];
-      const int d0 = h[j] - h[12 + j], d1 = h[4 + j] - h[8 + j];
-      h[j] = s0 + s1;
-      h[4 + j] = d0 + d1;
-      h[8 + j] = s0 - s1;
-      h[12 + j] = d0 - d1;
-    }
-#pragma unroll
-    for (int k = 0; k < 16; ++k) {
-      h[k] = quant_dc(sm, h[k] >> 1, qp);   // the floored // 2
-      sm.qdc[k] = h[k];
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {   // hadamard4x4, rows then columns
-      const int e0 = h[4 * i] + h[4 * i + 2], e1 = h[4 * i] - h[4 * i + 2];
-      const int e2 = h[4 * i + 1] - h[4 * i + 3],
-                e3 = h[4 * i + 1] + h[4 * i + 3];
-      h[4 * i] = e0 + e3;
-      h[4 * i + 1] = e1 + e2;
-      h[4 * i + 2] = e1 - e2;
-      h[4 * i + 3] = e0 - e3;
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int e0 = h[j] + h[8 + j], e1 = h[j] - h[8 + j];
-      const int e2 = h[4 + j] - h[12 + j], e3 = h[4 + j] + h[12 + j];
-      h[j] = e0 + e3;
-      h[4 + j] = e1 + e2;
-      h[8 + j] = e1 - e2;
-      h[12 + j] = e0 - e3;
-    }
-    // luma_dc_dequant with w00 = 16
-    const int scale = 16 * sm.tab[T_DEQ + (qp % 6) * 16];
-    const int qdiv = qp / 6;
-#pragma unroll
-    for (int k = 0; k < 16; ++k) {
-      const int v = h[k] * scale;
-      sm.dcd[k] = qdiv >= 6 ? v * (1 << (qdiv - 6))
-                            : (v + (1 << (5 - qdiv))) >> (6 - qdiv);
+    for (int k = 0; k < 4; ++k) {
+      const int4 a = m4[k], b = d4[k], c = f4[k];
+      mf[4 * k] = a.x; mf[4 * k + 1] = a.y; mf[4 * k + 2] = a.z;
+      mf[4 * k + 3] = a.w;
+      dq[4 * k] = b.x * c.x; dq[4 * k + 1] = b.y * c.y;
+      dq[4 * k + 2] = b.z * c.z; dq[4 * k + 3] = b.w * c.w;
     }
   }
-  __syncwarp();
-  if (lane < 16) {   // block `lane`: dequantize, inverse, add the prediction
-    const int by = lane >> 2, bx = lane & 3;
-    int w[16];
-    w[0] = sm.dcd[lane];
+  const int qbits = 15 + qp / 6, qf = (1 << qbits) / 3, qdiv = qp / 6;
 #pragma unroll
-    for (int k = 1; k < 16; ++k) w[k] = dequant(sm, sm.q16[lane][k], k, qp);
-    idct16(w);
+  for (int k = 1; k < 16; ++k) {
+    const int z = (abs(w[k]) * mf[k] + qf) >> qbits;
+    lv[k] = w[k] < 0 ? -z : z;
+  }
+  // the 16 DC terms, one a lane: the Hadamard transform (rows are lanes
+  // 4 by .. 4 by + 3, columns bx, bx + 4, ...), the quantizer of the
+  // floored half, the inverse and the dequantizer (luma_dc_dequant with
+  // w00 = 16)
+  int h = w[0];
+  h = had_at(__shfl_sync(FULL, h, 0, 4), __shfl_sync(FULL, h, 1, 4),
+             __shfl_sync(FULL, h, 2, 4), __shfl_sync(FULL, h, 3, 4), bx);
+  h = had_at(__shfl_sync(FULL, h, bx, 16), __shfl_sync(FULL, h, bx + 4, 16),
+             __shfl_sync(FULL, h, bx + 8, 16),
+             __shfl_sync(FULL, h, bx + 12, 16), by);
+  const int qd = quant_dc(sm, h >> 1, qp);
+  int g = ihad_at(__shfl_sync(FULL, qd, 0, 4), __shfl_sync(FULL, qd, 1, 4),
+                  __shfl_sync(FULL, qd, 2, 4), __shfl_sync(FULL, qd, 3, 4),
+                  bx);
+  g = ihad_at(__shfl_sync(FULL, g, bx, 16), __shfl_sync(FULL, g, bx + 4, 16),
+              __shfl_sync(FULL, g, bx + 8, 16),
+              __shfl_sync(FULL, g, bx + 12, 16), by);
+  const int v = g * 16 * sm.tab[T_DEQ + (qp % 6) * 16];
+  w[0] = qdiv >= 6 ? v * (1 << (qdiv - 6))
+                   : (v + (1 << (5 - qdiv))) >> (6 - qdiv);
+  // dequantize, inverse, add the prediction
+#pragma unroll
+  for (int k = 1; k < 16; ++k) {
+    const int d = lv[k] * dq[k];
+    w[k] = qdiv >= 4 ? d * (1 << (qdiv - 4))
+                     : (d + (1 << (3 - qdiv))) >> (4 - qdiv);
+  }
+  idct16(w);
+  if (lane < 16) {
+    sm.qdc[b] = qd;
+    sm.q16[b][0] = 0;
+#pragma unroll
+    for (int k = 1; k < 16; ++k) sm.q16[b][k] = lv[k];
 #pragma unroll
     for (int k = 0; k < 16; ++k) {
       const int o = (4 * by + (k >> 2)) * 16 + 4 * bx + (k & 3);
       sm.t16[o] = clamp255(sm.p16[o] + w[k]);
     }
   }
-  __syncwarp();
-  return mode;
 }
 
-// I4x4: the 16 blocks in coding order, each mode chosen by SAD + lambda x
-// (1 for the most probable mode, else 4), quantized and reconstructed in
-// sm.ctx before the next. Returns the summed cost.
-__device__ int encode_i4(Smem& sm, int qp, bool aL, bool aT, bool aTR,
-                         int lane) {
-  const int lam = sm.tab[T_LAM + qp];
-  if (lane < 25) sm.grid[lane / 5][lane % 5] = 2;
-  int total = 0;
-  for (int d = 0; d < 16; ++d) {
-    const int r = sm.tab[T_BLK + d];
-    const int by = r >> 2, bx = r & 3;
-    const int ly = 1 + 4 * by, lx = 1 + 4 * bx;
-    const int kind = sm.tab[T_TRK + r];
+// the raster index of slot `slot`'s I4x4 block at dependency level L
+// (the blocks with bx + 2 by == L, slot 1 one block row below slot 0),
+// or -1 where the level has no such block
+__host__ __device__ constexpr int level_blk(int slot, int L) {
+  return (L > 3 ? (L - 2) >> 1 : 0) + slot > 3 ||
+                 L - 2 * ((L > 3 ? (L - 2) >> 1 : 0) + slot) < 0
+             ? -1
+             : ((L > 3 ? (L - 2) >> 1 : 0) + slot) * 4 + L -
+                   2 * ((L > 3 ? (L - 2) >> 1 : 0) + slot);
+}
+
+// the sum of v over the lane's half warp
+__device__ __forceinline__ int half_sum(int v, bool upper) {
+  const int lo = __reduce_add_sync(FULL, upper ? 0 : v);
+  const int hi = __reduce_add_sync(FULL, upper ? v : 0);
+  return upper ? hi : lo;
+}
+
+// One I4x4 thread: slot (block) `slot`, mode m, sample p of the block.
+struct I4Lane {
+  int slot, m, p, py, px, warp;
+  bool upper, need_t, need_l;
+  int trow[8];     // its _TAB4 row
+  int kinds;       // _I4_TR_KIND, 2 bits per raster block
+};
+
+// Level L of the I4x4 search for the lane's slot: every (mode, sample)
+// predicts its sample from the block's edge (taken from the 16 lanes by
+// shuffles), each mode's SAD is one reduction, and one lane per mode
+// puts (cost << 4 | mode) into a shared atomicMin, whose least key is the
+// first minimum, as torch.argmin takes it. After a group barrier only the
+// warps that hold a chosen mode run its transform, quantizer, inverse and
+// recon by shuffles (rows are lanes 4 py .. 4 py + 3, columns px, px + 4,
+// ...); a second barrier ends the level. A slot without a block at level L
+// repeats slot 0's (warp 4, which holds both slots) or rests (warps 5-8),
+// and writes nothing.
+template <int L>
+__device__ __forceinline__ void i4_level(Smem& sm, const int* src,
+                                         const I4Lane& t, bool aL, bool aT,
+                                         bool aTR, int lam, int mf, int qf,
+                                         int qbits, int qdiv, int dq,
+                                         int& total) {
+  constexpr int b0 = level_blk(0, L), b1 = level_blk(1, L);
+  const bool valid = t.slot == 0 || b1 >= 0;
+  const int r = t.slot && b1 >= 0 ? b1 : b0;
+  const int by = r >> 2, bx = r & 3;
+  const int ly = 1 + 4 * by, lx = 1 + 4 * bx;
+  const int s = src[(4 * by + t.py) * 16 + 4 * bx + t.px];
+  int pred = 0;
+  if (valid || t.warp == 4) {
+    const int kind = (t.kinds >> (2 * r)) & 3;
     const bool trv = kind == 1 || (kind == 2 && aT) || (kind == 3 && aTR);
-    if (lane < 4) sm.edge[lane] = sm.ctx[ly + lane][lx - 1];
-    else if (lane == 4) sm.edge[4] = sm.ctx[ly - 1][lx - 1];
-    else if (lane < 13)
-      sm.edge[lane] = sm.ctx[ly - 1][lx + ((lane - 5 < 4 || trv) ? lane - 5
-                                                                 : 3)];
-    __syncwarp();
-    const bool bL = bx == 0 ? aL : true, bT = by == 0 ? aT : true;
-    const bool both = bL && bT;
-    const int* e = sm.edge;
-    const int dc =
-        dc_value(e[0] + e[1] + e[2] + e[3], e[5] + e[6] + e[7] + e[8], bL, bT,
-                 2);
-    int cost = INT_MAX, idx = lane;
-    if (lane < 9) {   // lane m: mode m's SAD and cost
-      const int m = lane;
-      int sad = 0;
-      for (int p = 0; p < 16; ++p) {
-        const int pred =
-            m == 2 ? dc : table_sample(&sm.tab[T_TAB4 + (m * 16 + p) * 8], e);
-        sad += abs(pred - sm.src[(4 * by + (p >> 2)) * 16 + 4 * bx + (p & 3)]);
-      }
-      const bool legal = m == 2 || ((m == 0 || m == 3 || m == 7) && bT) ||
-                         ((m == 1 || m == 8) && bL) ||
-                         (m >= 4 && m <= 6 && both);
-      const int pm =
-          both ? min(sm.grid[1 + by][bx], sm.grid[by][1 + bx]) : 2;
-      cost = legal ? sad + lam * (m == pm ? 1 : 4) : BIG;
-    }
-    warp_argmin(cost, idx);
-    const int m = idx;
-    total += cost;
-    if (lane < 16) {
-      const int pred =
-          m == 2 ? dc
-                 : table_sample(&sm.tab[T_TAB4 + (m * 16 + lane) * 8], e);
-      sm.pb[lane] = pred;
-      sm.blk[lane] =
-          sm.src[(4 * by + (lane >> 2)) * 16 + 4 * bx + (lane & 3)] - pred;
-    }
-    __syncwarp();
-    if (lane == 0) {
-      sm.grid[1 + by][1 + bx] = m;
-      sm.m4[r] = m;
-    }
-    if (lane < 4) {   // forward transform, row `lane`
-      int* b = &sm.blk[4 * lane];
-      fwd4(b[0], b[1], b[2], b[3]);
-    }
-    __syncwarp();
-    if (lane < 4) {   // column `lane`
-      fwd4(sm.blk[lane], sm.blk[4 + lane], sm.blk[8 + lane],
-           sm.blk[12 + lane]);
-    }
-    __syncwarp();
-    if (lane < 16) {   // coefficient `lane`: its level, dequantized
-      const int q = quant(sm, sm.blk[lane], lane, qp);
-      sm.q4[r][lane] = q;
-      sm.blk[lane] = dequant(sm, q, lane, qp);
-    }
-    __syncwarp();
-    if (lane < 4) {   // inverse transform, row `lane`
-      int* b = &sm.blk[4 * lane];
-      inv4(b[0], b[1], b[2], b[3]);
-    }
-    __syncwarp();
-    if (lane < 4) {   // column `lane`, then the recon
-      int c0 = sm.blk[lane], c1 = sm.blk[4 + lane], c2 = sm.blk[8 + lane],
-          c3 = sm.blk[12 + lane];
-      inv4(c0, c1, c2, c3);
-      const int c[4] = {c0, c1, c2, c3};
+    // lane p < 13 holds e[p] of e = [l0..l3, tl, t0..t7]; an unavailable
+    // top-right repeats t3
+    const int p = t.p, j = p - 5;
+    const int* const c = &sm.ctx[0][0];
+    const int ev = c[p < 4               ? (ly + p) * 25 + lx - 1
+                     : p == 4 || p > 12 ? (ly - 1) * 25 + lx - 1
+                                        : (ly - 1) * 25 + lx +
+                                              (trv || j < 4 ? j : 3)];
+    const bool bL = bx > 0 || aL, bT = by > 0 || aT;
+    const int e0 = __shfl_sync(FULL, ev, t.trow[0] & 15, 16);
+    const int e1 = __shfl_sync(FULL, ev, t.trow[1] & 15, 16);
+    const int e2 = __shfl_sync(FULL, ev, t.trow[2] & 15, 16);
+    pred = table_pred(t.trow, e0, e1, e2);
+    if (t.m == 2) {
+      int ls = 0, ts = 0;
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        sm.ctx[ly + i][lx + lane] =
-            clamp255(sm.pb[4 * i + lane] + ((c[i] + 32) >> 6));
+      for (int i = 0; i < 4; ++i) {
+        ls += c[(ly + i) * 25 + lx - 1];
+        ts += c[(ly - 1) * 25 + lx + i];
+      }
+      pred = dc_value(ls, ts, bL, bT, 2);
     }
-    __syncwarp();
+    const int sad = half_sum(abs(pred - s), t.upper);
+    const bool legal = (!t.need_t || bT) && (!t.need_l || bL);
+    const int pm = bL && bT ? min(sm.grid[1 + by][bx], sm.grid[by][1 + bx])
+                            : 2;
+    if (p == 0)
+      atomicMin(&sm.keys[L & 1][t.slot],
+                legal ? (sad + lam * (t.m == pm ? 1 : 4)) << 4 | t.m
+                      : INT_MAX);
   }
-  return total;
+  if (t.slot == 0 && t.m == 0 && t.p < 2) sm.keys[(L + 1) & 1][t.p] = INT_MAX;
+  group_sync(BAR_I4, I4_THREADS);
+  const int key = sm.keys[L & 1][t.slot];
+  if (valid) total += key >> 4;
+  const bool chosen = valid && t.m == (key & 15);
+  if (__any_sync(FULL, chosen)) {
+    const int px = t.px, py = t.py;
+    int w = s - pred;
+    w = fwd4_at(__shfl_sync(FULL, w, 0, 4), __shfl_sync(FULL, w, 1, 4),
+                __shfl_sync(FULL, w, 2, 4), __shfl_sync(FULL, w, 3, 4), px);
+    w = fwd4_at(__shfl_sync(FULL, w, px, 16),
+                __shfl_sync(FULL, w, px + 4, 16),
+                __shfl_sync(FULL, w, px + 8, 16),
+                __shfl_sync(FULL, w, px + 12, 16), py);
+    const int z = (abs(w) * mf + qf) >> qbits;
+    const int q = w < 0 ? -z : z;
+    const int v = q * dq;
+    int cf = qdiv >= 4 ? v * (1 << (qdiv - 4))
+                       : (v + (1 << (3 - qdiv))) >> (4 - qdiv);
+    cf = inv4_at(__shfl_sync(FULL, cf, 0, 4), __shfl_sync(FULL, cf, 1, 4),
+                 __shfl_sync(FULL, cf, 2, 4), __shfl_sync(FULL, cf, 3, 4),
+                 px);
+    cf = inv4_at(__shfl_sync(FULL, cf, px, 16),
+                 __shfl_sync(FULL, cf, px + 4, 16),
+                 __shfl_sync(FULL, cf, px + 8, 16),
+                 __shfl_sync(FULL, cf, px + 12, 16), py);
+    if (chosen) {
+      sm.ctx[ly + py][lx + px] = clamp255(pred + ((cf + 32) >> 6));
+      sm.q4[r][t.p] = q;
+      if (t.p == 0) {
+        sm.grid[1 + by][1 + bx] = t.m;
+        sm.m4[r] = t.m;
+      }
+    }
+  }
+  group_sync(BAR_I4, I4_THREADS);
 }
 
-// intra chroma: the mode from the U + V SAD, then per plane the 4x4
-// transforms, the 2x2 DC path and the recon, straight to the planes
-__device__ void encode_chroma(Smem& sm, int qpc, bool aL, bool aT, int* U,
-                              int* V, int cws, int* row, int lane) {
+// I4x4 on the I4_THREADS threads: the blocks by dependency level, each
+// mode chosen by SAD + lambda x (1 for the most probable mode, else 4),
+// quantized and reconstructed in sm.ctx before the levels that read it.
+// Leaves each slot's summed cost in sm.total.
+__device__ void encode_i4(Smem& sm, const int* src, int qp, bool aL, bool aT,
+                          bool aTR, const I4Lane& t) {
+  const int lam = sm.tab[T_LAM + qp];
+  const int qbits = 15 + qp / 6, qdiv = qp / 6;
+  const int qf = (1 << qbits) / 3;
+  const int mf = sm.tab[T_MF + (qp % 6) * 16 + t.p];
+  const int dq = sm.tab[T_FLAT + t.p] * sm.tab[T_DEQ + (qp % 6) * 16 + t.p];
+  int total = 0;
+#define I4_LEVEL(L)                                                        \
+  i4_level<L>(sm, src, t, aL, aT, aTR, lam, mf, qf, qbits, qdiv, dq, total)
+  I4_LEVEL(0);
+  I4_LEVEL(1);
+  I4_LEVEL(2);
+  I4_LEVEL(3);
+  I4_LEVEL(4);
+  I4_LEVEL(5);
+  I4_LEVEL(6);
+  I4_LEVEL(7);
+  I4_LEVEL(8);
+  I4_LEVEL(9);
+#undef I4_LEVEL
+  if (t.m == 0 && t.p == 0) sm.total[t.slot] = total;
+}
+
+// intra chroma on one warp: the mode from the U + V SAD, then per plane
+// the 4x4 transforms, the 2x2 DC path and the recon into the interior of
+// sm.cu / sm.cv, and the symbols straight to the symbol row
+__device__ void encode_chroma(Smem& sm, const int* su, const int* sv, int qpc,
+                              bool aL, bool aT, int* row, int lane) {
+  const Chroma pu = chroma_params(sm.cu, aL, aT);
+  const Chroma pv = chroma_params(sm.cv, aL, aT);
   int sad[4] = {0, 0, 0, 0};
-  for (int p = lane; p < 64; p += NTHREADS) {
+  for (int p = lane; p < 64; p += 32) {
 #pragma unroll
     for (int m = 0; m < 4; ++m)
-      sad[m] += abs(sm.su[p] - chroma_pred(sm.cu, m, aL, aT, p)) +
-                abs(sm.sv[p] - chroma_pred(sm.cv, m, aL, aT, p));
+      sad[m] += abs(su[p] - chroma_at(sm.cu, pu, m, p)) +
+                abs(sv[p] - chroma_at(sm.cv, pv, m, p));
   }
   const bool legal[4] = {true, aL, aT, aL && aT};
   int cmode = 0, best = 0;
@@ -425,13 +512,13 @@ __device__ void encode_chroma(Smem& sm, int qpc, bool aL, bool aT, int* U,
       cmode = m;
     }
   }
-  for (int q = lane; q < 128; q += NTHREADS)
-    sm.pc[q >> 6][q & 63] =
-        chroma_pred(q >= 64 ? sm.cv : sm.cu, cmode, aL, aT, q & 63);
+  for (int q = lane; q < 128; q += 32)
+    sm.pc[q >> 6][q & 63] = q >= 64 ? chroma_at(sm.cv, pv, cmode, q & 63)
+                                    : chroma_at(sm.cu, pu, cmode, q);
   __syncwarp();
   const int c = lane >> 2, b = lane & 3, by = b >> 1, bx = b & 1;
   if (lane < 8) {   // plane c, block b: transform and AC levels
-    const int* s = c ? sm.sv : sm.su;
+    const int* s = c ? sv : su;
     int w[16];
 #pragma unroll
     for (int k = 0; k < 16; ++k) {
@@ -470,18 +557,33 @@ __device__ void encode_chroma(Smem& sm, int qpc, bool aL, bool aT, int* U,
 #pragma unroll
     for (int k = 1; k < 16; ++k) w[k] = dequant(sm, sm.qc[c][b][k], k, qpc);
     idct16(w);
-    int* dst = c ? V : U;
+    int(&dst)[9][9] = c ? sm.cv : sm.cu;
 #pragma unroll
     for (int k = 0; k < 16; ++k) {
       const int y = 4 * by + (k >> 2), x = 4 * bx + (k & 3);
-      dst[(size_t)y * cws + x] = clamp255(sm.pc[c][y * 8 + x] + w[k]);
+      dst[1 + y][1 + x] = clamp255(sm.pc[c][y * 8 + x] + w[k]);
     }
     row[O_CDC + lane] = sm.cdq[c][b];
   }
-  for (int k = lane; k < 128; k += NTHREADS)
-    row[O_CAC + k] =
-        sm.qc[k >> 6][(k >> 4) & 3][sm.tab[T_ZZ + (k & 15)]];
+  for (int k = lane; k < 128; k += 32)
+    row[O_CAC + k] = sm.qc[k >> 6][(k >> 4) & 3][sm.tab[T_ZZ + (k & 15)]];
   if (lane == 0) row[O_CM] = cmode;
+}
+
+// cp.async of MB (r, x)'s source tiles into buf: 96 chunks of 16 bytes,
+// one per thread of the first 96
+__device__ __forceinline__ void stage_src(int* buf, const int* sY,
+                                          const int* sU, const int* sV, int r,
+                                          int x, int W, int CW, int tid) {
+  if (tid < 64) {
+    const int i = tid >> 2, q = tid & 3;
+    cp16(buf + i * 16 + q * 4, sY + (size_t)(16 * r + i) * W + 16 * x + 4 * q);
+  } else if (tid < 96) {
+    const int j = tid & 15, i = j >> 1, h = j & 1;
+    const int* s = tid < 80 ? sU : sV;
+    cp16(buf + (tid < 80 ? 256 : 320) + i * 8 + h * 4,
+         s + (size_t)(8 * r + i) * CW + 8 * x + 4 * h);
+  }
 }
 
 // sync[0]: the next MB row to claim; sync[1 + r]: MBs of row r finished
@@ -494,75 +596,152 @@ intra_enc_kernel(int* __restrict__ Y, int* __restrict__ U,
                  int* __restrict__ sym, int* __restrict__ sync, int mb_w,
                  int mb_h) {
   __shared__ Smem sm;
-  const int lane = threadIdx.x;
-  for (int i = lane; i < T_LEN; i += NTHREADS) sm.tab[i] = tables[i];
-  __syncwarp();
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  for (int i = tid; i < T_LEN; i += NTHREADS) sm.tab[i] = tables[i];
+  if (tid < 4) sm.keys[tid / 2][tid % 2] = INT_MAX;
+  __syncthreads();
+  // an I4x4 thread's constants: its slot, mode, sample, _TAB4 row, which
+  // neighbours its mode needs, and the blocks' top-right kinds
+  I4Lane t;
+  {
+    const int i = tid < I4_THREADS ? tid % SLOT : 0;
+    t.slot = tid >= SLOT && tid < I4_THREADS;
+    t.m = i >> 4;
+    t.p = tid & 15;
+    t.py = t.p >> 2;
+    t.px = t.p & 3;
+    t.warp = warp;
+    t.upper = tid & 16;
+    t.need_t = t.m == 0 || (t.m >= 3 && t.m <= 7);
+    t.need_l = t.m == 1 || (t.m >= 4 && t.m <= 6) || t.m == 8;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) t.trow[k] = sm.tab[T_TAB4 + i * 8 + k];
+    t.kinds = 0;
+    for (int r = 0; r < 16; ++r) t.kinds |= (sm.tab[T_TRK + r] & 3) << (2 * r);
+  }
   const int ws = mb_w * 16 + 2 * WPAD, cws = mb_w * 8 + 2 * WPAD;
   const int W = mb_w * 16, CW = mb_w * 8;
   for (;;) {
-    int r = 0;
-    if (lane == 0) r = atomicAdd(sync, 1);
-    r = __shfl_sync(0xffffffffu, r, 0);
+    if (tid == 0) sm.claim = atomicAdd(sync, 1);
+    __syncthreads();
+    const int r = sm.claim;
+    __syncthreads();
     if (r >= mb_h) return;
     int* const prog = sync + 1 + r;
     int seen = 0;
+    int staged = -1;   // the MB whose source tiles are in flight
+    // the MB rows (is intra, aL, aT, aTR) of MBs x + 1 and x + 2, loaded
+    // an MB ahead of their use
+    const int4* const row4 = reinterpret_cast<const int4*>(info) +
+                             (size_t)r * mb_w;
+    const int4 none = make_int4(0, 0, 0, 0);
+    int4 nxt = __ldg(row4), nxt2 = mb_w > 1 ? __ldg(row4 + 1) : none;
+    bool left_intra = false;
     for (int x = 0; x < mb_w; ++x) {
       const int mb = r * mb_w + x;
-      const int* const inf = info + (size_t)mb * 4;
-      if (!__ldg(inf)) {
-        publish(prog, x + 1, lane);
+      const int4 me = nxt;
+      nxt = nxt2;
+      nxt2 = x + 2 < mb_w ? __ldg(row4 + x + 2) : none;
+      const bool lft = left_intra;
+      left_intra = me.x != 0;
+      if (!me.x) {
+        if (tid == 0) rows::st_release(prog, x + 1);
         continue;
       }
-      const bool aL = __ldg(inf + 1), aT = __ldg(inf + 2),
-                 aTR = __ldg(inf + 3);
+      const bool aL = me.y, aT = me.z, aTR = me.w;
       const int qp = __ldg(qps + mb), qpc = __ldg(qpcs + mb);
-      // the source tiles (read-only) before the wait
-      for (int p = lane; p < 256; p += NTHREADS)
-        sm.src[p] = __ldg(sY + (size_t)(16 * r + (p >> 4)) * W + 16 * x +
-                          (p & 15));
-      for (int p = lane; p < 64; p += NTHREADS) {
-        const size_t o = (size_t)(8 * r + (p >> 3)) * CW + 8 * x + (p & 7);
-        sm.su[p] = __ldg(sU + o);
-        sm.sv[p] = __ldg(sV + o);
-      }
-      if (r > 0) wait_row(prog - 1, min(x + 2, mb_w), seen, lane);
+      const bool next = nxt.x != 0;
+      // this MB's source tiles unless staged, then the next MB's
+      if (staged != x) stage_src(sm.src[x & 1], sY, sU, sV, r, x, W, CW, tid);
+      cp_commit();
+      if (next) stage_src(sm.src[(x + 1) & 1], sY, sU, sV, r, x + 1, W, CW,
+                          tid);
+      cp_commit();
+      staged = next ? x + 1 : -1;
+      if (tid < 25) sm.grid[tid / 5][tid % 5] = 2;
       const int y0 = 16 * r + WPAD, x0 = 16 * x + WPAD;
       const int cy = 8 * r + WPAD, cx = 8 * x + WPAD;
-      for (int i = lane; i < 17 * 25; i += NTHREADS)
-        sm.ctx[i / 25][i % 25] =
-            __ldcg(Y + (size_t)(y0 - 1 + i / 25) * ws + x0 - 1 + i % 25);
-      for (int i = lane; i < 81; i += NTHREADS) {
-        const size_t o = (size_t)(cy - 1 + i / 9) * cws + cx - 1 + i % 9;
-        sm.cu[i / 9][i % 9] = __ldcg(U + o);
-        sm.cv[i / 9][i % 9] = __ldcg(V + o);
+      if (warp == 0) {
+        // an inter (or margin) left column from the plane, before the wait
+        int lv = 0;
+        if (!lft) {
+          if (lane < 16) lv = __ldcg(Y + (size_t)(y0 + lane) * ws + x0 - 1);
+          else if (lane < 24)
+            lv = __ldcg(U + (size_t)(cy + lane - 16) * cws + cx - 1);
+          else lv = __ldcg(V + (size_t)(cy + lane - 24) * cws + cx - 1);
+        }
+        if (r > 0) rows::wait_row(prog - 1, min(x + 2, mb_w), seen, lane);
+        // the row above: 25 luma words (top-left and top-right included)
+        // and 9 + 9 chroma words, through L2 (another SM wrote them)
+        int a = 0, b = 0;
+        if (lane < 25) a = __ldcg(Y + (size_t)(y0 - 1) * ws + x0 - 1 + lane);
+        if (lane < 9) b = __ldcg(U + (size_t)(cy - 1) * cws + cx - 1 + lane);
+        else if (lane < 18)
+          b = __ldcg(V + (size_t)(cy - 1) * cws + cx - 10 + lane);
+        if (lane < 25) sm.ctx[0][lane] = a;
+        if (lane < 9) sm.cu[0][lane] = b;
+        else if (lane < 18) sm.cv[0][lane - 9] = b;
+        if (!lft) {
+          if (lane < 16) sm.ctx[1 + lane][0] = lv;
+          else if (lane < 24) sm.cu[lane - 15][0] = lv;
+          else sm.cv[lane - 23][0] = lv;
+        }
       }
-      __syncwarp();
+      cp_wait<1>();
+      __syncthreads();
+      const int* const src = sm.src[x & 1];
       int* const row = sym + (size_t)mb * ROW;
-      int sad16 = 0;
-      const int mode16 = encode_i16(sm, qp, aL, aT, lane, &sad16);
-      const int cost4 = encode_i4(sm, qp, aL, aT, aTR, lane);
+      if (tid < I4_THREADS)
+        encode_i4(sm, src, qp, aL, aT, aTR, t);
+      else if (warp == W16)
+        encode_i16(sm, src, qp, aL, aT, lane);
+      else
+        encode_chroma(sm, src + 256, src + 320, qpc, aL, aT, row, lane);
+      __syncthreads();
       // the I16x16 header / mode-bit allowance
-      const bool use4 = cost4 < sad16 + sm.tab[T_LAM + qp] * 6;
-      if (lane == 0) {
-        row[O_I16] = mode16;
+      const bool use4 =
+          sm.total[0] + sm.total[1] < sm.sad16 + sm.tab[T_LAM + qp] * 6;
+      // the bottom rows, which the row below reads, then the publish
+      int* const Yt = Y + (size_t)y0 * ws + x0;
+      int* const Ut = U + (size_t)cy * cws + cx;
+      int* const Vt = V + (size_t)cy * cws + cx;
+      if (tid < 16)
+        Yt[15 * ws + tid] = use4 ? sm.ctx[16][1 + tid] : sm.t16[240 + tid];
+      else if (tid < 24) Ut[7 * cws + tid - 16] = sm.cu[8][tid - 15];
+      else if (tid < 32) Vt[7 * cws + tid - 24] = sm.cv[8][tid - 23];
+      rows::publish_block(prog, x + 1);
+      // the other rows (240 + 56 + 56 words, a thread each), the symbols
+      // (read by no other MB), and the right columns that the next MB
+      // takes as its left
+      if (tid < 240) {
+        const int y = tid >> 4, xx = tid & 15;
+        Yt[y * ws + xx] = use4 ? sm.ctx[1 + y][1 + xx] : sm.t16[tid];
+      } else {
+        const int j = (tid - 240) % 56;
+        const int(&c)[9][9] = tid < 296 ? sm.cu : sm.cv;
+        (tid < 296 ? Ut : Vt)[(j >> 3) * cws + (j & 7)] =
+            c[1 + (j >> 3)][1 + (j & 7)];
+      }
+      if (tid == 0) {
+        row[O_I16] = sm.mode16;
         row[O_CLS] = use4 ? 0 : 1;
       }
-      if (lane < 16) {
-        row[O_I4 + lane] = sm.m4[lane];
-        row[O_LDC + lane] = use4 ? 0 : sm.qdc[sm.tab[T_ZZ + lane]];
+      if (tid < 16) {
+        row[O_I4 + tid] = sm.m4[tid];
+        row[O_LDC + tid] = use4 ? 0 : sm.qdc[sm.tab[T_ZZ + tid]];
       }
-      for (int k = lane; k < 256; k += NTHREADS) {
+      for (int k = tid; k < 256; k += NTHREADS) {
         const int b = k >> 4, z = sm.tab[T_ZZ + (k & 15)];
         row[O_LAC + k] = use4 ? sm.q4[b][z] : sm.q16[b][z];
-        const int y = k >> 4, xx = k & 15;
-        Y[(size_t)(y0 + y) * ws + x0 + xx] =
-            use4 ? sm.ctx[1 + y][1 + xx] : sm.t16[k];
       }
-      encode_chroma(sm, qpc, aL, aT, U + (size_t)cy * cws + cx,
-                    V + (size_t)cy * cws + cx, cws, row, lane);
-      publish(prog, x + 1, lane);
+      if (warp == 0) {
+        if (lane < 16)
+          sm.ctx[1 + lane][0] = use4 ? sm.ctx[1 + lane][16]
+                                     : sm.t16[lane * 16 + 15];
+        else if (lane < 24) sm.cu[lane - 15][0] = sm.cu[lane - 15][8];
+        else sm.cv[lane - 23][0] = sm.cv[lane - 23][8];
+      }
     }
-    __syncwarp();
   }
 }
 

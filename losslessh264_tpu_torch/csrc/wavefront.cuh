@@ -6,7 +6,12 @@
 // own progress after its stores (a fence, then a release store). Items
 // are claimed in order by CTAs that are already running, so a CTA only
 // ever waits on a row that a running CTA holds: no deadlock at any
-// residency, and no cooperative launch.
+// residency, and no cooperative launch. The intra kernels K3 and K4 run
+// a CTA of several warps per row with the same claim order, so the
+// argument holds for them unchanged: a CTA of any size waits only on a
+// row that an earlier, running CTA holds. Their hand-off is block-wide
+// (publish_block): every thread's stores, a barrier, then one thread's
+// fence and release store.
 #pragma once
 
 #include <atomic>
@@ -40,6 +45,16 @@ __device__ __forceinline__ void publish(int* prog, int done, int lane) {
   __threadfence();
   __syncwarp();
   if (lane == 0) st_release(prog, done);
+}
+
+// the same for a whole CTA: __syncthreads orders every thread's stores
+// before thread 0's fence and release store
+__device__ __forceinline__ void publish_block(int* prog, int done) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    st_release(prog, done);
+  }
 }
 
 // Zero `sync_ints` ints of the sync scratch on `st`, then launch

@@ -353,6 +353,13 @@ def _intra_wavefront_launch(mb_w, mb_h, srcY, srcU, srcV, inter_y, inter_u,
         *(ctypes.c_void_p(a.data_ptr()) for a in ops), mb_w, mb_h,
         _build.stream(srcY.device)), "intra encode")
     _build.count_launch(intra_wavefront)
+    return k4_results(mb_w, mb_h, ops)
+
+
+def k4_results(mb_w, mb_h, ops):
+    """intra_wavefront's results from the operands of a pip_intra_enc
+    launch (k4_operands): the symbol columns of the rows (K4_ROW) and the
+    uint8 recon cropped from the working planes."""
     n = mb_w * mb_h
     H, W = mb_h * 16, mb_w * 16
     Yw, Uw, Vw, sym = ops[0], ops[1], ops[2], ops[10]

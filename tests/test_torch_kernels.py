@@ -26,7 +26,8 @@ import torch
 from losslessh264_tpu_torch import decoder_torch as dt
 from losslessh264_tpu_torch import encoder_torch as et
 from losslessh264_tpu_torch import native
-from losslessh264_tpu_torch.cases import (moving_frames, random_deblock_case,
+from losslessh264_tpu_torch.cases import (INTRA_CLASSES, moving_frames,
+                                          random_deblock_case,
                                           random_intra_case,
                                           random_intra_encode_case)
 from losslessh264_tpu_torch.ops import deblock as tdb
@@ -65,6 +66,31 @@ def test_wrappers_take_plain_version_on_cpu():
     assert et.intra_wavefront.launches == 0
 
 
+def test_intra_case_options():
+    """The generator options behind the kernels' new cases do what the
+    docstrings say: classes=(0,), t8_share=0 gives only I4x4 MBs with
+    every 4x4 mode and every availability flag both set and clear; the
+    default mix holds every class; mask="stripes" makes every MB intra
+    but those with (x + y) % 3 == 2, with inter tiles only there."""
+    *_, p = random_intra_case(80, 45, 1, 7, classes=(0,), t8_share=0)
+    assert set(p["mb_class"].unique().tolist()) == {0}
+    assert not p["transform8"].any()
+    assert set(p["i4_modes"].unique().tolist()) == set(range(9))
+    for k in range(4):
+        assert set(p["avail"][..., k].unique().tolist()) == {False, True}
+    *_, p = random_intra_case(9, 4, 1, 0)
+    assert set(p["mb_class"].unique().tolist()) == set(INTRA_CLASSES)
+    assert 0 < p["transform8"].float().mean() < 1
+    case = random_intra_encode_case(7, 5, 12, 28, "stripes")
+    y, x = np.divmod(np.arange(35), 7)
+    assert (case["is_intra"] == ((x + y) % 3 != 2)).all()
+    inter = case["inter_y"].reshape(35, -1).any(1)
+    assert (inter == ~case["is_intra"]).all()
+    assert random_intra_encode_case(7, 5, 12, 28)["is_intra"].all()
+    with pytest.raises(ValueError, match="mask"):
+        random_intra_encode_case(7, 5, 12, 28, "rows")
+
+
 def test_kernel_entries_refuse_cpu_tensors():
     x = torch.zeros((40, 52), dtype=torch.uint8)
     with pytest.raises(ValueError, match="CUDA"):
@@ -90,19 +116,23 @@ def _encode_args(case, device):
             case["row_slice"])
 
 
-# K3 on random cases: (mb_w, mb_h, B, seed), 720p single and batched,
-# a row of one MB and a frame of one MB row
-K3_CASES = [(9, 4, 1, 0), (9, 4, 4, 1), (22, 18, 1, 2), (80, 45, 1, 3),
-            (80, 45, 4, 4), (1, 9, 2, 5), (7, 1, 3, 6)]
+# K3 on random cases: (mb_w, mb_h, B, seed, options of random_intra_case),
+# 720p single and batched, a row of one MB and a frame of one MB row, a
+# 720p frame of I4x4 MBs only (every 4x4 mode and availability on the
+# blocks' dependency levels), and 720p's MB row and MB column
+K3_CASES = [(9, 4, 1, 0, {}), (9, 4, 4, 1, {}), (22, 18, 1, 2, {}),
+            (80, 45, 1, 3, {}), (80, 45, 4, 4, {}), (1, 9, 2, 5, {}),
+            (7, 1, 3, 6, {}), (80, 45, 1, 7, {"classes": (0,), "t8_share": 0}),
+            (80, 1, 1, 8, {}), (1, 45, 1, 9, {})]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("mb_w,mb_h,B,seed", K3_CASES)
-def test_intra_dec_kernel_on_card(cuda_device, mb_w, mb_h, B, seed):
+@pytest.mark.parametrize("mb_w,mb_h,B,seed,opts", K3_CASES)
+def test_intra_dec_kernel_on_card(cuda_device, mb_w, mb_h, B, seed, opts):
     """K3 equals the plain compact-carry pass on the card, 5 launches over
     the B frames and one on the first frame alone: a race on the row
     progress flags would show as a launch that differs."""
-    case = random_intra_case(mb_w, mb_h, B, seed, cuda_device)
+    case = random_intra_case(mb_w, mb_h, B, seed, cuda_device, **opts)
     want = dt._intra_scan_plain(mb_w, mb_h, *case, dt.diagonals(mb_w, mb_h))
     before = tintra.intra_recon.launches
     for _ in range(5):
@@ -114,18 +144,25 @@ def test_intra_dec_kernel_on_card(cuda_device, mb_w, mb_h, B, seed):
     assert tintra.intra_recon.launches == before + 6
 
 
-# K4 on random cases: (mb_w, mb_h, seed, qp); odd seeds mask half the MBs
-K4_CASES = [(9, 4, 0, 26), (9, 4, 1, "aq"), (22, 18, 2, 0), (80, 45, 4, 28),
-            (80, 45, 5, "aq"), (1, 9, 6, 51), (7, 1, 7, 26)]
+# K4 on random cases: (mb_w, mb_h, seed, qp, intra mask of
+# random_intra_encode_case); odd seeds mask half the MBs. 720p all intra
+# at qp 0 and 51, 720p striped (intra MBs with intra and inter left
+# neighbours: the left column carried in shared memory and the one read
+# from the plane), and 720p's MB row and MB column
+K4_CASES = [(9, 4, 0, 26, None), (9, 4, 1, "aq", None), (22, 18, 2, 0, None),
+            (80, 45, 4, 28, None), (80, 45, 5, "aq", None),
+            (1, 9, 6, 51, None), (7, 1, 7, 26, None), (80, 45, 8, 0, None),
+            (80, 45, 10, 51, None), (80, 45, 12, 28, "stripes"),
+            (80, 1, 14, 26, None), (1, 45, 16, 26, None)]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("mb_w,mb_h,seed,qp", K4_CASES)
-def test_intra_enc_kernel_on_card(cuda_device, mb_w, mb_h, seed, qp):
+@pytest.mark.parametrize("mb_w,mb_h,seed,qp,mask", K4_CASES)
+def test_intra_enc_kernel_on_card(cuda_device, mb_w, mb_h, seed, qp, mask):
     """K4's 11 outputs equal the plain wavefront's on the card, 3
     launches."""
-    args = _encode_args(random_intra_encode_case(mb_w, mb_h, seed, qp),
-                        cuda_device)
+    args = _encode_args(random_intra_encode_case(mb_w, mb_h, seed, qp,
+                                                 mask), cuda_device)
     want = et.intra_wavefront_plain(mb_w, mb_h, *args)
     before = et.intra_wavefront.launches
     for _ in range(3):
