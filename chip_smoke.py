@@ -20,9 +20,11 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
      2x7; 20 launches per case, each exact against the plain result.
   5. decode: all 25 frames of synth720p with TorchDecoder(device="cuda");
      every frame's CRC32 of Y|U|V must equal the committed NpDecoder
-     goldens (tests/data/synth720p_np_crc.json), K1 must launch, K2
-     exactly once per frame that is deblocked, K3 once per frame with
-     intra MBs (frames 0, 10 and 20), K4 never.
+     goldens (tests/data/synth720p_np_crc.json), K2 must launch exactly
+     once per frame that is deblocked, K3 once per frame with intra MBs
+     (frames 0, 10 and 20), K6 once per P frame on the bucketed MC path
+     and K1 once per slot such a frame reads (a second, stage-timed
+     decode gives each frame's MC route), K4 and K5 never.
   6. encode: TorchEncoder(device="cuda") at 1280x720 on the first frames
      of phase 5's decode, in the configurations of
      tests/data/synth720p_enc_golden.json and its sibling
@@ -40,10 +42,11 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
      on the card must give back the encoder's recon after every reference
      frame and, for C, D and E, the JAX decoders' pictures of the golden
      (TorchDecoder; E: the port's SimulcastDecoder). K1 must launch once
-     per P encode, K2 once per encode that deblocks and K4 once per
-     encode with intra MBs, as JaxEncoder's control flow implies (no K2
+     per P encode, K2 once per encode that deblocks, K4 once per encode
+     with intra MBs and K5 once per reference a P encode searches (B's
+     second P frame two), as JaxEncoder's control flow implies (no K2
      for a fused-path non-reference P frame without intra MBs; a
-     size-capped slice's re-encode counts again), K3 never.
+     size-capped slice's re-encode counts again), K3 and K6 never.
      A first pass gives encode fps, a second the per-stage wall times of
      every frame (encoder_torch.StageTimer).
   7. older encoder: losslessh264_tpu_torch.encoder.Encoder(1280, 720,
@@ -58,8 +61,8 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
      50 frames) through parallel.decode_yuv_gop_parallel with 2 workers
      (a TorchDecoder and a CUDA stream each), then through one sequential
      TorchDecoder; every frame's CRC32 must equal the golden,
-     twice over, and each decode must launch K1-K3 twice as often as
-     phase 5's decode (44, 50 and 6). Prints both fps.
+     twice over, and each decode must launch K1-K6 twice as often as
+     phase 5's decode (K1 44, K2 50, K3 6, K6 44). Prints both fps.
   9. CLI: `python -m losslessh264_tpu_torch walk_analog.264 x.pip
      --shards 4` (must equal native.compress_sharded and decompress to
      the input) and `roundtrip ... --shards 4` (must print bit-exact), as
@@ -67,16 +70,17 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
  10. graft: graft_entry.dryrun_multichip(2) on the card, two gloo ranks
      at 80x45 MBs; each rank's recY, mvx and bits must equal the step in
      this process, the all-reduced total their sum, and each rank must
-     launch K1 and K2 once (K3 and K4 never, in this process's runs).
+     launch K1, K2 and K5 once (K3, K4 and K6 never, in this process's
+     runs).
  11. runs decode: tests/data/runs720p.264 (tools/gen_run_streams.py)
      with TorchDecoder on the card: four IDRs as one all-intra batch
      (recon_intra_batch), then P frames whose intra MBs populate 0, 1, 8
      and 42 of the 168 diagonals (no intra pass, the sparse pass over the
      populated ones, the full table). Every frame's CRC32 must equal
      NpDecoder's (tests/data/runs720p_np_crc.json), each frame must take
-     its route, K2 must launch once per deblocked frame, K1 as the MC
-     plans imply and K3 once per route with an intra pass (the batch of 4
-     once: 4 in all). A stage-timed decode prints each frame's intra ms on
+     its route, K2 must launch once per deblocked frame, K1 and K6 as the
+     MC plans imply and K3 once per route with an intra pass (the batch of
+     4 once: 4 in all). A stage-timed decode prints each frame's intra ms on
      its route (K3) beside the plain full-table pass on the same planes
      (and requires the two equal).
  12. encode runs: configuration G (tests/data/synth720p_enc_golden_g.json,
@@ -84,9 +88,8 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
      3): an IDR and two runs of 3 P frames, each run's entropy written on
      a writer thread while the next run's device work goes on. SHA-256 of
      every frame, the recon after the runs, frames 0-3 also against
-     golden A, K1 / K2 / K4 as the encodes imply; then the 6 P frames in
-     turns
-     one encode_frame each and in runs, from the IDR's state, each turn
+     golden A, K1 / K2 / K4 / K5 as the encodes imply; then the 6 P
+     frames in turns one encode_frame each and in runs, from the IDR's state, each turn
      held to the golden: P-frame fps of both, the writer's ms and the ms
      the caller waited for it.
  13. K3 and K4 against their plain versions on the card, exact: K3 on
@@ -102,11 +105,22 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
      0's full pass; K4: A's IDR): wrapper, kernel alone, plain version,
      bound and chain length; and each kernel alone on the 80x1 row (the MB's
      own compute) and the 1x45 column (compute and hand-off), per MB.
- 14. times: K1 at 720p, 1080p, 2160p and on the encoder's refs=2 plane
+ 14. K5 and K6 against their plain versions on the card, exact: K5 on
+     cases.K5_CASES (720p radius 16 on noise, flat and periodic planes,
+     64x48 at radius 4-6, 40x23 and 30x7 MBs, radius 8 and 22, scrolled
+     and strided reference windows; 3 launches each) and synth720p frame
+     1 against frame 0, refusing radius 23; K6 on cases.K6_CASES (1, 2
+     and 32 table triples, 1 and 2 slots, 0 and 512 fix-up cells, MVs at
+     +-MC_MV_MAX; 3 launches each) and every bucketed P frame of
+     synth720p and runs720p, refusing a window off the planes. Their
+     times: K5 at 720p radius 16 on the synth720p pair, K6 per bucketed P
+     frame of synth720p: wrapper, kernel alone, plain version, bound.
+ 15. times: K1 at 720p, 1080p, 2160p and on the encoder's refs=2 plane
      (784x2688), both entries, wrapper and kernel alone, beside their
      bounds, its plain version and the conv2d yardstick; K2 against its
-     plain version at 720p (CUDA events); a per-stage breakdown of every
-     decoded frame (deblock split into edge parameters, K2 and crop);
+     plain version at 720p (CUDA events); the per-stage breakdown of every
+     decoded frame from phase 5's stage-timed decode (deblock split into
+     edge parameters, K2 and crop);
      then torch.profiler windows (decode: P frames 1-3, intra frame 10;
      encode A: P frames 1-3) with the device busy share. A profiler
      session slows the host's launches after it, so the windows come
@@ -115,12 +129,14 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
 The line before the last is the kernel report
 {"kernels": [{"name", "route", "source", "replaces", "launches",
 "launches_per_decode", "launches_per_encode", "max_abs_err", "ms",
-"plain_ms", "bound_ms", "bound_by", "library_ms"}, ...]} for K1-K4,
+"plain_ms", "bound_ms", "bound_by", "library_ms"}, ...]} for K1-K6,
 preceded by the card line; `launches` counts phases 5-12, and
 `launches_per_decode`,
 `_per_encode`, `_per_older_encode`, `_per_gop_parallel_decode`,
 `_per_graft_ranks`, `_per_runs_decode` and `_per_encode_runs` each path's
-own count. For K1:
+own count (K1 and K2 print `launches_per_decode` and `_per_encode` and
+the other paths; K3-K6 every path, `launches_per_decode` included). For
+K1:
 `ms`, `kernel_ms`, `bound_ms` and `bound_by` are its int32 entry's at
 720p, and `ms_uint8_entry`, `kernel_ms_uint8_entry` and
 `bound_ms_uint8_entry` those of the uint8 entry that the decode and
@@ -143,7 +159,16 @@ the wavefront's dependent MB steps, `row_80x1_ms` / `column_1x45_ms`
 the kernel alone on one 720p MB row (the MB's own compute, no wait) and
 one MB column (compute and hand-off at every MB), with their
 `_us_per_mb`, `library_ms` null (no PyTorch call computes them); K3's
-`replaces_also` names the two other JAX scans it serves. The last line
+`replaces_also` names the two other JAX scans it serves. K5's `ms` is
+the wrapper at 720p radius 16, `kernel_ms` the bare C entry (a CUDA
+graph's replays), with its `operations`, `bytes` and `bound_share`; K6's
+are the means over synth720p's bucketed P frames (`frames` of them; its
+wrapper's `ms` holds the K1 launch and the fix-ups around the kernel).
+K6's `operands_ms` and `fixups_ms` split its wrapper: K1, the window
+checks and the outputs (`ops/mc.k6_operands`), and the per-cell fix-ups
+(`_mc_fixups`). K5's `int32_rate_ms` is its operations at the int32
+lane rate (see Bounds). `library_ms` is null for K2-K6 (no PyTorch call
+computes them). The last line
 is {"ok": true, "device": {"platform": "gpu", ...}}. Without a GPU, or without the package beside it, the script
 exits non-zero and prints no result.
 
@@ -151,9 +176,13 @@ Bounds: the larger of the bytes each kernel must move (every input read
 once, every output written once) over 3.35 TB/s, and its integer
 operations over 33.5 TOP/s (the H100 SXM's 67 TFLOP/s float32 rate
 outside the tensor cores, halved: an SM has half as many int32 lanes as
-float32 lanes). K1, K2 and K3 are bound by bytes, K4 by operations
-(K3_OPS_PER_MB, K4_OPS_PER_MB); K2, K3 and K4 are far from the bound, a
-chain of dependent MB steps.
+float32 lanes). K5's operations are on 8-bit samples, and the kernel runs
+them 4 to a 32-bit instruction, so the int32 rate is no bound for it:
+its operations count at the card's 8-bit peak, 1979 TOP/s (int8, tensor
+cores). K1, K2, K3 and K6 are bound by bytes, K4 and K5 by operations
+(K3_OPS_PER_MB, K4_OPS_PER_MB, k5_bytes_ops: 3 per pixel and
+displacement); K2, K3 and K4 are far from the bound, a chain of
+dependent MB steps.
 """
 import ctypes
 import json
@@ -180,6 +209,7 @@ RUNS_STREAM = os.path.join(ROOT, "tests", "data", "runs720p.264")
 RUNS_GOLDEN = os.path.join(ROOT, "tests", "data", "runs720p_np_crc.json")
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 INT32_OPS_PER_S = 33.5e12     # see the module docstring
+INT8_OPS_PER_S = 1979e12      # H100 SXM int8 peak (tensor cores, dense)
 # K1's timed sizes: the edge-padded (PAD = 32) luma reference of 720p,
 # 1080p (1088 coded rows) and 2160p, and the encoder's two 720p
 # references side by side (refs=2)
@@ -199,17 +229,18 @@ def log(*a):
     print(*a, flush=True)
 
 
-KERNELS = ("K1", "K2", "K3", "K4")
+KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6")
 
 
 def wrappers():
-    """The wrappers whose `launches` count K1-K4, in KERNELS order."""
+    """The wrappers whose `launches` count K1-K6, in KERNELS order."""
     from losslessh264_tpu_torch import encoder_torch as et
     from losslessh264_tpu_torch.ops import deblock as tdb
     from losslessh264_tpu_torch.ops import intra as tintra
     from losslessh264_tpu_torch.ops import mc as tmc
+    from losslessh264_tpu_torch.ops import me as tme
     return (tmc.halfpel_planes, tdb.deblock_wavefront, tintra.intra_recon,
-            et.intra_wavefront)
+            et.intra_wavefront, tme.dense_full_search, tmc.mc_bucketed)
 
 
 def reset_launches():
@@ -218,7 +249,7 @@ def reset_launches():
 
 
 def launches_now():
-    """(K1, K2, K3, K4) launches since the last reset_launches()."""
+    """(K1, ..., K6) launches since the last reset_launches()."""
     return tuple(w.launches for w in wrappers())
 
 
@@ -252,10 +283,10 @@ def max_abs_err(x, y):
     return int((x.to(torch.int64) - y.to(torch.int64)).abs().max().item())
 
 
-def bound_ms(n_bytes, n_ops):
+def bound_ms(n_bytes, n_ops, ops_per_s=INT32_OPS_PER_S):
     """(the least time the card could take, what bounds it)."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / INT32_OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -398,7 +429,9 @@ def k2_bytes(mb_w, mb_h):
 def stage_decode(data, device):
     """One decode of the stream with a synchronised timer around every
     stage of TorchDecoder._decode_one (deblock split into _edge_params,
-    the K2 wrapper and the crop); returns per-frame rows."""
+    the K2 wrapper and the crop); returns per-frame rows, each with the
+    frame's MC route (`bucketed`: mc_bucketed, one K6 launch) and the K1
+    launches that route implies (one per active slot)."""
     from losslessh264_tpu_torch import decoder_torch as dt
     from losslessh264_tpu_torch.ops import deblock as tdb
     dec = dt.TorchDecoder(data, device=device)
@@ -444,10 +477,13 @@ def stage_decode(data, device):
         t4 = now()
         dec._finish_frame(f, Y, U, V, False)
         t5 = now()
+        bucketed = bool(planes_np["mc_any"] and planes_np["mc_fast"])
         rows.append(dict(
             frame=len(rows), n_intra=int(sum(
                 (f["mb_class"] == c).sum() for c in (0, 1, 2))),
-            mc_fast=bool(planes_np["mc_fast"]), deblocked=bool(deblocked),
+            mc_fast=bool(planes_np["mc_fast"]), bucketed=bucketed,
+            k1=bucketed * (1 + (int(planes_np["mc_nslots"]) > 1)),
+            deblocked=bool(deblocked),
             host_ms=(t1 - t0) * 1e3, residual_inter_ms=(t2 - t1) * 1e3,
             intra_ms=(t3 - t2) * 1e3, edge_params_ms=(t3a - t3) * 1e3,
             k2_ms=(t3b - t3a) * 1e3, crop_ms=(t4 - t3b) * 1e3,
@@ -455,26 +491,37 @@ def stage_decode(data, device):
 
 
 def expected_launches(runs):
-    """(K1, K2, K3, K4) launches that JaxEncoder's control flow implies
-    for the encodes `runs` ((deblock_idc, kind, path, is_ref, intra MBs)
-    each, from TorchEncoder.encodes): K1 once per P encode; K2 once per
-    encode that deblocks, which is every encode with the filter on but a
-    fused-path P frame that is not a reference and has no intra MB; K3
-    never (an encoder decodes nothing); K4 once per encode with an intra
-    MB (every IDR, and each P frame with intra-fallback MBs)."""
-    k1 = sum(kind == "P" for _, kind, _, _, _ in runs)
+    """(K1, ..., K6) launches that JaxEncoder's control flow implies for
+    the encodes `runs` ((deblock_idc, kind, path, is_ref, intra MBs,
+    references searched) each, from TorchEncoder.encodes and
+    refs_searched): K1 once per P encode; K2 once per encode that
+    deblocks, which is every encode with the filter on but a fused-path P
+    frame that is not a reference and has no intra MB; K3 never (an
+    encoder decodes nothing); K4 once per encode with an intra MB (every
+    IDR, and each P frame with intra-fallback MBs); K5 once per reference
+    a P encode searches; K6 never."""
+    k1 = sum(kind == "P" for _, kind, _, _, _, _ in runs)
     k2 = sum(idc != 1 and bool(path == "aq" or kind == "I" or is_ref
                                or n_intra)
-             for idc, kind, path, is_ref, n_intra in runs)
-    k4 = sum(kind == "I" or n_intra > 0 for _, kind, _, _, n_intra in runs)
-    return k1, k2, 0, k4
+             for idc, kind, path, is_ref, n_intra, _ in runs)
+    k4 = sum(kind == "I" or n_intra > 0 for _, kind, _, _, n_intra, _ in runs)
+    k5 = sum(refs for _, kind, _, _, _, refs in runs if kind == "P")
+    return k1, k2, 0, k4, k5, 0
+
+
+def refs_searched(enc, path, had_ref2):
+    """The references a P encode of TorchEncoder `enc` searches (one K5
+    launch each): two on the fused path of a refs=2 encoder whose second
+    reference was set when encode_frame was called (`had_ref2`), else
+    one (the per-MB QP path and the P runs search one)."""
+    return 2 if path == "fused" and enc.refs == 2 and had_ref2 else 1
 
 
 def encode_phase(frames, dev, card):
     """Phase 6: configurations A and B of the encode golden, and C, D and
     E of its sibling, on the card. `frames` are phase 5's decoded frames
     (host tensors), which that phase held to the NpDecoder CRCs the
-    golden's source frames also match. Returns the K1-K4 launches of the
+    golden's source frames also match. Returns the K1-K6 launches of the
     encode pass, the number of frames encoded, and C's per-MB qp plane of
     its IDR (phase 13 holds K4 to its plain version on it)."""
     import hashlib
@@ -505,11 +552,13 @@ def encode_phase(frames, dev, card):
             if stages:
                 for e in layers:
                     e.stages = et.StageTimer(dev)
+            had_ref2 = [e._ref2 is not None for e in layers]
             out.append(enc.encode_frame_layers(*f) if "simulcast" in cfg
                        else enc.encode_frame(*f))
             recon.append([tuple(p.clone() for p in e.ref) for e in layers])
             qp_planes.append(getattr(enc, "_qp_plane", None))
-            runs += [(e.deblock_idc,) + r for e in layers for r in e.encodes]
+            runs += [(e.deblock_idc,) + r + (refs_searched(e, r[1], h2),)
+                     for e, h2 in zip(layers, had_ref2) for r in e.encodes]
             if stages:
                 rows.append([e.stages.ms for e in layers])
         torch.cuda.synchronize()
@@ -586,11 +635,11 @@ def encode_phase(frames, dev, card):
             f"{len(out)} frames {W}x{H} match the JAX golden (SHA-256 and "
             f"recon CRC32); {wall:.3f} s = {len(out) / wall:.4f} fps on "
             f"{card}; bytes {sizes}; "
-            f"encodes (kind, path, is_ref, intra MBs) "
+            f"encodes (kind, path, is_ref, intra MBs, refs searched) "
             f"{[r[1:] for r in runs]}; launches {launch_str(got)}, implied "
             f"{launch_str(want)}")
-        if got != want or want[0] == 0:
-            raise SystemExit(f"encode {name}: K1-K4 launched {got}, the "
+        if got != want or want[0] == 0 or want[4] == 0:
+            raise SystemExit(f"encode {name}: K1-K6 launched {got}, the "
                              f"encodes imply {want}")
         for k, v in zip(KERNELS, got):
             launches[k] += v
@@ -657,9 +706,10 @@ def older_encode_phase(frames, dev, card):
                              f"sha256 {sha[:16]} ref crc {c}, golden "
                              f"{g['bytes']} {g['sha256'][:16]} "
                              f"{g['recon_crc32']}")
-    if got != (0, 0, 0, 0):
-        raise SystemExit(f"older encoder: K1-K4 launched {got}; the "
-                         "integer-pel, unfiltered path launches none")
+    if got != (0,) * len(KERNELS):
+        raise SystemExit(f"older encoder: K1-K6 launched {got}; the "
+                         "integer-pel, unfiltered path (its window search "
+                         "is not the dense one) launches none")
     split = {k: round(v, 3) for k, v in enc.times.items()}
     log(f"older encoder F {cfg['older']}: {len(out)} frames {W}x{H} match "
         f"the JAX golden; {wall:.3f} s = {len(out) / wall:.4f} fps on "
@@ -691,7 +741,7 @@ def gop_parallel_phase(data, golden, dec_launches, dev, card):
     TorchDecoder: one pair keeps the smoke short (PERF.md has four runs
     in turns).
     Every frame's CRC32 must equal the NpDecoder golden, twice over, and
-    each decode must launch K1-K3 twice as often as phase 5's."""
+    each decode must launch K1-K6 twice as often as phase 5's."""
     from losslessh264_tpu_torch import decoder_torch as dt
     from losslessh264_tpu_torch import native
     from losslessh264_tpu_torch.parallel import decode_yuv_gop_parallel
@@ -726,7 +776,7 @@ def gop_parallel_phase(data, golden, dec_launches, dev, card):
             raise SystemExit(f"{name} decode of synth720p x2: {len(got)} "
                              f"frames, frame {bad} differs from the golden")
         if counts != want:
-            raise SystemExit(f"{name} decode of synth720p x2 launched K1-K4 "
+            raise SystemExit(f"{name} decode of synth720p x2 launched K1-K6 "
                              f"{counts}, expected {want}")
         if name == "parallel":
             launches = counts
@@ -779,19 +829,20 @@ def cli_phase(card):
 
 def graft_phase(dev, card, mb_w=80, mb_h=45):
     """Phase 10: graft_entry.dryrun_multichip(2) on the card: two gloo
-    ranks, each the encoder step at 80x45 MBs (encode_inter_mbs with K1,
-    _p_finish with K2, the coded-bits proxy) on its frame of a seeded
-    batch, the bits all-reduced. Each rank's recY, mvx and bits must equal
-    the same step run in this process, the reduced total their sum, and
-    each rank must launch K1 and K2 once; the step has no intra pass, so
-    its runs in this process launch neither K3 nor K4."""
+    ranks, each the encoder step at 80x45 MBs (encode_inter_mbs with K5
+    and K1, _p_finish with K2, the coded-bits proxy) on its frame of a
+    seeded batch, the bits all-reduced. Each rank's recY, mvx and bits
+    must equal the same step run in this process, the reduced total their
+    sum, and each rank must launch K1, K2 and K5 once; the step has no
+    intra pass and decodes nothing, so its runs in this process launch
+    neither K3, K4 nor K6."""
     from losslessh264_tpu_torch import graft_entry as ge
     reset_launches()
     t0 = time.perf_counter()
     ranks = ge.dryrun_multichip(2, device=dev.type, mb_w=mb_w, mb_h=mb_h)
     wall = time.perf_counter() - t0
     bits = []
-    for rank, recY, mvx, rbits, total, k1, k2, step_ms in ranks:
+    for rank, recY, mvx, rbits, total, k1, k2, k5, step_ms in ranks:
         want = ge.per_frame(mb_w, mb_h,
                             *ge.frame_args(mb_w, mb_h, 2, rank, dev))
         if not (np.array_equal(recY, want[0].cpu().numpy())
@@ -799,9 +850,9 @@ def graft_phase(dev, card, mb_w=80, mb_h=45):
                 and rbits == int(want[2])):
             raise SystemExit(f"graft rank {rank}: its step differs from the "
                              "same step in this process")
-        if (k1, k2) != (1, 1):
-            raise SystemExit(f"graft rank {rank}: K1/K2 launched {(k1, k2)}"
-                             ", once each expected")
+        if (k1, k2, k5) != (1, 1, 1):
+            raise SystemExit(f"graft rank {rank}: K1/K2/K5 launched "
+                             f"{(k1, k2, k5)}, once each expected")
         bits.append(rbits)
         log(f"graft rank {rank}: {mb_w}x{mb_h} MBs, recY {recY.shape}, "
             f"bits {rbits}, step {step_ms:.3f} ms (first call in the rank, "
@@ -812,14 +863,15 @@ def graft_phase(dev, card, mb_w=80, mb_h=45):
     # the step's warm time in this process
     args = ge.frame_args(mb_w, mb_h, 2, 0, dev)
     step = cuda_ms(lambda: ge.per_frame(mb_w, mb_h, *args), 5, warmup=1)
-    k3, k4 = launches_now()[2:]
-    if (k3, k4) != (0, 0):
-        raise SystemExit(f"graft: the step launched K3/K4 {(k3, k4)}")
+    k3, k4, k6 = (launches_now()[i] for i in (2, 3, 5))
+    if (k3, k4, k6) != (0, 0, 0):
+        raise SystemExit(f"graft: the step launched K3/K4/K6 "
+                         f"{(k3, k4, k6)}")
     log(f"graft dryrun: 2 ranks, total bits {sum(bits)} == the all-reduce; "
         f"{wall:.3f} s with process start; warm step {step:.3f} ms per rank "
         f"frame (CUDA events) on {card}")
     return {"K1": sum(r[5] for r in ranks), "K2": sum(r[6] for r in ranks),
-            "K3": k3, "K4": k4}
+            "K3": k3, "K4": k4, "K5": sum(r[7] for r in ranks), "K6": k6}
 
 
 def runs_routes(gold):
@@ -841,9 +893,9 @@ def runs_stage_decode(data, routes, dev):
     leading all-intra frames together, one per P frame with intra MBs)
     timed (synchronised) beside the plain compact-carry pass over the
     full table on the same planes (one frame at a time), which it must
-    equal. Returns per-frame rows and the K1 launches that the frames' MC
-    plans imply (one per bucketed P frame, two when it reads two ring
-    slots)."""
+    equal. Returns per-frame rows and the K1 and K6 launches that the
+    frames' MC plans imply (K6 once per bucketed P frame, K1 once per
+    bucketed P frame or twice when it reads two ring slots)."""
     from losslessh264_tpu_torch import decoder_torch as dt
 
     def now():
@@ -856,7 +908,7 @@ def runs_stage_decode(data, routes, dev):
     mb_w, mb_h = fs[0]["mb_w"], fs[0]["mb_h"]
     diags = dt.diagonals(mb_w, mb_h)
     dec._prep_refs(mb_w, mb_h)
-    rows, k1 = [], 0
+    rows, k1, k6 = [], 0, 0
     preps, works, slots = [], [], []
     for f in fs[:lead]:
         planes_np = dec._prep_planes(f)[0]
@@ -891,6 +943,7 @@ def runs_stage_decode(data, routes, dev):
         p = dt.planes_to_torch(planes_np, dec.device)
         if planes_np["mc_any"] and planes_np["mc_fast"]:
             k1 += 1 + (int(planes_np["mc_nslots"]) > 1)
+            k6 += 1
         work = dt._residual_and_inter(mb_w, mb_h, p, dec.ref_y, dec.ref_u,
                                       dec.ref_v)
         planes, t_route, t_plain = work[:3], 0.0, 0.0
@@ -910,7 +963,7 @@ def runs_stage_decode(data, routes, dev):
                          plain_ms=t_plain))
         dec._finish_frame(f, *dt._deblock_crop(mb_w, mb_h, *planes, p),
                           False)
-    return rows, k1
+    return rows, k1, k6
 
 
 def runs_decode_phase(dev, card):
@@ -920,8 +973,8 @@ def runs_decode_phase(dev, card):
     diagonal, 1, 8 or 42 of the 168 (no pass, the sparse pass over the
     populated ones, the full table). Every frame's CRC32 must equal
     NpDecoder's, each frame must take its route, K2 must launch once per
-    deblocked frame, K1 as the frames' MC plans imply and K3 once per
-    route that has an intra pass (the batch once). Then a stage-timed
+    deblocked frame, K1 and K6 as the frames' MC plans imply and K3 once
+    per route that has an intra pass (the batch once). Then a stage-timed
     decode prints each frame's intra ms on its route (K3) beside the
     plain full-table pass on the same planes."""
     from losslessh264_tpu_torch import decoder_torch as dt
@@ -951,10 +1004,10 @@ def runs_decode_phase(dev, card):
                          f"NpDecoder's at frames {bad}")
     if dec.routes != routes:
         raise SystemExit(f"runs720p routes {dec.routes}, expected {routes}")
-    rows, k1 = runs_stage_decode(data, routes, dev)
-    want = (k1, deblocked, k3, 0)
-    if got != want:
-        raise SystemExit(f"runs720p: K1-K4 launched {got}, the frames imply "
+    rows, k1, k6 = runs_stage_decode(data, routes, dev)
+    want = (k1, deblocked, k3, 0, 0, k6)
+    if got != want or k6 == 0:
+        raise SystemExit(f"runs720p: K1-K6 launched {got}, the frames imply "
                          f"{want}")
     log(f"runs decode: {len(frames)} frames of runs720p match the NpDecoder "
         f"CRCs; {wall:.3f} s = {len(frames) / wall:.3f} fps on {card}; "
@@ -982,7 +1035,8 @@ def encode_runs_phase(frames, dev, card):
     P frames, each run written on the writer thread while the next one's
     device work goes on. Every frame's SHA-256 must equal the golden, the
     recon after it the golden's run_recon_crc32, frames 0-3 golden A's
-    too, and K1 / K2 launch as the encodes imply. Then the 6 P frames
+    too, and K1 / K2 / K4 / K5 launch as the encodes imply. Then the 6 P
+    frames
     again from the IDR's state (load_state), in turns one encode_frame
     each and through encode_frames(batch=3), each turn held to the
     golden (per frame: bytes; the recon after each frame, or after the
@@ -1018,7 +1072,8 @@ def encode_runs_phase(frames, dev, card):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     got = launches_now()
-    runs = [(enc.deblock_idc,) + r for r in enc.encodes]
+    runs = [(enc.deblock_idc,) + r + (refs_searched(enc, r[1], False),)
+            for r in enc.encodes]
     want = expected_launches(runs)
     check("encode_frames", out)
     if crc(enc.ref) != cfg["run_recon_crc32"]:
@@ -1026,11 +1081,11 @@ def encode_runs_phase(frames, dev, card):
                          "from the golden")
     if [r[2] for r in runs] != ["fused"] + ["run"] * 6 or got != want:
         raise SystemExit(f"encode G: encodes {[r[1:] for r in runs]}, "
-                         f"K1-K4 launched {got}, implied {want}")
+                         f"K1-K6 launched {got}, implied {want}")
     log(f"encode G {cfg['kwargs']} batch {cfg['batch']}: {len(out)} frames "
         f"{W}x{H} match the JAX golden (SHA-256, the recon after the runs; "
         f"frames 0-3 golden A's); {wall:.3f} s = {len(out) / wall:.4f} fps "
-        f"on {card}; encodes (kind, path, is_ref, intra MBs) "
+        f"on {card}; encodes (kind, path, is_ref, intra MBs, refs searched) "
         f"{[r[1:] for r in runs]}; launches {launch_str(got)}, implied "
         f"{launch_str(want)}; writer {json.dumps(enc.prof)}")
 
@@ -1383,6 +1438,181 @@ def intra_kernels_phase(data, frames, c_idr_qp, dev, card):
     return k3, k4
 
 
+def k5_bytes_ops(H, W, R, cur_bytes):
+    """(bytes, operations) K5 must take: the source read once (in its
+    dtype), the reference window once, the 27n int32 outputs written
+    once; an absolute difference, its sum and the running compare for
+    every pixel at every displacement."""
+    n = (H // 16) * (W // 16)
+    n_bytes = cur_bytes * H * W + (H + 2 * R) * (W + 2 * R) + 4 * 27 * n
+    return n_bytes, 3 * (2 * R + 1) ** 2 * H * W
+
+
+def k6_bytes_ops(p, mb_w, mb_h):
+    """(bytes, operations) K6 must take for the plan `p`: the bucket
+    plane, the two luma taps of every pixel of a table cell and the four
+    chroma taps of its U and V pixels (uint8), and the three int32 planes
+    written once; a luma pixel is 3 operations, a chroma one 9."""
+    H, W = 16 * mb_h, 16 * mb_w
+    cells = int((p["mc_bucket"].to(torch.int32) < p["mc_nuniq"]).sum())
+    n_bytes = 16 * mb_w * mb_h + cells * (16 * 2 + 2 * 4 * 4) + 6 * H * W
+    return n_bytes, cells * (16 * 3 + 2 * 4 * 9)
+
+
+def search_mc_phase(data, frames, dev, card):
+    """Phase 14: K5 (csrc/me_dense.cu) and K6 (csrc/mc_bucket.cu) against
+    their plain versions on the card, torch.equal on every output: K5 on
+    the cases of cases.K5_CASES (3 launches each) and on synth720p's frame
+    1 against decoded frame 0 (edge-padded, sliced as the encoder slices
+    its reference), and refusing radius 23; K6 on cases.K6_CASES (3
+    launches each), on every bucketed P frame of synth720p and runs720p
+    (the rings their decode gives them), and refusing an entry whose taps
+    leave the planes, as the plain version does. Then their times: K5 at
+    720p radius 16 on the synth720p pair, K6 per bucketed P frame of
+    synth720p (mean): `ms` the wrapper (CUDA events around back-to-back
+    calls; K6's includes K1 and the fix-ups), `kernel_ms` the bare C entry
+    (a CUDA graph's replays), `plain_ms` the plain version, beside the
+    bound. Returns the K5 and K6 rows of the kernel report."""
+    from losslessh264_tpu_torch import _build
+    from losslessh264_tpu_torch import decoder_torch as dt
+    from losslessh264_tpu_torch.cases import (K5_CASES, K6_CASES,
+                                              bucketed_mc_frames,
+                                              dense_search_case,
+                                              random_mc_case)
+    from losslessh264_tpu_torch.ops import mc as tmc
+    from losslessh264_tpu_torch.ops import me as tme
+    lib = _build.lib()
+
+    def same(got, want, what):
+        torch.cuda.synchronize()
+        err = max(max_abs_err(g, w) for g, w in zip(got, want))
+        if err or not all(g.dtype == w.dtype and torch.equal(g, w)
+                          for g, w in zip(got, want)):
+            raise SystemExit(f"{what}: the kernel differs from its plain "
+                             f"version (max abs err {err})")
+        return err
+
+    def flat(triples):
+        return [a for t in triples for a in t]
+
+    k5_err = k6_err = 0
+    for name, H, W, R, kind, seed, sdy, dtype, strided in K5_CASES:
+        cur, ref = dense_search_case(H, W, R, kind, seed, sdy, dtype, strided,
+                                     dev)
+        want = flat(tme.dense_full_search_plain(cur, ref, R))
+        for _ in range(3):
+            k5_err = max(k5_err, same(flat(tme.dense_full_search(cur, ref, R)),
+                                      want, f"K5 {name}"))
+        log(f"K5 dense_full_search == plain: {name}, 3 launches")
+    cur = frames[1][0].to(dev).to(torch.int32)
+    ref = dt._edge_pad(frames[0][0].to(dev), 32)[16:16 + 752, 16:16 + 1312]
+    pair_want = flat(tme.dense_full_search_plain(cur, ref, 16))
+    k5_err = max(k5_err, same(flat(tme.dense_full_search(cur, ref, 16)),
+                              pair_want, "K5 synth720p frame 1 on frame 0"))
+    log("K5 dense_full_search == plain: synth720p frame 1 against frame 0")
+    try:
+        tme.dense_full_search(cur[:16, :32], ref[:16 + 46, :32 + 46], 23)
+        raise SystemExit("K5: radius 23 did not raise")
+    except ValueError as e:
+        log(f"K5 refuses radius 23: {e}")
+
+    for name, mb_w, mb_h, *rest in K6_CASES:
+        case = random_mc_case(mb_w, mb_h, *rest, device=dev)
+        want = tmc.mc_bucketed_plain(*case, mb_w, mb_h)
+        for _ in range(3):
+            k6_err = max(k6_err, same(tmc.mc_bucketed(*case, mb_w, mb_h),
+                                      want, f"K6 {name}"))
+        p = case[-1]
+        log(f"K6 mc_bucketed == plain: {name} (nuniq {p['mc_nuniq']}, "
+            f"nslots {p['mc_nslots']}, {int((p['mc_fix'] >= 0).sum())} fix-up "
+            f"cells), 3 launches")
+    *rings, pad, p = random_mc_case(9, 4, 5, 5, 2, 3, False, device=dev)
+    p["mc_uniq"] = p["mc_uniq"].copy()
+    p["mc_uniq"][1, 1] = 40
+    for fn in (tmc.mc_bucketed, tmc.mc_bucketed_plain):
+        try:
+            fn(*rings, pad, p, 9, 4)
+            raise SystemExit("K6: a window off the planes did not raise")
+        except ValueError as e:
+            log(f"K6 {fn.__name__} refuses a window off the planes: {e}")
+    runs_data = open(RUNS_STREAM, "rb").read()
+    for stream, blob in (("runs720p", runs_data), ("synth720p", data)):
+        for i, *args in bucketed_mc_frames(blob, dev):
+            k6_err = max(k6_err, same(tmc.mc_bucketed(*args),
+                                      tmc.mc_bucketed_plain(*args),
+                                      f"K6 {stream} frame {i}"))
+        log(f"K6 mc_bucketed == plain: every bucketed P frame of {stream}")
+
+    # ---- times ----
+    n_bytes, n_ops = k5_bytes_ops(720, 1280, 16, 4)
+    out = torch.empty((3, 9 * 3600), dtype=torch.int32, device=dev)
+    P = ctypes.c_void_p
+
+    def k5_call():
+        _build.check(lib.pip_me_dense(
+            P(cur.data_ptr()), cur.stride(0), 4, P(ref.data_ptr()),
+            ref.stride(0), P(out.data_ptr()), 80, 45, 16,
+            _build.stream(dev)), "dense search")
+    k5 = {"ms": cuda_ms(lambda: tme.dense_full_search(cur, ref, 16), 20),
+          "kernel_ms": kernel_device_ms([k5_call]),
+          "plain_ms": cuda_ms(lambda: tme.dense_full_search_plain(
+              cur, ref, 16), 3, warmup=1),
+          "bytes": n_bytes, "operations": n_ops}
+    k5["bound_ms"], k5["bound_by"] = bound_ms(n_bytes, n_ops, INT8_OPS_PER_S)
+    k5["int32_rate_ms"] = n_ops / INT32_OPS_PER_S * 1e3
+    k5["bound_share"] = k5["bound_ms"] / k5["kernel_ms"]
+    if not torch.equal(out.reshape(-1),
+                       torch.cat(pair_want[0::3] + pair_want[1::3]
+                                 + pair_want[2::3])):
+        raise SystemExit("K5's bare entry differs from the plain version")
+    log(f"time K5 dense_full_search 720p radius 16 (synth720p frame 1 on "
+        f"frame 0, int32 source, strided reference): wrapper "
+        f"{k5['ms']:.4f} ms, kernel alone {k5['kernel_ms']:.4f} ms; bound "
+        f"{k5['bound_ms']:.5f} ms by {k5['bound_by']} ({n_ops} ops at the "
+        f"int8 rate, {n_bytes} bytes), share {k5['bound_share']:.4f}; the "
+        f"ops at the int32 lane rate {k5['int32_rate_ms']:.5f} ms; plain torch "
+        f"{k5['plain_ms']:.3f} ms on {card}")
+
+    rows = []
+    for i, *args in bucketed_mc_frames(data, dev):
+        ops_args, preds, keep = tmc.k6_operands(*args)
+
+        def k6_call(ops_args=ops_args, keep=keep):
+            _build.check(lib.pip_mc_bucket(*ops_args, _build.stream(dev)),
+                         "bucketed MC")
+        nb, no = k6_bytes_ops(args[4], args[5], args[6])
+        row = {"frame": i, "nuniq": args[4]["mc_nuniq"],
+               "ms": cuda_ms(lambda: tmc.mc_bucketed(*args), 10),
+               "operands_ms": cuda_ms(lambda: tmc.k6_operands(*args), 10),
+               "fixups_ms": cuda_ms(lambda: tmc._mc_fixups(*preds, *args),
+                                    10),
+               "kernel_ms": kernel_device_ms([k6_call]),
+               "plain_ms": cuda_ms(lambda: tmc.mc_bucketed_plain(*args), 3,
+                                   warmup=1),
+               "bytes": nb, "operations": no}
+        row["bound_ms"], row["bound_by"] = bound_ms(nb, no)
+        rows.append(row)
+    k6 = {k: sum(r[k] for r in rows) / len(rows)
+          for k in ("ms", "operands_ms", "fixups_ms", "kernel_ms",
+                    "plain_ms", "bytes", "operations", "bound_ms")}
+    k6["bound_by"] = rows[0]["bound_by"]
+    k6["bound_share"] = k6["bound_ms"] / k6["kernel_ms"]
+    k6["frames"] = len(rows)
+    k6["per_frame"] = [{k: (round(v, 5) if isinstance(v, float) else v)
+                        for k, v in r.items()} for r in rows]
+    log(f"time K6 mc_bucketed, mean of {len(rows)} bucketed P frames of "
+        f"synth720p (nuniq {min(r['nuniq'] for r in rows)}.."
+        f"{max(r['nuniq'] for r in rows)}): wrapper (K1, K6, fix-ups) "
+        f"{k6['ms']:.4f} ms = operands (K1, window checks, outputs) "
+        f"{k6['operands_ms']:.4f} + fix-ups {k6['fixups_ms']:.4f} + the "
+        f"launch; kernel alone {k6['kernel_ms']:.5f} ms; bound "
+        f"{k6['bound_ms']:.5f} ms by {k6['bound_by']} "
+        f"({k6['bytes']:.0f} bytes), share {k6['bound_share']:.3f}; plain "
+        f"torch {k6['plain_ms']:.3f} ms on {card}")
+    k5["max_abs_err"], k6["max_abs_err"] = k5_err, k6_err
+    return k5, k6
+
+
 def profile_report(prof, wall_ms, what, card):
     """Wall time against the summed device time of every kernel and copy
     of one torch.profiler window, and the kernels that take the most."""
@@ -1567,7 +1797,12 @@ def main():
     torch.cuda.synchronize()
     decode_s = time.perf_counter() - t0
     dec_launches = launches_now()
-    k1_launches, k2_launches, k3_launches, _ = dec_launches
+    k1_launches, k2_launches, k3_launches, _, _, k6_launches = dec_launches
+    # a second decode, stage by stage (synchronised), which also gives
+    # each frame's MC route: the K1 and K6 launches the first one implies
+    stage_rows = stage_decode(data, dev)
+    bucketed = sum(r["bucketed"] for r in stage_rows)
+    k1_implied = sum(r["k1"] for r in stage_rows)
     if len(frames) != len(golden):
         raise SystemExit(f"decoded {len(frames)} frames, expected "
                          f"{len(golden)}")
@@ -1583,14 +1818,15 @@ def main():
         f"CRCs; {decode_s:.3f} s = {len(frames) / decode_s:.3f} fps "
         f"(incl. host symbol decode) on {card}")
     log(f"launches during decode: {launch_str(dec_launches)} for "
-        f"{deblocked} deblocked frames and {intra_frames} frames with intra "
-        f"MBs; routes {dec.routes}")
-    if k1_launches <= 0 or k2_launches <= 0 or k3_launches <= 0:
+        f"{deblocked} deblocked frames, {intra_frames} frames with intra "
+        f"MBs and {bucketed} bucketed P frames (K1 {k1_implied} implied); "
+        f"routes {dec.routes}")
+    if min(k1_launches, k2_launches, k3_launches, k6_launches) <= 0:
         raise SystemExit("a kernel of the decode path was never launched")
-    if dec_launches[1:] != (deblocked, intra_frames, 0):
-        raise SystemExit(f"K2-K4 launched {dec_launches[1:]} times for "
-                         f"{deblocked} deblocked frames and {intra_frames} "
-                         "with intra MBs; one launch per frame expected")
+    want = (k1_implied, deblocked, intra_frames, 0, 0, bucketed)
+    if dec_launches != want:
+        raise SystemExit(f"K1-K6 launched {dec_launches} times, the frames "
+                         f"imply {want}")
 
     # ---- 6. encode on the card ----
     enc_launches, enc_frames, c_idr_qp = encode_phase(frames, dev, card)
@@ -1614,7 +1850,10 @@ def main():
     # ---- 13. K3 and K4 against their plain versions, and their times ----
     k3, k4 = intra_kernels_phase(data, frames, c_idr_qp, dev, card)
 
-    # ---- 14. times ----
+    # ---- 14. K5 and K6 against their plain versions, and their times ----
+    k5, k6 = search_mc_phase(data, frames, dev, card)
+
+    # ---- 15. times ----
     # K1 at each size, both entries: `ms` the wrapper by CUDA events over
     # back-to-back calls, `kernel_ms` the bare C entry's kernel alone (a
     # CUDA graph's replays, cold L2), beside the bound, the plain version
@@ -1673,7 +1912,7 @@ def main():
         f"{k2_kernel_ms * 1e3 / (2 * 44 + 80):.3f} us per step of the "
         f"{2 * 44 + 80}-MB chain; bound {k2_bound:.4f} ms by {k2_by} "
         f"({k2_b} bytes); plain torch {k2_plain_ms:.4f} ms on {card}")
-    rows = stage_decode(data, dev)
+    rows = stage_rows
     for r in rows:
         log("stage " + json.dumps({k: (round(v, 3) if isinstance(v, float)
                                        else v) for k, v in r.items()}))
@@ -1733,6 +1972,22 @@ def main():
                 "losslessh264_tpu/decoder_jax.py:702"], "K3", k3),
               ("intra_wavefront", "losslessh264_tpu_torch/csrc/intra_enc.cu",
                "losslessh264_tpu/encoder_jax.py:281", [], "K4", k4))),
+        *({"name": name, "route": "cuda", "source": source,
+           "replaces": replaces,
+           "launches": sum(v[key] for v in all_paths.values()),
+           **{f"launches_per_{k}": v[key] for k, v in all_paths.items()},
+           "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+           "kernel_ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
+           "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+           "library_ms": None,
+           **{k: row[k] for k in ("bytes", "operations", "bound_share",
+                                  "int32_rate_ms", "operands_ms",
+                                  "fixups_ms", "frames") if k in row}}
+          for name, source, replaces, key, row in (
+              ("dense_full_search", "losslessh264_tpu_torch/csrc/me_dense.cu",
+               "losslessh264_tpu/ops/me.py:132", "K5", k5),
+              ("mc_bucketed", "losslessh264_tpu_torch/csrc/mc_bucket.cu",
+               "losslessh264_tpu/ops/mc.py:436", "K6", k6))),
     ]}))
     log(card_line())
     print(json.dumps({"ok": True, "device": {

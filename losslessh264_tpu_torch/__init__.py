@@ -7,8 +7,14 @@ package mirrors its layout:
   * `ops/`: forward and inverse transforms with (de)quantization, intra
     predictors, quarter-pel MC, deblocking, and the encoder's motion
     estimation (`ops/me.py`). Plain torch, batched over the frame, with
-    two hand-written CUDA kernels under `csrc/` (half-pel planes and the
-    deblocking wavefront), built at first use by `_build.py`.
+    six hand-written CUDA kernels under `csrc/`, built at first use by
+    `_build.py`: K1 the half-pel planes (`halfpel.cu`), K2 the deblocking
+    wavefront (`deblock.cu`), K3 the decoder's intra reconstruction
+    (`intra_dec.cu`), K4 the encoder's intra wavefront (`intra_enc.cu`),
+    K5 the dense motion search (`me_dense.cu`) and K6 the bucketed
+    motion compensation (`mc_bucket.cu`). Each wrapper takes its plain
+    torch version for a CPU tensor and launches its kernel for a CUDA
+    one.
   * `decoder_torch.py`: `TorchDecoder`, a per-frame decode loop that turns
     the native symbol planes into YUV frames on one device.
   * `encoder_torch.py`: `TorchEncoder`, the IPPP encoder's fused

@@ -31,6 +31,7 @@ NVCC_FLAGS = COMPILE_FLAGS + ["-shared"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 # C entry points: name -> argtypes (all return int, a cudaError_t)
 _SIGNATURES = {
     # (src, dst, Hp, Wp, stream)
@@ -46,6 +47,14 @@ _SIGNATURES = {
     # (Y, U, V, srcY, srcU, srcV, MB rows, qp, qpc, tables, symbol rows,
     #  sync scratch [1 + mb_h], mb_w, mb_h, stream)
     "pip_intra_enc": [_P] * 12 + [_I, _I, _P],
+    # (cur, cur row stride, cur element bytes, ref, ref row stride, out
+    #  [3, 9n], mb_w, mb_h, radius, stream)
+    "pip_me_dense": [_P, _I, _I, _P, _I, _P, _I, _I, _I, _P],
+    # (host table [32, 16], nuniq, bucket, then per slot 0 and 1: K1
+    #  planes, plane stride, row pitch, U, V, chroma row pitch; pred_y,
+    #  pred_u, pred_v, mb_w, mb_h, pad, stream)
+    "pip_mc_bucket": [_P, _I, _P] + [_P, _L, _I, _P, _P, _I] * 2
+    + [_P, _P, _P, _I, _I, _I, _P],
 }
 
 _lib = None

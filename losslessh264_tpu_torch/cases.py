@@ -1,6 +1,7 @@
 """Seeded inputs shared by the tests, chip_smoke.py and tools/kernel_ab.py:
-random cases for holding K2 (csrc/deblock.cu), K3 (csrc/intra_dec.cu)
-and K4 (csrc/intra_enc.cu) against their plain versions, so that all
+random cases for holding K2 (csrc/deblock.cu), K3 (csrc/intra_dec.cu),
+K4 (csrc/intra_enc.cu), K5 (csrc/me_dense.cu) and K6
+(csrc/mc_bucket.cu) against their plain versions, so that all
 three check and time the same cases, the translating noise
 frames the encoder's tests encode, the frames of the decoder's intra
 routes (tests/data/runs720p.264 and the run tests), and the encoders of
@@ -252,3 +253,163 @@ def random_intra_encode_case(mb_w, mb_h, seed, qp, mask=None):
                 qp=qps.astype(np.int32),
                 qpc=np.asarray(CHROMA_QP)[qps].astype(np.int32),
                 row_slice=row_slice.astype(np.int32))
+
+
+# K5's cases: (name, H, W, radius, plane kind, seed, scroll_dy, cur dtype,
+# strided). 720p at the encoder's radius on noise, on a flat plane (every
+# displacement ties) and on a periodic one (many tie); 64x48 at radius
+# 4-6; the simulcast layer's 40x23 MBs, the graft's radius 8, 30x7 MBs
+# (not a multiple of the kernel's 8-MB tile), scrolled windows and the
+# largest radius the kernel's key holds. A strided reference is a slice
+# of a PAD-padded plane, as encode_inter_mbs takes it.
+K5_CASES = [
+    ("720p random", 720, 1280, 16, "random", 0, 0, "int32", True),
+    ("720p flat", 720, 1280, 16, "flat", 1, 0, "int32", True),
+    ("720p periodic", 720, 1280, 16, "periodic", 2, 0, "uint8", True),
+    ("64x48 radius 4", 48, 64, 4, "random", 3, 0, "int32", False),
+    ("64x48 radius 5", 48, 64, 5, "periodic", 4, 0, "int32", False),
+    ("64x48 radius 6", 48, 64, 6, "flat", 5, 0, "uint8", False),
+    ("640x368 (40x23 MBs)", 368, 640, 16, "random", 6, 0, "int32", True),
+    ("720p radius 8", 720, 1280, 8, "random", 7, 0, "int32", True),
+    ("480x112 (30x7 MBs)", 112, 480, 16, "periodic", 8, 0, "int32", True),
+    ("720p scroll_dy 9", 720, 1280, 16, "random", 9, 9, "int32", True),
+    ("64x48 scroll_dy -11", 48, 64, 16, "random", 10, -11, "int32", True),
+    ("96x48 radius 22", 48, 96, 22, "random", 11, 0, "int32", False),
+]
+K5_PAD = 32
+
+
+def search_plane(kind, shape, rng):
+    """A uint8 plane: noise, flat (77), or periodic (period 4 in x, 2 in
+    y: every 4th horizontal and 2nd vertical shift matches as well)."""
+    H, W = shape
+    if kind == "random":
+        return rng.integers(0, 256, shape).astype(np.uint8)
+    if kind == "flat":
+        return np.full(shape, 77, np.uint8)
+    yy, xx = np.mgrid[:H, :W]
+    return ((xx % 4) * 40 + (yy % 2) * 90 + 10).astype(np.uint8)
+
+
+def dense_search_case(H, W, radius, kind, seed, scroll_dy=0, cur_dtype="int32",
+                      strided=True, device="cpu"):
+    """(cur [H, W], ref_pad [H+2R, W+2R] uint8) for dense_full_search:
+    cur is the reference moved by (1, 2) px, with noise on the random
+    plane. Strided: ref_pad is the slice at rows PAD-R+scroll_dy and
+    columns PAD-R of the edge-padded [H+2PAD, W+2PAD] reference (PAD =
+    K5_PAD), as the encoder slices its reference; else a contiguous
+    plane (scroll_dy 0)."""
+    rng = np.random.default_rng(seed)
+    base = search_plane(kind, (H + 8, W + 8), rng)
+    cur = base[3:3 + H, 2:2 + W].astype(np.int32)
+    if kind == "random":
+        cur = np.clip(cur + rng.integers(-6, 7, cur.shape), 0, 255)
+    ref = base[4:4 + H, 4:4 + W]
+    cur = torch.as_tensor(cur.astype(cur_dtype), device=device)
+    if not strided:
+        if scroll_dy:
+            raise ValueError("a scrolled window needs the padded plane")
+        return cur, torch.as_tensor(np.pad(ref, radius, mode="edge"),
+                                    device=device)
+    o = K5_PAD - radius + scroll_dy
+    if not (0 <= o and o + 2 * radius <= 2 * K5_PAD):
+        raise ValueError(f"radius {radius} scroll {scroll_dy} leaves the "
+                         "padding")
+    plane = torch.as_tensor(np.pad(ref, K5_PAD, mode="edge"), device=device)
+    c = K5_PAD - radius
+    return cur, plane[o:o + H + 2 * radius, c:c + W + 2 * radius]
+
+
+# K6's cases: (name, mb_w, mb_h, seed, main triples, active slots, MBs of
+# extra triples, edge MVs). One or two (slot, mv) triples per slot up to
+# the 32 the table holds; the 32 + 32 case spills exactly 32 MBs (512
+# cells, MC_FIX_CAP) to the fix-ups; the edge case puts MVs at
+# +-MC_MV_MAX (the frame's right and bottom cells then clip and take the
+# fix-ups too).
+K6_CASES = [
+    ("720p 1 triple", 80, 45, 0, 1, 1, 0, False),
+    ("720p 2 triples, 2 slots", 80, 45, 1, 2, 2, 0, False),
+    ("720p 32 triples", 80, 45, 2, 32, 1, 0, False),
+    ("720p 32 triples, 2 slots, 512 fix-ups", 80, 45, 3, 32, 2, 32, False),
+    ("720p MVs at +-MC_MV_MAX", 80, 45, 4, 12, 2, 0, True),
+    ("9x4 MBs 5 triples, 2 slots", 9, 4, 5, 5, 2, 3, False),
+]
+
+
+def random_mc_case(mb_w, mb_h, seed, n_main, n_slots, n_extra, edge,
+                   device="cpu"):
+    """(ref_y, ref_u, ref_v, pad, p) for mc_bucketed: uint8 rings of 4
+    noise slots (pad 32), and the plane dict of a frame whose MBs each
+    carry one (slot, mv) triple: the first n_main MBs one main triple
+    each, then the other MBs a random main one, but n_extra MBs at random
+    places a fresh triple each (the table keeps the 32 most populated
+    triples; the rest spill to the fix-ups); every 40th MB is intra
+    (ref_slot -1). Slots 1 and 3 of the ring are the active ones; MVs
+    are |mv| <= 64 quarter-pels, and with `edge` four main triples sit at
+    (+-MC_MV_MAX, +-MC_MV_MAX). The plan is mc_fast_plan's; raises if it
+    does not serve the frame."""
+    from .decoder_torch import planes_to_torch
+    from .ops import mc as tmc
+    rng = np.random.RandomState(seed)
+    pad, R = 32, 4
+    n = mb_w * mb_h
+    H, W = mb_h * 16, mb_w * 16
+    ref_y = rng.randint(0, 256, (R, H + 2 * pad, W + 2 * pad))
+    ref_u = rng.randint(0, 256, (R, H // 2 + pad, W // 2 + pad))
+    ref_v = rng.randint(0, 256, ref_u.shape)
+    slots = [1, 3][:n_slots]
+    m = tmc.MC_MV_MAX
+    mvs = set()
+    while len(mvs) < n_main + n_extra:
+        mvs.add(tuple(int(v) for v in rng.randint(-64, 65, 2)))
+    mvs = sorted(mvs, key=lambda v: rng.rand())
+    if edge:
+        mvs[:4] = [(m, m), (-m, -m), (m, -m), (-m, m)]
+    # triple k: (slot, mvy, mvx), the slots taken in turn
+    trip = np.array([(slots[k % n_slots], *v) for k, v in enumerate(mvs)])
+    intra = np.arange(n) % 40 == 39
+    intra[:n_main] = False
+    pick = np.concatenate([np.arange(min(n_main, n)),
+                           rng.randint(0, n_main, max(n - n_main, 0))])
+    spots = rng.choice(np.flatnonzero(~intra[n_main:]) + n_main, n_extra,
+                       replace=False)
+    pick[spots] = n_main + np.arange(n_extra)
+    t = trip[pick]                                      # [n, 3]
+    ref_slot = np.repeat(t[:, :1], 16, 1).astype(np.int8)
+    mv = np.repeat(t[:, None, [2, 1]], 16, 1).astype(np.int16)
+    ref_slot[intra] = -1
+    mv[intra] = 0
+    plan = tmc.mc_fast_plan(mb_w, mb_h, ref_slot, mv.astype(np.int32), pad)
+    if not plan["mc_fast"]:
+        raise ValueError("the plan does not serve this frame")
+    p = planes_to_torch(dict(plan, mv=mv, ref_slot=ref_slot), device)
+    rings = [torch.as_tensor(a.astype(np.uint8), device=device)
+             for a in (ref_y, ref_u, ref_v)]
+    return (*rings, pad, p)
+
+
+def bucketed_mc_frames(data, device):
+    """Decode `data` by hand along TorchDecoder._decode_one and yield,
+    before each P frame on the bucketed MC path is reconstructed, that
+    frame's mc_bucketed arguments: (frame, ref_y, ref_u, ref_v, pad, p,
+    mb_w, mb_h). The decode then goes on with the frame's full
+    reconstruction, so each frame sees the rings a decode gives it."""
+    from . import decoder_torch as dt
+    dec = dt.TorchDecoder(data, device=device)
+    for i, f in enumerate(dec.sym):
+        mb_w, mb_h = f["mb_w"], f["mb_h"]
+        dec._prep_refs(mb_w, mb_h)
+        planes_np, diags, has_intra, full = dec._prep_planes(f)
+        p = dt.planes_to_torch(planes_np, dec.device)
+        if planes_np["mc_any"] and planes_np["mc_fast"]:
+            yield i, dec.ref_y, dec.ref_u, dec.ref_v, dt.PAD, p, mb_w, mb_h
+        Yw, Uw, Vw, ry, ru, rv = dt._residual_and_inter(
+            mb_w, mb_h, p, dec.ref_y, dec.ref_u, dec.ref_v)
+        if has_intra:
+            scan = dt._intra_scan if full else dt._intra_scan_sparse
+            Yw, Uw, Vw = scan(mb_w, mb_h, Yw, Uw, Vw, ry, ru, rv, p, diags)
+        if dec._needs_deblock(f, planes_np["nnz"]):
+            yuv = dt._deblock_crop(mb_w, mb_h, Yw, Uw, Vw, p)
+        else:
+            yuv = dt._crop(mb_w, mb_h, Yw, Uw, Vw)
+        dec._finish_frame(f, *yuv, False)

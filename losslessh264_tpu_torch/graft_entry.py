@@ -12,7 +12,8 @@ sharded, each followed by the in-loop recon and deblock (`_p_finish`, K2
 on CUDA) and a coded-bits proxy that is all-reduced across the processes
 (the rate-control aggregation collective). JAX runs this as a shard_map
 over a device mesh and pins the lax deblock there; the port needs no such
-switch, and on CUDA every rank launches K1 and K2.
+switch, and on CUDA every rank launches K1, K2 and K5 (the dense
+search) once.
 """
 from __future__ import annotations
 
@@ -31,6 +32,7 @@ from . import _build
 from . import encoder_torch as et
 from .ops import deblock as tdb
 from .ops import mc as tmc
+from .ops import me as tme
 from .ops.consts import on
 
 
@@ -105,14 +107,16 @@ def _rank_main(rank, world, init, mb_w, mb_h, device, queue):
         if dev.type == "cuda":
             _build.lib()
         args = frame_args(mb_w, mb_h, world, rank, dev)
-        tmc.halfpel_planes.launches = 0
-        tdb.deblock_wavefront.launches = 0
+        kernels = (tmc.halfpel_planes, tdb.deblock_wavefront,
+                   tme.dense_full_search)
+        for k in kernels:
+            k.launches = 0
         t0 = time.perf_counter()
         recY, mvx, bits = per_frame(mb_w, mb_h, *args)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         step_ms = (time.perf_counter() - t0) * 1e3
-        k1, k2 = tmc.halfpel_planes.launches, tdb.deblock_wavefront.launches
+        k1, k2, k5 = (k.launches for k in kernels)
         # the global coded-bits aggregate (gloo reduces host tensors)
         total = bits.detach().to("cpu", torch.int64).reshape(1).clone()
         dist.all_reduce(total, op=dist.ReduceOp.SUM)
@@ -120,7 +124,7 @@ def _rank_main(rank, world, init, mb_w, mb_h, device, queue):
         assert tuple(mvx.shape) == (mb_w * mb_h,)
         assert int(total) >= 0
         queue.put((rank, recY.cpu().numpy(), mvx.cpu().numpy(), int(bits),
-                   int(total), k1, k2, step_ms))
+                   int(total), k1, k2, k5, step_ms))
     finally:
         dist.destroy_process_group()
 
@@ -131,8 +135,8 @@ def dryrun_multichip(n_devices: int, device="cuda", mb_w=4, mb_h=3):
     every rank), and all-reduce the coded bits over gloo. The processes
     meet through a file in a fresh temporary directory, not a TCP port,
     so several dryruns can run side by side. Returns, per rank in order,
-    (rank, recY, mvx, bits, total_bits, K1 launches, K2 launches,
-    step_ms) with the arrays on the host; step_ms is the wall time of the
+    (rank, recY, mvx, bits, total_bits, K1 launches, K2 launches, K5
+    launches, step_ms) with the arrays on the host; step_ms is the wall time of the
     rank's step, its first call, synchronized."""
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("dryrun_multichip: device 'cuda' requested but "

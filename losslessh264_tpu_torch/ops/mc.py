@@ -428,29 +428,47 @@ def _drop_scatter(plane, idx, vals):
     return flat[:H * W].reshape(H, W)
 
 
-def mc_bucketed(ref_y, ref_u, ref_v, pad, p, mb_w, mb_h):
-    """Whole-frame pred planes from the plan built by mc_fast_plan.
-    Returns (pred_y [H,W], pred_u, pred_v [H/2,W/2]) int32.
+def _mc_prep(ref_y, ref_u, pad, p, mb_w, mb_h):
+    """The plan's host entries and the half-pel planes they read: (uniq
+    [32, 16] int64, slots, nuniq, nslots, hps), hps the uint8 K1 planes
+    of the two active slots (slot 1 reuses slot 0's when inactive).
+    Raises if a slot is outside the ring or an entry's luma or chroma
+    slices leave their planes."""
+    R = ref_y.shape[0]
+    H, W = mb_h * 16, mb_w * 16
+    uniq = np.asarray(p["mc_uniq"]).astype(np.int64)
+    slots = np.asarray(p["mc_slots"]).astype(np.int64)
+    nuniq, nslots = int(p["mc_nuniq"]), int(p["mc_nslots"])
+    if not (0 <= slots.min() and slots.max() < R):
+        raise ValueError(f"mc slots {slots} outside the {R}-slot ring")
+    hp0 = _halfpel_planes_u8(ref_y[int(slots[0])])
+    hps = [hp0, _halfpel_planes_u8(ref_y[int(slots[1])])
+           if nslots > 1 else hp0]
+    cpad = pad // 2
+    for u in range(nuniq):
+        e = [int(v) for v in uniq[u]]
+        for dy, dx in (e[4:6], e[7:9]):
+            _check_window(pad - 2 + e[1] + dy, pad - 2 + e[2] + dx, H, W,
+                          hps[e[0]].shape[1:], "half-pel")
+        for dy in (0, 1):
+            for dx in (0, 1):
+                _check_window(cpad + e[9] + dy, cpad + e[10] + dx, H // 2,
+                              W // 2, ref_u.shape[1:], "chroma")
+    return uniq, slots, nuniq, nslots, hps
+
+
+def mc_bucketed_plain(ref_y, ref_u, ref_v, pad, p, mb_w, mb_h):
+    """Plain torch version of K6 (with the K1 launches and the fix-ups
+    around it): whole-frame pred planes from the plan built by
+    mc_fast_plan. Returns (pred_y [H,W], pred_u, pred_v [H/2,W/2]) int32.
 
     p: the frame's plane dict. "mc_uniq"/"mc_slots" are host numpy (they
     drive host-side slicing), "mc_nuniq"/"mc_nslots" host ints; the
     rest are tensors on the rings' device."""
-    n = mb_w * mb_h
     H, W = mb_h * 16, mb_w * 16
-    R, Hp, Wp = ref_y.shape
     dev = ref_y.device
-    uniq = np.asarray(p["mc_uniq"]).astype(np.int64)
-    slots = np.asarray(p["mc_slots"]).astype(np.int64)
-    nuniq = int(p["mc_nuniq"])
-    nslots = int(p["mc_nslots"])
-    if not (0 <= slots.min() and slots.max() < R):
-        raise ValueError(f"mc slots {slots} outside the {R}-slot ring")
-
-    # half-pel planes for the active slots (slot 1 reuses slot 0's when
-    # inactive), kept as uint8
-    hp0 = _halfpel_planes_u8(ref_y[int(slots[0])])
-    hps = [hp0, _halfpel_planes_u8(ref_y[int(slots[1])])
-           if nslots > 1 else hp0]
+    uniq, slots, nuniq, nslots, hps = _mc_prep(ref_y, ref_u, pad, p, mb_w,
+                                               mb_h)
     cpad = pad // 2
     uvs = [torch.stack([ref_u[int(s)], ref_v[int(s)]]) for s in slots]
     if nslots <= 1:
@@ -471,7 +489,6 @@ def mc_bucketed(ref_y, ref_u, ref_v, pad, p, mb_w, mb_h):
         def tap(pl, dy, dx):
             y = pad - 2 + e[1] + dy
             x = pad - 2 + e[2] + dx
-            _check_window(y, x, H, W, hp.shape[1:], "half-pel")
             return hp[pl, y:y + H, x:x + W].to(torch.int32)
 
         val = ((tap(e[3], e[4], e[5]) + tap(e[6], e[7], e[8]) + 1) >> 1)
@@ -482,7 +499,6 @@ def mc_bucketed(ref_y, ref_u, ref_v, pad, p, mb_w, mb_h):
         def ctap(dy, dx):
             y = cpad + e[9] + dy
             x = cpad + e[10] + dx
-            _check_window(y, x, H // 2, W // 2, uv.shape[1:], "chroma")
             return uv[:, y:y + H // 2, x:x + W // 2].to(torch.int32)
 
         fy, fx = e[11], e[12]
@@ -492,9 +508,20 @@ def mc_bucketed(ref_y, ref_u, ref_v, pad, p, mb_w, mb_h):
                 + fx * fy * ctap(1, 1) + 32) >> 6
         out_uv = torch.where(bplane_c[None] == u, cval.to(torch.uint8),
                              out_uv)
+    return _mc_fixups(out_y, out_uv[0], out_uv[1], ref_y, ref_u, ref_v,
+                      pad, p, mb_w, mb_h)
 
-    # per-cell fix-ups (clipped / long MVs): general gather on at most
-    # MC_FIX_CAP cells, scattered over the dense planes
+
+def _mc_fixups(out_y, out_u, out_v, ref_y, ref_u, ref_v, pad, p, mb_w,
+               mb_h):
+    """The per-cell fix-ups (clipped / long MVs) over the dense planes:
+    the general gather on at most MC_FIX_CAP cells, scattered over them.
+    Returns the three planes as int32."""
+    n = mb_w * mb_h
+    H, W = mb_h * 16, mb_w * 16
+    R = ref_y.shape[0]
+    dev = ref_y.device
+    cpad = pad // 2
     fixi = p["mc_fix"].to(torch.int64)
     fmask = fixi >= 0
     fc = torch.clamp(fixi, 0, n * 16 - 1)
@@ -519,8 +546,75 @@ def mc_bucketed(ref_y, ref_u, ref_v, pad, p, mb_w, mb_h):
         + fx0[:, None, None] // 2 + o2[None, None, :],
         (H // 2) * (W // 2))
     planes = []
-    for c, ref_c in enumerate((ref_u, ref_v)):
+    for out_c, ref_c in ((out_u, ref_u), (out_v, ref_v)):
         ct = mc_chroma_cells(ref_c, cpad, rsl, fy0 // 2, fx0 // 2, fvx, fvy)
-        planes.append(_drop_scatter(out_uv[c], cflat, ct))
+        planes.append(_drop_scatter(out_c, cflat, ct))
     return (out_y.to(torch.int32), planes[0].to(torch.int32),
             planes[1].to(torch.int32))
+
+
+def k6_operands(ref_y, ref_u, ref_v, pad, p, mb_w, mb_h):
+    """K6's operands on CUDA tensors (uint8 rings [R, H+2pad, W+2pad] and
+    [R, H/2+pad, W/2+pad], unit column stride): K1's planes of the active
+    slots (K1 launches here) and the window checks on the host
+    (_mc_prep; the kernel does not clamp), and the fresh int32 outputs.
+    Returns (args of pip_mc_bucket before the stream, (pred_y, pred_u,
+    pred_v), the tensors the args point into)."""
+    rings = (ref_y, ref_u, ref_v)
+    if any(r.device.type != "cuda" or r.device != ref_y.device
+           for r in rings):
+        raise ValueError("bucketed MC kernel takes CUDA tensors on one "
+                         f"device, got {[str(r.device) for r in rings]}")
+    if any(r.dtype != torch.uint8 or r.dim() != 3 or r.stride(2) != 1
+           for r in rings):
+        raise ValueError("bucketed MC kernel takes uint8 [R, Hp, Wp] rings "
+                         "with unit column stride")
+    H, W = mb_h * 16, mb_w * 16
+    dev = ref_y.device
+    uniq, slots, nuniq, nslots, hps = _mc_prep(ref_y, ref_u, pad, p, mb_w,
+                                               mb_h)
+    if uniq.shape != (MC_CAP, 16) or not 0 <= nuniq <= MC_CAP:
+        raise ValueError(f"mc plan: uniq {uniq.shape}, nuniq {nuniq}")
+    ss = [int(slots[0]), int(slots[1]) if nslots > 1 else int(slots[0])]
+    bucket = p["mc_bucket"]
+    if bucket.device != dev or bucket.dtype != torch.uint8 or \
+            tuple(bucket.shape) != (mb_w * mb_h, 16):
+        raise ValueError(f"mc bucket {tuple(bucket.shape)} {bucket.dtype} "
+                         f"on {bucket.device}")
+    bucket = bucket.contiguous()
+    table = np.ascontiguousarray(uniq, np.int32)
+    pred_y = torch.empty((H, W), dtype=torch.int32, device=dev)
+    pred_u = torch.empty((H // 2, W // 2), dtype=torch.int32, device=dev)
+    pred_v = torch.empty_like(pred_u)
+    P = ctypes.c_void_p
+    args = [P(table.ctypes.data), nuniq, P(bucket.data_ptr())]
+    for hp, s in zip(hps, ss):
+        args += [P(hp.data_ptr()), hp.stride(0), hp.stride(1),
+                 P(ref_u[s].data_ptr()), P(ref_v[s].data_ptr()),
+                 ref_u.stride(1)]
+    args += [P(pred_y.data_ptr()), P(pred_u.data_ptr()),
+             P(pred_v.data_ptr()), mb_w, mb_h, pad]
+    return args, (pred_y, pred_u, pred_v), (table, bucket, *hps, *rings)
+
+
+def _mc_bucketed_launch(ref_y, ref_u, ref_v, pad, p, mb_w, mb_h):
+    """K1 for the active slots, K6 (csrc/mc_bucket.cu) over every pixel,
+    then the fix-ups, on CUDA tensors."""
+    args, preds, _ = k6_operands(ref_y, ref_u, ref_v, pad, p, mb_w, mb_h)
+    rc = _build.lib().pip_mc_bucket(*args, _build.stream(ref_y.device))
+    _build.check(rc, "bucketed MC")
+    _build.count_launch(mc_bucketed)
+    return _mc_fixups(*preds, ref_y, ref_u, ref_v, pad, p, mb_w, mb_h)
+
+
+def mc_bucketed(ref_y, ref_u, ref_v, pad, p, mb_w, mb_h):
+    """K6 wrapper: the whole-frame pred planes of mc_bucketed_plain (same
+    arguments and result). CPU tensors take the plain version; CUDA
+    tensors run K1 for the active slots, one launch of
+    csrc/mc_bucket.cu for every pixel, then the same per-cell fix-ups."""
+    if ref_y.device.type == "cpu":
+        return mc_bucketed_plain(ref_y, ref_u, ref_v, pad, p, mb_w, mb_h)
+    return _mc_bucketed_launch(ref_y, ref_u, ref_v, pad, p, mb_w, mb_h)
+
+
+mc_bucketed.launches = 0

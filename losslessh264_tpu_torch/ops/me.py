@@ -10,14 +10,21 @@ here a whole batch of candidates is reduced at once with torch.min /
 torch.argmin along the candidate axis, which also return the first
 minimum, and batches are visited in the JAX order. Element-exact vs the
 JAX functions (tests/test_torch_me.py).
+
+`dense_full_search` is the wrapper of the hand-written CUDA kernel
+csrc/me_dense.cu, K5 (it replaces the scan of the JAX function,
+losslessh264_tpu/ops/me.py:132); `dense_full_search_plain` is its plain
+torch version, which the wrapper takes for a CPU tensor only.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import numpy as np
 import torch
 
+from .. import _build
 from .consts import on
 from .mc import QTAB
 
@@ -213,8 +220,9 @@ def _pool8(d, h8, w8):
     return d.reshape(C, h8, 8, w8, 8).sum((2, 4), dtype=torch.int32)
 
 
-def dense_full_search(cur, ref_pad, radius):
-    """Exhaustive integer-pel search over every displacement in
+def dense_full_search_plain(cur, ref_pad, radius):
+    """Plain torch version of K5. Exhaustive integer-pel search over every
+    displacement in
     [-radius, radius]^2, for every 16x16, 16x8, 8x16 and 8x8 block of
     the frame at once.
 
@@ -265,6 +273,68 @@ def dense_full_search(cur, ref_pad, radius):
 
     return (unpack(best[0], f16), unpack(best[1], fh),
             unpack(best[2], f16), unpack(best[3], f8))
+
+
+# K5's key (sad << 11) | idx holds a displacement index below 2^11
+K5_MAX_RADIUS = 22
+
+
+def _dense_launch(cur, ref_pad, radius):
+    """Launch K5 (csrc/me_dense.cu) on CUDA tensors: cur [H, W] uint8 or
+    int32 (8-bit samples), ref_pad [H+2R, W+2R] uint8, each with a unit
+    column stride (ref_pad may be a slice of a larger plane)."""
+    if not 0 <= radius <= K5_MAX_RADIUS:
+        raise ValueError(f"radius {radius}: the dense search kernel packs "
+                         f"(sad, displacement) keys for radius 0.."
+                         f"{K5_MAX_RADIUS} only")
+    if cur.device.type != "cuda" or ref_pad.device != cur.device:
+        raise ValueError("dense search kernel takes CUDA tensors on one "
+                         f"device, got {cur.device} and {ref_pad.device}")
+    if cur.dim() != 2 or cur.dtype not in (torch.uint8, torch.int32):
+        raise ValueError("dense search kernel takes a 2-D uint8 or int32 "
+                         f"source, got {tuple(cur.shape)} {cur.dtype}")
+    H, W = cur.shape
+    if H % 16 or W % 16 or H == 0 or W == 0:
+        raise ValueError(f"source {H}x{W}: 16 must divide H and W")
+    if ref_pad.dtype != torch.uint8 or \
+            tuple(ref_pad.shape) != (H + 2 * radius, W + 2 * radius):
+        raise ValueError(f"reference {tuple(ref_pad.shape)} "
+                         f"{ref_pad.dtype}: the kernel takes uint8 "
+                         f"[{H + 2 * radius}, {W + 2 * radius}]")
+    if cur.stride(1) != 1:
+        cur = cur.contiguous()
+    if ref_pad.stride(1) != 1:
+        ref_pad = ref_pad.contiguous()
+    mb_w, mb_h = W // 16, H // 16
+    n = mb_w * mb_h
+    out = torch.empty((3, 9 * n), dtype=torch.int32, device=cur.device)
+    P = ctypes.c_void_p
+    rc = _build.lib().pip_me_dense(
+        P(cur.data_ptr()), cur.stride(0), cur.element_size(),
+        P(ref_pad.data_ptr()), ref_pad.stride(0), P(out.data_ptr()), mb_w,
+        mb_h, radius, _build.stream(cur.device))
+    _build.check(rc, "dense search")
+    _build.count_launch(dense_full_search)
+    dy, dx, sad = out
+
+    def part(a, b):
+        return dy[a:b], dx[a:b], sad[a:b]
+
+    return (part(0, n), part(n, 3 * n), part(3 * n, 5 * n),
+            part(5 * n, 9 * n))
+
+
+def dense_full_search(cur, ref_pad, radius):
+    """K5 wrapper: the dense integer-pel search of dense_full_search_plain
+    (same arguments and four (dy, dx, sad) triples). CPU tensors take the
+    plain version; CUDA tensors launch csrc/me_dense.cu (one launch per
+    reference) or raise."""
+    if cur.device.type == "cpu":
+        return dense_full_search_plain(cur, ref_pad, radius)
+    return _dense_launch(cur, ref_pad, radius)
+
+
+dense_full_search.launches = 0
 
 
 # the 49 quarter-pel offsets (ty, tx) of subpel_quad, ty-major, and for

@@ -78,6 +78,13 @@ def idct4x4(blocks):
     return (v + 32) >> 6
 
 
+def recon_residual_frame(coeff_blocks, qp):
+    """Dequant + 4x4 IDCT with flat weights (16): coeff_blocks [..,4,4],
+    qp [..]. Returns the residual int32."""
+    w = torch.full((4, 4), 16, dtype=torch.int32, device=coeff_blocks.device)
+    return idct4x4(dequant4(coeff_blocks, qp, w))
+
+
 def hadamard4x4(dc):
     """Inverse 4x4 Hadamard for I16 luma DC. [..,4,4] -> [..,4,4]."""
     b = dc.to(torch.int32)

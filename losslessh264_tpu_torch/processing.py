@@ -146,6 +146,12 @@ def scene_change_score(cur, ref):
     return count.to(torch.float32) * inv
 
 
+def is_scene_change(cur, ref, ratio: float = SCENE_CHANGE_RATIO_LARGE):
+    """Whether scene_change_score exceeds `ratio` (a host bool), as the
+    JAX helper compares its float32 score with the Python float."""
+    return bool(scene_change_score(cur, ref) > ratio)
+
+
 def adaptive_quant_map(cur, ref, mode: int = AQ_QUALITY_MODE):
     """Per-MB delta-QP map and its mean, as host numpy (int8 [mb_h, mb_w],
     float32 scalar): the model of AdaptiveQuantization.cpp Process in the

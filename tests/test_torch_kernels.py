@@ -2,8 +2,10 @@
 
 K1 (csrc/halfpel.cu, ops/mc.halfpel_planes), K2 (csrc/deblock.cu,
 ops/deblock.deblock_wavefront), K3 (csrc/intra_dec.cu,
-ops/intra.intra_recon) and K4 (csrc/intra_enc.cu,
-encoder_torch.intra_wavefront) have no CPU mode. The tests marked
+ops/intra.intra_recon), K4 (csrc/intra_enc.cu,
+encoder_torch.intra_wavefront), K5 (csrc/me_dense.cu,
+ops/me.dense_full_search) and K6 (csrc/mc_bucket.cu,
+ops/mc.mc_bucketed) have no CPU mode. The tests marked
 `cuda` build them with nvcc and compare them on the card with
 torch.equal, and run the decoder and the encoder, which launch them, on
 the card against the committed goldens and the port's CPU run; they
@@ -26,13 +28,17 @@ import torch
 from losslessh264_tpu_torch import decoder_torch as dt
 from losslessh264_tpu_torch import encoder_torch as et
 from losslessh264_tpu_torch import native
-from losslessh264_tpu_torch.cases import (INTRA_CLASSES, moving_frames,
+from losslessh264_tpu_torch.cases import (INTRA_CLASSES, K5_CASES, K6_CASES,
+                                          bucketed_mc_frames,
+                                          dense_search_case, moving_frames,
                                           random_deblock_case,
                                           random_intra_case,
-                                          random_intra_encode_case)
+                                          random_intra_encode_case,
+                                          random_mc_case)
 from losslessh264_tpu_torch.ops import deblock as tdb
 from losslessh264_tpu_torch.ops import intra as tintra
 from losslessh264_tpu_torch.ops import mc as tmc
+from losslessh264_tpu_torch.ops import me as tme
 
 DATA = os.path.join(os.path.dirname(__file__), "data")
 
@@ -103,6 +109,61 @@ def test_kernel_entries_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         et._intra_wavefront_launch(3, 2, *_encode_args(
             random_intra_encode_case(3, 2, 0, 26), "cpu"))
+
+
+def test_search_and_mc_wrappers_take_plain_version_on_cpu():
+    """K5's and K6's wrappers on CPU tensors return their plain versions'
+    results and launch nothing."""
+    before = (tme.dense_full_search.launches, tmc.mc_bucketed.launches,
+              tmc.halfpel_planes.launches)
+    cur, ref = dense_search_case(48, 64, 5, "periodic", 3)
+    got = tme.dense_full_search(cur, ref, 5)
+    want = tme.dense_full_search_plain(cur, ref, 5)
+    assert all(torch.equal(g, w) for g3, w3 in zip(got, want)
+               for g, w in zip(g3, w3))
+    case = random_mc_case(9, 4, 5, 5, 2, 3, False)
+    got = tmc.mc_bucketed(*case, 9, 4)
+    want = tmc.mc_bucketed_plain(*case, 9, 4)
+    assert all(g.dtype == torch.int32 and torch.equal(g, w)
+               for g, w in zip(got, want))
+    assert (tme.dense_full_search.launches, tmc.mc_bucketed.launches,
+            tmc.halfpel_planes.launches) == before == (0, 0, 0)
+
+
+def test_search_and_mc_entries_refuse_cpu_tensors():
+    """K5's and K6's launch paths raise on CPU tensors, and K5's on a
+    radius whose displacement index its key cannot hold."""
+    cur, ref = dense_search_case(48, 64, 5, "random", 0)
+    with pytest.raises(ValueError, match="CUDA"):
+        tme._dense_launch(cur, ref, 5)
+    cur, ref = dense_search_case(16, 32, 23, "random", 0, strided=False)
+    with pytest.raises(ValueError, match="radius 23"):
+        tme._dense_launch(cur, ref, 23)
+    with pytest.raises(ValueError, match="CUDA"):
+        tmc._mc_bucketed_launch(*random_mc_case(9, 4, 5, 5, 2, 3, False),
+                                9, 4)
+
+
+def _check_mc_case(p, n_main, n_slots, n_extra, edge):
+    """The plan of random_mc_case has the triples, slots and fix-up cells
+    its case names: every main and extra triple in the table (the 32 most
+    populated when there are more), 512 fix-up cells when 32 MBs spill,
+    and some when MVs at +-MC_MV_MAX clip at the frame's edge."""
+    fix = int((p["mc_fix"] >= 0).sum())
+    assert p["mc_nslots"] == n_slots
+    if edge:
+        assert 0 < fix < tmc.MC_FIX_CAP and p["mc_nuniq"] <= n_main
+    else:
+        assert p["mc_nuniq"] == min(tmc.MC_CAP, n_main + n_extra)
+        assert fix == (16 * n_extra if n_main + n_extra > tmc.MC_CAP else 0)
+
+
+@pytest.mark.parametrize("name,mb_w,mb_h,seed,n_main,n_slots,n_extra,edge",
+                         K6_CASES)
+def test_mc_cases(name, mb_w, mb_h, seed, n_main, n_slots, n_extra, edge):
+    """random_mc_case's plans are the ones K6's card cases name."""
+    *_, p = random_mc_case(mb_w, mb_h, seed, n_main, n_slots, n_extra, edge)
+    _check_mc_case(p, n_main, n_slots, n_extra, edge)
 
 
 def _encode_args(case, device):
@@ -531,3 +592,102 @@ def test_two_decoders_on_two_streams(cuda_device):
         assert len(g) == len(w) > 0
         assert all(np.array_equal(a, b) for fg, fw in zip(g, w)
                    for a, b in zip(fg, fw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,H,W,radius,kind,seed,scroll_dy,dtype,strided",
+                         K5_CASES)
+def test_dense_search_kernel_on_card(cuda_device, name, H, W, radius, kind,
+                                     seed, scroll_dy, dtype, strided):
+    """K5 equals the plain search on the card, every output, 3 launches:
+    720p at radius 16 on noise, flat and periodic planes (the tie rule),
+    64x48 at radius 4-6, widths that are not a multiple of the kernel's
+    8-MB tile, scrolled and strided reference windows."""
+    cur, ref = dense_search_case(H, W, radius, kind, seed, scroll_dy, dtype,
+                                 strided, cuda_device)
+    want = tme.dense_full_search_plain(cur, ref, radius)
+    before = tme.dense_full_search.launches
+    for _ in range(3):
+        got = tme.dense_full_search(cur, ref, radius)
+        for g3, w3 in zip(got, want):
+            for g, w in zip(g3, w3):
+                assert g.dtype == w.dtype and torch.equal(g, w)
+    assert tme.dense_full_search.launches == before + 3
+    if kind == "flat":     # every displacement ties: the first one wins
+        assert (got[0][0] == -radius).all() and (got[0][1] == -radius).all()
+
+
+@pytest.mark.cuda
+def test_dense_search_kernel_synth720p(cuda_device):
+    """K5 on synth720p's frame 1 against decoded frame 0, edge-padded as
+    the encoder pads its reference, equals the plain search."""
+    with open(os.path.join(DATA, "synth720p.264"), "rb") as fh:
+        frames = dt.TorchDecoder(fh.read(), device=cuda_device).frames()
+        f0, f1 = next(frames)[0], next(frames)[0]
+    plane = dt._edge_pad(f0, 32)
+    ref = plane[16:16 + 752, 16:16 + 1312]
+    cur = f1.to(torch.int32)
+    want = tme.dense_full_search_plain(cur, ref, 16)
+    got = tme.dense_full_search(cur, ref, 16)
+    assert all(torch.equal(g, w) for g3, w3 in zip(got, want)
+               for g, w in zip(g3, w3))
+    assert (want[0][2] > 0).any() and (want[0][0] != want[0][0][0]).any()
+
+
+@pytest.mark.cuda
+def test_dense_search_kernel_refuses_radius(cuda_device):
+    """A radius past the key's 11 index bits raises on the card too."""
+    cur, ref = dense_search_case(16, 32, 23, "random", 0, strided=False,
+                                 device=cuda_device)
+    with pytest.raises(ValueError, match="radius 23"):
+        tme.dense_full_search(cur, ref, 23)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,mb_w,mb_h,seed,n_main,n_slots,n_extra,edge",
+                         K6_CASES)
+def test_mc_bucket_kernel_on_card(cuda_device, name, mb_w, mb_h, seed,
+                                  n_main, n_slots, n_extra, edge):
+    """K6 (with K1 and the fix-ups around it) equals the plain bucketed MC
+    on the card, 3 launches: 1, 2 and 32 table triples, 1 and 2 slots, 0
+    and 512 fix-up cells, MVs at +-MC_MV_MAX."""
+    case = random_mc_case(mb_w, mb_h, seed, n_main, n_slots, n_extra, edge,
+                          cuda_device)
+    _check_mc_case(case[-1], n_main, n_slots, n_extra, edge)
+    want = tmc.mc_bucketed_plain(*case, mb_w, mb_h)
+    before = tmc.mc_bucketed.launches
+    for _ in range(3):
+        got = tmc.mc_bucketed(*case, mb_w, mb_h)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype == torch.int32 and torch.equal(g, w)
+    assert tmc.mc_bucketed.launches == before + 3
+
+
+@pytest.mark.cuda
+def test_mc_bucket_kernel_refuses_window(cuda_device):
+    """An entry whose taps leave the half-pel planes raises before the
+    launch, as the plain version raises."""
+    *rings, pad, p = random_mc_case(9, 4, 5, 5, 2, 3, False, cuda_device)
+    p["mc_uniq"] = p["mc_uniq"].copy()
+    p["mc_uniq"][1, 1] = 40          # the integer mvy of triple 1, in px
+    before = tmc.mc_bucketed.launches
+    for fn in (tmc.mc_bucketed, tmc.mc_bucketed_plain):
+        with pytest.raises(ValueError, match="half-pel slice"):
+            fn(*rings, pad, p, 9, 4)
+    assert tmc.mc_bucketed.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stream", ["synth720p.264", "runs720p.264"])
+def test_mc_bucket_kernel_on_stream_plans(cuda_device, stream):
+    """K6 equals the plain bucketed MC on every bucketed P frame of the
+    stream, on the rings its decode gives that frame."""
+    with open(os.path.join(DATA, stream), "rb") as fh:
+        data = fh.read()
+    frames = 0
+    for i, *args in bucketed_mc_frames(data, cuda_device):
+        want = tmc.mc_bucketed_plain(*args)
+        got = tmc.mc_bucketed(*args)
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), i
+        frames += 1
+    assert frames > 0

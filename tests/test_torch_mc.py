@@ -172,10 +172,15 @@ def test_mc_bucketed_matches_jax(plain_pallas, trial, n_mvs):
     fn = jax.jit(jmc.mc_bucketed, static_argnames=("pad", "mb_w", "mb_h"))
     want = fn(jnp.asarray(ref_y), jnp.asarray(ref_u), jnp.asarray(ref_v),
               pad, p, mb_w=mb_w, mb_h=mb_h)
-    got = tmc.mc_bucketed(T(ref_y), T(ref_u), T(ref_v), pad,
-                          _torch_plan(plan, mv, ref_slot), mb_w, mb_h)
-    for g, w in zip(got, want):
+    p = _torch_plan(plan, mv, ref_slot)
+    got = tmc.mc_bucketed_plain(T(ref_y), T(ref_u), T(ref_v), pad, p, mb_w,
+                                mb_h)
+    # the K6 wrapper takes the plain version for CPU tensors
+    wrapped = tmc.mc_bucketed(T(ref_y), T(ref_u), T(ref_v), pad, p, mb_w,
+                              mb_h)
+    for g, v, w in zip(got, wrapped, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+        np.testing.assert_array_equal(v.numpy(), np.asarray(w))
 
 
 @pytest.mark.parametrize("trial,n_mvs", [(2, 5), (3, 60)])

@@ -87,6 +87,32 @@ def test_vaa_and_scene_score():
             tp.scene_change_score(T(a), T(b)).numpy()
 
 
+@pytest.mark.parametrize("ratio", [None, jp.SCENE_CHANGE_RATIO_MEDIUM,
+                                   "score", 0.0, 1.0])
+def test_is_scene_change(ratio):
+    """is_scene_change equals the JAX helper on the four kinds of content
+    and on frames whose share of moving 8x8 blocks is k/48 for every k,
+    at the default and the medium ratio, at a ratio equal to the float32
+    score itself (strictly greater is required) and at 0 and 1."""
+    rng = np.random.default_rng(5)
+    pairs = [_pair(48, 64, seed) for seed in range(4)]
+    for k in range(49):
+        moving = np.zeros(48, bool)
+        moving[rng.permutation(48)[:k]] = True
+        cur = np.kron(moving.reshape(6, 8), np.full((8, 8), 255))
+        pairs.append((cur.astype(np.uint8), np.zeros((48, 64), np.uint8)))
+    for a, b in pairs:
+        if ratio is None:
+            args = ()
+        elif ratio == "score":
+            args = (float(jp.scene_change_score(a, b)),)
+        else:
+            args = (ratio,)
+        want = jp.is_scene_change(a, b, *args)
+        got = tp.is_scene_change(T(a), T(b), *args)
+        assert type(got) is bool and got == want
+
+
 @pytest.mark.parametrize("H,W,seeds", [(48, 64, range(40)),
                                        (720, 1280, range(12)),
                                        (1088, 1920, range(4))])

@@ -45,6 +45,18 @@ def test_dequant4_idct4(kind):
     eq(tt.dequant4(T(coeff), T(qps), T(w)), jt.dequant4(coeff, qps, w))
 
 
+def test_recon_residual_frame():
+    """Dequant + IDCT with flat weights over a frame's 4x4 blocks, qp per
+    block and broadcast from one value, every qp 0-51."""
+    rng = np.random.default_rng(9)
+    coeff = rng.integers(-2048, 2048, (52, 6, 4, 4)).astype(np.int16)
+    qps = np.broadcast_to(np.arange(52)[:, None], (52, 6)).copy()
+    eq(tt.recon_residual_frame(T(coeff), T(qps)),
+       jt.recon_residual_frame(coeff, qps))
+    eq(tt.recon_residual_frame(T(coeff[7]), T(np.int32(30))),
+       jt.recon_residual_frame(coeff[7], np.int32(30)))
+
+
 @pytest.mark.parametrize("kind", ["flat8", "list8"])
 def test_dequant8_idct8(kind):
     rng = np.random.default_rng(8)
