@@ -107,14 +107,18 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
      own compute) and the 1x45 column (compute and hand-off), per MB.
  14. K5 and K6 against their plain versions on the card, exact: K5 on
      cases.K5_CASES (720p radius 16 on noise, flat and periodic planes,
-     64x48 at radius 4-6, 40x23 and 30x7 MBs, radius 8 and 22, scrolled
-     and strided reference windows; 3 launches each) and synth720p frame
-     1 against frame 0, refusing radius 23; K6 on cases.K6_CASES (1, 2
-     and 32 table triples, 1 and 2 slots, 0 and 512 fix-up cells, MVs at
-     +-MC_MV_MAX; 3 launches each) and every bucketed P frame of
-     synth720p and runs720p, refusing a window off the planes. Their
-     times: K5 at 720p radius 16 on the synth720p pair, K6 per bucketed P
-     frame of synth720p: wrapper, kernel alone, plain version, bound.
+     64x48 at radius 4-6, 1080p, 40x23 and 30x7 MBs, widths of 5, 9 and
+     13 MBs, radius 0, 1, 3, 8 and 22, scrolled and strided reference
+     windows, the best dy at either end of the search; 3 launches each)
+     and synth720p frame 1 against frame 0, refusing radius 23; K6 on
+     cases.K6_CASES (1, 2 and 32 table triples, 1 and 2 slots, 0 and 512
+     fix-up cells, MVs at +-MC_MV_MAX, far MBs whose clipped and long MVs
+     make fix-up cells on every ring slot; 3 launches each) and every
+     bucketed P frame of
+     synth720p and runs720p (logging each frame's fix-up cells), refusing
+     a window off the planes. Their times: K5 at 720p radius 16 on the
+     synth720p pair, K6 per bucketed P frame of synth720p: wrapper, kernel
+     alone, plain version, bound.
  15. times: K1 at 720p, 1080p, 2160p and on the encoder's refs=2 plane
      (784x2688), both entries, wrapper and kernel alone, beside their
      bounds, its plain version and the conv2d yardstick; K2 against its
@@ -163,12 +167,12 @@ one MB column (compute and hand-off at every MB), with their
 the wrapper at 720p radius 16, `kernel_ms` the bare C entry (a CUDA
 graph's replays), with its `operations`, `bytes` and `bound_share`; K6's
 are the means over synth720p's bucketed P frames (`frames` of them; its
-wrapper's `ms` holds the K1 launch and the fix-ups around the kernel).
-K6's `operands_ms` and `fixups_ms` split its wrapper: K1, the window
-checks and the outputs (`ops/mc.k6_operands`), and the per-cell fix-ups
-(`_mc_fixups`). K5's `int32_rate_ms` is its operations at the int32
-lane rate (see Bounds). `library_ms` is null for K2-K6 (no PyTorch call
-computes them). The last line
+wrapper's `ms` holds the K1 launches before the kernel), with their
+`fix_cells`. K6's `operands_ms` is its wrapper but for the launch: K1,
+the window checks and the outputs (`ops/mc.k6_operands`); `k1_ms` the
+K1 calls of the frame's active slots in it. K5's `int32_rate_ms` is its
+operations at the int32 lane rate. `library_ms` is null for
+K2-K6 (no PyTorch call computes them). The last line
 is {"ok": true, "device": {"platform": "gpu", ...}}. Without a GPU, or without the package beside it, the script
 exits non-zero and prints no result.
 
@@ -179,10 +183,14 @@ outside the tensor cores, halved: an SM has half as many int32 lanes as
 float32 lanes). K5's operations are on 8-bit samples, and the kernel runs
 them 4 to a 32-bit instruction, so the int32 rate is no bound for it:
 its operations count at the card's 8-bit peak, 1979 TOP/s (int8, tensor
-cores). K1, K2, K3 and K6 are bound by bytes, K4 and K5 by operations
-(K3_OPS_PER_MB, K4_OPS_PER_MB, k5_bytes_ops: 3 per pixel and
-displacement); K2, K3 and K4 are far from the bound, a chain of
-dependent MB steps.
+cores). Tensor cores cannot take an absolute difference: K5's bound at
+the measured rate of the fastest byte SAD (vabsdiff4 with its
+accumulate) is tools/sad_rates.py's, not this script's. K6's bytes are
+the input samples its frame's prediction depends on, each once
+(k6_reads). K1, K2, K3 and K6 are bound by bytes,
+K4 and K5 by operations (K3_OPS_PER_MB, K4_OPS_PER_MB, k5_bytes_ops:
+3 per pixel and displacement); K2, K3 and K4 are far from the bound, a
+chain of dependent MB steps.
 """
 import ctypes
 import json
@@ -1448,15 +1456,123 @@ def k5_bytes_ops(H, W, R, cur_bytes):
     return n_bytes, 3 * (2 * R + 1) ** 2 * H * W
 
 
-def k6_bytes_ops(p, mb_w, mb_h):
-    """(bytes, operations) K6 must take for the plan `p`: the bucket
-    plane, the two luma taps of every pixel of a table cell and the four
-    chroma taps of its U and V pixels (uint8), and the three int32 planes
-    written once; a luma pixel is 3 operations, a chroma one 9."""
+def k6_luma_need(fx, fy):
+    """[B, 9, 9] bool: the samples of a fix-up cell's 9x9 window (rows
+    and columns from 2 before the cell to 3 after it) that its
+    quarter-pel case (fx, fy, [B] each) reads: G alone, a b row or an h
+    column of 6-tap sums, both (the diagonals: the nearest b row and h
+    column), or the whole window (j)."""
+    k = np.arange(9)
+
+    def row_of(lo):                   # 4 rows (or columns) from lo
+        return (k >= lo) & (k < lo + 4)
+    need = np.zeros((len(fx), 9, 9), bool)
+    for i, (x, y) in enumerate(zip(fx, fy)):
+        if x == 0 and y == 0:
+            need[i] = row_of(2)[:, None] & row_of(2)[None, :]
+        elif y == 0:
+            need[i] = row_of(2)[:, None]
+        elif x == 0:
+            need[i] = row_of(2)[None, :]
+        elif x == 2 or y == 2:
+            need[i] = True
+        else:
+            need[i] = (row_of(2 if y == 1 else 3)[:, None]
+                       | row_of(2 if x == 1 else 3)[None, :])
+    return need
+
+
+def k6_reads(ref_y, ref_u, pad, p, mb_w, mb_h):
+    """The samples the frame's prediction under the plan `p` depends on,
+    each once: (hp, luma, chroma, table cells, fix-up cells). hp [2, 4,
+    Ho, Wo] marks the samples of K1's planes of the two active slots that
+    some table cell's luma tap reads (a sample two taps or two cells
+    share marked once); luma [R, Hp, Wp] the ring's luma samples some
+    fix-up cell's quarter-pel case reads (k6_luma_need); chroma [R, Hcp,
+    Wcp] the U (and so V) samples some cell's eighth-pel bilinear weighs
+    by more than 0 (the right column only if fx > 0, the lower row only
+    if fy > 0)."""
     H, W = 16 * mb_h, 16 * mb_w
-    cells = int((p["mc_bucket"].to(torch.int32) < p["mc_nuniq"]).sum())
-    n_bytes = 16 * mb_w * mb_h + cells * (16 * 2 + 2 * 4 * 4) + 6 * H * W
-    return n_bytes, cells * (16 * 3 + 2 * 4 * 9)
+    R, Hp, Wp = ref_y.shape
+    cpad = pad // 2
+    lpad = 2 * cpad
+    Hc, Wc = H // 2, W // 2
+    o3 = np.arange(3)
+    bucket = p["mc_bucket"].cpu().numpy().reshape(
+        mb_h, mb_w, 4, 4).transpose(0, 2, 1, 3).reshape(4 * mb_h, 4 * mb_w)
+    nuniq = int(p["mc_nuniq"])
+    slots = np.asarray(p["mc_slots"]).astype(np.int64)
+    act = [int(slots[0]), int(slots[1]) if p["mc_nslots"] > 1
+           else int(slots[0])]
+    chroma = np.zeros(ref_u.shape, bool)
+
+    def mark_chroma(slot, y, x, fy, fx):
+        """each cell's 2x2 bilinear at chroma (y, x) with fractions fy, fx
+        ([B] each): the samples it weighs by more than 0"""
+        keep = ((o3[None, :, None] < 2 + (fy > 0)[:, None, None])
+                & (o3[None, None, :] < 2 + (fx > 0)[:, None, None]))
+        ys = np.broadcast_to(y[:, None, None] + o3[None, :, None],
+                             keep.shape)
+        xs = np.broadcast_to(x[:, None, None] + o3[None, None, :],
+                             keep.shape)
+        ss = np.broadcast_to(slot[:, None, None], keep.shape)
+        chroma[ss[keep], ys[keep], xs[keep]] = True
+
+    # table cells: two taps of K1's planes, the bilinear of their slot
+    cr, cc = np.nonzero(bucket < nuniq)
+    e = np.asarray(p["mc_uniq"]).astype(np.int64)[bucket[cr, cc]]
+    o4 = np.arange(4)
+    hp = np.zeros((2, 4, Hp - 5, Wp - 5), bool)
+    for pl, dy, dx in ((3, 4, 5), (6, 7, 8)):
+        ys = (pad - 2 + e[:, 1] + 4 * cr + e[:, dy])[:, None, None] \
+            + o4[None, :, None]
+        xs = (pad - 2 + e[:, 2] + 4 * cc + e[:, dx])[:, None, None] \
+            + o4[None, None, :]
+        hp[e[:, 0][:, None, None], e[:, pl][:, None, None], ys, xs] = True
+    mark_chroma(np.array(act)[e[:, 0]], cpad + e[:, 9] + 2 * cr,
+                cpad + e[:, 10] + 2 * cc, e[:, 11], e[:, 12])
+
+    # fix-up cells: the general prediction from the raw rings, as
+    # ops/mc.mc_luma_cells and mc_chroma_cells clip and read
+    fix = p["mc_fix"].cpu().numpy()
+    fix = fix[fix >= 0].astype(np.int64)
+    mb, k = fix // 16, fix % 16
+    y0 = (mb // mb_w) * 16 + (k // 4) * 4
+    x0 = (mb % mb_w) * 16 + (k % 4) * 4
+    slot = np.clip(p["ref_slot"].cpu().numpy().reshape(-1)[fix], 0, R - 1)
+    mv = p["mv"].cpu().numpy().reshape(-1, 2)[fix].astype(np.int64)
+    vx, vy = mv[:, 0], mv[:, 1]
+    fullx = np.clip(4 * x0 + vx, (2 - pad) * 4, (W + pad - 19) * 4)
+    fully = np.clip(4 * y0 + vy, (2 - pad) * 4, (H + pad - 19) * 4)
+    need = k6_luma_need(fullx & 3, fully & 3)
+    b, r, c = np.nonzero(need)
+    luma = np.zeros(ref_y.shape, bool)
+    luma[slot[b], pad + (fully[b] >> 2) - 2 + r,
+         pad + (fullx[b] >> 2) - 2 + c] = True
+    cfx = np.clip(4 * x0 + vx, (2 - lpad) * 4, (2 * Wc + lpad - 19) * 4)
+    cfy = np.clip(4 * y0 + vy, (2 - lpad) * 4, (2 * Hc + lpad - 19) * 4)
+    mark_chroma(slot, cpad + (cfy >> 3), cpad + (cfx >> 3), cfy & 7,
+                cfx & 7)
+    return hp, luma, chroma, len(cr), len(fix)
+
+
+def k6_bytes_ops(ref_y, ref_u, ref_v, pad, p, mb_w, mb_h):
+    """(bytes, operations) K6 must take for the plan `p` on these rings.
+    Bytes: every input byte the frame's prediction depends on, once: the
+    bucket plane, the fix list and the table (int32 [512] and [32, 16]),
+    the samples of k6_reads (U and V alike), each fix-up cell's ref_slot
+    and mv; and the three int32 planes written once. Operations: a table
+    cell's luma pixel is 3, a chroma one 9; a fix-up cell's luma pixel
+    K1_OPS_PER_POSITION (its b, h and j), its chroma pixels 9 each."""
+    H, W = 16 * mb_h, 16 * mb_w
+    hp, luma, chroma, cells, fix = k6_reads(ref_y, ref_u, pad, p, mb_w,
+                                            mb_h)
+    per_fix = p["ref_slot"].element_size() + 2 * p["mv"].element_size()
+    n_bytes = (16 * mb_w * mb_h + p["mc_fix"].numel() * 4 + 32 * 16 * 4
+               + int(hp.sum()) + int(luma.sum()) + 2 * int(chroma.sum())
+               + fix * per_fix + 6 * H * W)
+    return n_bytes, (cells * (16 * 3 + 2 * 4 * 9)
+                     + fix * (16 * K1_OPS_PER_POSITION + 2 * 4 * 9))
 
 
 def search_mc_phase(data, frames, dev, card):
@@ -1470,7 +1586,7 @@ def search_mc_phase(data, frames, dev, card):
     leave the planes, as the plain version does. Then their times: K5 at
     720p radius 16 on the synth720p pair, K6 per bucketed P frame of
     synth720p (mean): `ms` the wrapper (CUDA events around back-to-back
-    calls; K6's includes K1 and the fix-ups), `kernel_ms` the bare C entry
+    calls; K6's includes K1), `kernel_ms` the bare C entry
     (a CUDA graph's replays), `plain_ms` the plain version, beside the
     bound. Returns the K5 and K6 rows of the kernel report."""
     from losslessh264_tpu_torch import _build
@@ -1537,11 +1653,14 @@ def search_mc_phase(data, frames, dev, card):
             log(f"K6 {fn.__name__} refuses a window off the planes: {e}")
     runs_data = open(RUNS_STREAM, "rb").read()
     for stream, blob in (("runs720p", runs_data), ("synth720p", data)):
+        fixes = {}
         for i, *args in bucketed_mc_frames(blob, dev):
             k6_err = max(k6_err, same(tmc.mc_bucketed(*args),
                                       tmc.mc_bucketed_plain(*args),
                                       f"K6 {stream} frame {i}"))
-        log(f"K6 mc_bucketed == plain: every bucketed P frame of {stream}")
+            fixes[i] = int((args[4]["mc_fix"] >= 0).sum())
+        log(f"K6 mc_bucketed == plain: every bucketed P frame of {stream}; "
+            f"fix-up cells by frame {fixes}")
 
     # ---- times ----
     n_bytes, n_ops = k5_bytes_ops(720, 1280, 16, 4)
@@ -1570,22 +1689,25 @@ def search_mc_phase(data, frames, dev, card):
         f"{k5['ms']:.4f} ms, kernel alone {k5['kernel_ms']:.4f} ms; bound "
         f"{k5['bound_ms']:.5f} ms by {k5['bound_by']} ({n_ops} ops at the "
         f"int8 rate, {n_bytes} bytes), share {k5['bound_share']:.4f}; the "
-        f"ops at the int32 lane rate {k5['int32_rate_ms']:.5f} ms; plain torch "
-        f"{k5['plain_ms']:.3f} ms on {card}")
+        f"ops at the int32 lane rate {k5['int32_rate_ms']:.5f} ms; plain "
+        f"torch {k5['plain_ms']:.3f} ms on {card}")
 
     rows = []
     for i, *args in bucketed_mc_frames(data, dev):
         ops_args, preds, keep = tmc.k6_operands(*args)
+        p = args[4]
+        slots = [int(s) for s in p["mc_slots"][:max(1, p["mc_nslots"])]]
 
-        def k6_call(ops_args=ops_args, keep=keep):
+        def k6_call(ops_args=ops_args, keep=(keep, preds)):
             _build.check(lib.pip_mc_bucket(*ops_args, _build.stream(dev)),
                          "bucketed MC")
-        nb, no = k6_bytes_ops(args[4], args[5], args[6])
-        row = {"frame": i, "nuniq": args[4]["mc_nuniq"],
+        nb, no = k6_bytes_ops(*args)
+        row = {"frame": i, "nuniq": p["mc_nuniq"],
+               "fix_cells": int((p["mc_fix"] >= 0).sum()),
                "ms": cuda_ms(lambda: tmc.mc_bucketed(*args), 10),
                "operands_ms": cuda_ms(lambda: tmc.k6_operands(*args), 10),
-               "fixups_ms": cuda_ms(lambda: tmc._mc_fixups(*preds, *args),
-                                    10),
+               "k1_ms": cuda_ms(lambda: [tmc._halfpel_planes_u8(args[0][s])
+                                         for s in slots], 10),
                "kernel_ms": kernel_device_ms([k6_call]),
                "plain_ms": cuda_ms(lambda: tmc.mc_bucketed_plain(*args), 3,
                                    warmup=1),
@@ -1593,8 +1715,8 @@ def search_mc_phase(data, frames, dev, card):
         row["bound_ms"], row["bound_by"] = bound_ms(nb, no)
         rows.append(row)
     k6 = {k: sum(r[k] for r in rows) / len(rows)
-          for k in ("ms", "operands_ms", "fixups_ms", "kernel_ms",
-                    "plain_ms", "bytes", "operations", "bound_ms")}
+          for k in ("ms", "operands_ms", "k1_ms", "kernel_ms", "plain_ms",
+                    "bytes", "operations", "bound_ms", "fix_cells")}
     k6["bound_by"] = rows[0]["bound_by"]
     k6["bound_share"] = k6["bound_ms"] / k6["kernel_ms"]
     k6["frames"] = len(rows)
@@ -1602,10 +1724,12 @@ def search_mc_phase(data, frames, dev, card):
                         for k, v in r.items()} for r in rows]
     log(f"time K6 mc_bucketed, mean of {len(rows)} bucketed P frames of "
         f"synth720p (nuniq {min(r['nuniq'] for r in rows)}.."
-        f"{max(r['nuniq'] for r in rows)}): wrapper (K1, K6, fix-ups) "
-        f"{k6['ms']:.4f} ms = operands (K1, window checks, outputs) "
-        f"{k6['operands_ms']:.4f} + fix-ups {k6['fixups_ms']:.4f} + the "
-        f"launch; kernel alone {k6['kernel_ms']:.5f} ms; bound "
+        f"{max(r['nuniq'] for r in rows)}, fix-up cells "
+        f"{min(r['fix_cells'] for r in rows)}.."
+        f"{max(r['fix_cells'] for r in rows)}): wrapper (K1, K6) "
+        f"{k6['ms']:.4f} ms = operands {k6['operands_ms']:.4f} (K1 "
+        f"{k6['k1_ms']:.4f}, the window checks and the outputs the rest) + "
+        f"the launch; kernel alone {k6['kernel_ms']:.5f} ms; bound "
         f"{k6['bound_ms']:.5f} ms by {k6['bound_by']} "
         f"({k6['bytes']:.0f} bytes), share {k6['bound_share']:.3f}; plain "
         f"torch {k6['plain_ms']:.3f} ms on {card}")
@@ -1981,8 +2105,9 @@ def main():
            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
            "library_ms": None,
            **{k: row[k] for k in ("bytes", "operations", "bound_share",
-                                  "int32_rate_ms", "operands_ms",
-                                  "fixups_ms", "frames") if k in row}}
+                                  "int32_rate_ms",
+                                  "operands_ms", "k1_ms", "fix_cells",
+                                  "frames") if k in row}}
           for name, source, replaces, key, row in (
               ("dense_full_search", "losslessh264_tpu_torch/csrc/me_dense.cu",
                "losslessh264_tpu/ops/me.py:132", "K5", k5),

@@ -50,10 +50,14 @@ _SIGNATURES = {
     # (cur, cur row stride, cur element bytes, ref, ref row stride, out
     #  [3, 9n], mb_w, mb_h, radius, stream)
     "pip_me_dense": [_P, _I, _I, _P, _I, _P, _I, _I, _I, _P],
-    # (host table [32, 16], nuniq, bucket, then per slot 0 and 1: K1
-    #  planes, plane stride, row pitch, U, V, chroma row pitch; pred_y,
-    #  pred_u, pred_v, mb_w, mb_h, pad, stream)
-    "pip_mc_bucket": [_P, _I, _P] + [_P, _L, _I, _P, _P, _I] * 2
+    # (host table [32, 16], nuniq, bucket, fix list, ref_slot, its
+    #  element bytes, mv, its element bytes, then per active slot 0 and 1:
+    #  K1 planes, plane stride, row pitch, ring slot; luma ring, slot
+    #  stride, row stride, Hp, Wp; U ring, V ring, slot stride, row
+    #  stride, Hcp, Wcp; R; pred_y, pred_u, pred_v, mb_w, mb_h, pad,
+    #  stream)
+    "pip_mc_bucket": [_P, _I, _P, _P, _P, _P] + [_P, _L, _I, _I] * 2
+    + [_P, _L, _I, _I, _I, _P, _P, _L, _I, _I, _I, _I]
     + [_P, _P, _P, _I, _I, _I, _P],
 }
 

@@ -259,9 +259,13 @@ def random_intra_encode_case(mb_w, mb_h, seed, qp, mask=None):
 # strided). 720p at the encoder's radius on noise, on a flat plane (every
 # displacement ties) and on a periodic one (many tie); 64x48 at radius
 # 4-6; the simulcast layer's 40x23 MBs, the graft's radius 8, 30x7 MBs
-# (not a multiple of the kernel's 8-MB tile), scrolled windows and the
-# largest radius the kernel's key holds. A strided reference is a slice
-# of a PAD-padded plane, as encode_inter_mbs takes it.
+# (not a multiple of the kernel's 4-MB tile), scrolled windows and the
+# largest radius the kernel's key holds; 1080p, radius 0, 1 and 3, and
+# widths of 5, 9 and 13 MBs (one past a multiple of the kernel's 4-MB
+# tile); windows scrolled so that the best dy is the last (+R) or the
+# first (-R) of the search (cur matches the reference at (dy, dx) =
+# (-1 - scroll_dy, -2)). A strided reference is a slice of a PAD-padded
+# plane, as encode_inter_mbs takes it.
 K5_CASES = [
     ("720p random", 720, 1280, 16, "random", 0, 0, "int32", True),
     ("720p flat", 720, 1280, 16, "flat", 1, 0, "int32", True),
@@ -275,6 +279,16 @@ K5_CASES = [
     ("720p scroll_dy 9", 720, 1280, 16, "random", 9, 9, "int32", True),
     ("64x48 scroll_dy -11", 48, 64, 16, "random", 10, -11, "int32", True),
     ("96x48 radius 22", 48, 96, 22, "random", 11, 0, "int32", False),
+    ("1080p (120x68 MBs)", 1088, 1920, 16, "random", 12, 0, "uint8", True),
+    ("80x48 radius 0 (5x3 MBs)", 48, 80, 0, "random", 13, 0, "int32", True),
+    ("144x32 radius 1 (9x2 MBs)", 32, 144, 1, "periodic", 14, 0, "int32",
+     False),
+    ("208x64 radius 3 (13x4 MBs)", 64, 208, 3, "random", 15, 0, "int32",
+     True),
+    ("160x96 radius 8 scroll_dy -9 (best dy +8)", 96, 160, 8, "random", 16,
+     -9, "int32", True),
+    ("160x96 scroll_dy 15 (best dy -16)", 96, 160, 16, "random", 17, 15,
+     "int32", True),
 ]
 K5_PAD = 32
 
@@ -325,7 +339,11 @@ def dense_search_case(H, W, radius, kind, seed, scroll_dy=0, cur_dtype="int32",
 # the 32 the table holds; the 32 + 32 case spills exactly 32 MBs (512
 # cells, MC_FIX_CAP) to the fix-ups; the edge case puts MVs at
 # +-MC_MV_MAX (the frame's right and bottom cells then clip and take the
-# fix-ups too).
+# fix-ups too). With edge "far" the extra MBs are far MBs instead: every
+# cell its own slot of the whole ring (the two active slots and the two
+# others) and its own MV, longer than MC_MV_MAX, half of them so long that
+# the iFullMV clip engages (on all four sides across the MBs), and the
+# four corner MBs among them; every far cell is a fix-up cell.
 K6_CASES = [
     ("720p 1 triple", 80, 45, 0, 1, 1, 0, False),
     ("720p 2 triples, 2 slots", 80, 45, 1, 2, 2, 0, False),
@@ -333,6 +351,9 @@ K6_CASES = [
     ("720p 32 triples, 2 slots, 512 fix-ups", 80, 45, 3, 32, 2, 32, False),
     ("720p MVs at +-MC_MV_MAX", 80, 45, 4, 12, 2, 0, True),
     ("9x4 MBs 5 triples, 2 slots", 9, 4, 5, 5, 2, 3, False),
+    ("720p 2 triples, 32 far MBs", 80, 45, 6, 2, 1, 32, "far"),
+    ("720p 20 triples, 2 slots, 12 far MBs", 80, 45, 7, 20, 2, 12, "far"),
+    ("9x4 MBs 3 triples, 2 slots, 8 far MBs", 9, 4, 8, 3, 2, 8, "far"),
 ]
 
 
@@ -345,9 +366,14 @@ def random_mc_case(mb_w, mb_h, seed, n_main, n_slots, n_extra, edge,
     places a fresh triple each (the table keeps the 32 most populated
     triples; the rest spill to the fix-ups); every 40th MB is intra
     (ref_slot -1). Slots 1 and 3 of the ring are the active ones; MVs
-    are |mv| <= 64 quarter-pels, and with `edge` four main triples sit at
-    (+-MC_MV_MAX, +-MC_MV_MAX). The plan is mc_fast_plan's; raises if it
-    does not serve the frame."""
+    are |mv| <= 64 quarter-pels, and with `edge` True four main triples
+    sit at (+-MC_MV_MAX, +-MC_MV_MAX). With `edge` "far" the n_extra MBs
+    (the four corner MBs and random others) are far MBs: each cell a slot
+    of the whole ring and an MV of MC_MV_MAX + 1 to 200 quarter-pels per
+    component (half the cells) or of MC_MV_MAX + 1 to 4 (W + 2 pad) (the
+    other half, which the iFullMV clip mostly pulls back into the padded
+    planes). ref_slot is int32 and mv int16, as the decoder uploads them.
+    The plan is mc_fast_plan's; raises if it does not serve the frame."""
     from .decoder_torch import planes_to_torch
     from .ops import mc as tmc
     rng = np.random.RandomState(seed)
@@ -359,11 +385,13 @@ def random_mc_case(mb_w, mb_h, seed, n_main, n_slots, n_extra, edge,
     ref_v = rng.randint(0, 256, ref_u.shape)
     slots = [1, 3][:n_slots]
     m = tmc.MC_MV_MAX
+    far = edge == "far"
+    n_fresh = 0 if far else n_extra
     mvs = set()
-    while len(mvs) < n_main + n_extra:
+    while len(mvs) < n_main + n_fresh:
         mvs.add(tuple(int(v) for v in rng.randint(-64, 65, 2)))
     mvs = sorted(mvs, key=lambda v: rng.rand())
-    if edge:
+    if edge is True:
         mvs[:4] = [(m, m), (-m, -m), (m, -m), (-m, m)]
     # triple k: (slot, mvy, mvx), the slots taken in turn
     trip = np.array([(slots[k % n_slots], *v) for k, v in enumerate(mvs)])
@@ -371,12 +399,28 @@ def random_mc_case(mb_w, mb_h, seed, n_main, n_slots, n_extra, edge,
     intra[:n_main] = False
     pick = np.concatenate([np.arange(min(n_main, n)),
                            rng.randint(0, n_main, max(n - n_main, 0))])
-    spots = rng.choice(np.flatnonzero(~intra[n_main:]) + n_main, n_extra,
-                       replace=False)
-    pick[spots] = n_main + np.arange(n_extra)
+    if far:
+        corners = np.unique([0, mb_w - 1, n - mb_w, n - 1])
+        rest = np.setdiff1d(np.arange(n_main, n), corners)
+        spots = np.concatenate([corners, rng.choice(
+            rest[~intra[rest]], n_extra - len(corners), replace=False)])
+        intra[spots] = False
+    else:
+        spots = rng.choice(np.flatnonzero(~intra[n_main:]) + n_main,
+                           n_extra, replace=False)
+        pick[spots] = n_main + np.arange(n_extra)
     t = trip[pick]                                      # [n, 3]
-    ref_slot = np.repeat(t[:, :1], 16, 1).astype(np.int8)
+    ref_slot = np.repeat(t[:, :1], 16, 1).astype(np.int32)
     mv = np.repeat(t[:, None, [2, 1]], 16, 1).astype(np.int16)
+    if far:
+        cells = (len(spots), 16, 2)
+        sign = rng.choice([-1, 1], cells)
+        longer = sign * rng.randint(m + 1, 201, cells)
+        reach = 4 * (W + 2 * pad)
+        clipped = sign * rng.randint(m + 1, reach + 1, cells)
+        mv[spots] = np.where(rng.rand(len(spots), 16, 1) < 0.5, longer,
+                             clipped)
+        ref_slot[spots] = rng.randint(0, R, (len(spots), 16))
     ref_slot[intra] = -1
     mv[intra] = 0
     plan = tmc.mc_fast_plan(mb_w, mb_h, ref_slot, mv.astype(np.int32), pad)

@@ -270,8 +270,9 @@ def _halfpel_planes_u8(ref_pad):
 # (slot, mv) triple take two shifted dense slices, average per the
 # spec's quarter-pel rules (QTAB), and select per pixel by a bucket
 # plane. Cells the dense path cannot serve exactly get a per-cell
-# fix-up gather. The plan (mc_fast_plan) is host numpy, copied verbatim
-# from losslessh264_tpu/ops/mc.py, whose module imports jax.
+# fix-up gather (on the card inside K6's one launch). The plan
+# (mc_fast_plan) is host numpy, copied verbatim from
+# losslessh264_tpu/ops/mc.py, whose module imports jax.
 # ---------------------------------------------------------------------------
 # quarter-pel case tables: k = (mvy&3)*4 + (mvx&3) selects two plane
 # samples whose rounded average is the predicted value (planes G=0, b=1,
@@ -410,16 +411,6 @@ def mc_fast_plan(mb_w, mb_h, ref_slot, mv, pad):
     return plan
 
 
-def _check_window(y, x, rows, cols, plane_shape, what):
-    """JAX's lax.dynamic_slice clamps a start that would run past the
-    plane; the plan's caps (|mv| <= MC_MV_MAX with PAD = 32) keep every
-    slice in range, so the port checks that instead of clamping."""
-    Hs, Ws = plane_shape
-    if not (0 <= y and y + rows <= Hs and 0 <= x and x + cols <= Ws):
-        raise ValueError(f"{what} slice at ({y}, {x}) size {rows}x{cols} "
-                         f"leaves the {Hs}x{Ws} plane")
-
-
 def _drop_scatter(plane, idx, vals):
     """plane.reshape(-1)[idx] = vals with idx == plane.numel() dropped."""
     H, W = plane.shape
@@ -432,8 +423,11 @@ def _mc_prep(ref_y, ref_u, pad, p, mb_w, mb_h):
     """The plan's host entries and the half-pel planes they read: (uniq
     [32, 16] int64, slots, nuniq, nslots, hps), hps the uint8 K1 planes
     of the two active slots (slot 1 reuses slot 0's when inactive).
-    Raises if a slot is outside the ring or an entry's luma or chroma
-    slices leave their planes."""
+    Raises if a slot is outside the ring, an entry's slot is not 0 or 1
+    or its tap planes not 0..3, or an entry's luma or chroma slices leave
+    their planes (the first
+    such slice, entries in order, each its two luma taps and then its
+    four chroma corners)."""
     R = ref_y.shape[0]
     H, W = mb_h * 16, mb_w * 16
     uniq = np.asarray(p["mc_uniq"]).astype(np.int64)
@@ -444,16 +438,29 @@ def _mc_prep(ref_y, ref_u, pad, p, mb_w, mb_h):
     hp0 = _halfpel_planes_u8(ref_y[int(slots[0])])
     hps = [hp0, _halfpel_planes_u8(ref_y[int(slots[1])])
            if nslots > 1 else hp0]
+    e = uniq[:nuniq]
+    if ((e[:, 0] != 0) & (e[:, 0] != 1)).any():
+        raise ValueError(f"mc entries' slots {e[:, 0]} are not 0 or 1")
+    if ((e[:, [3, 6]] < 0) | (e[:, [3, 6]] > 3)).any():
+        raise ValueError(f"mc entries' tap planes {e[:, [3, 6]].tolist()} "
+                         "are not 0..3")
     cpad = pad // 2
-    for u in range(nuniq):
-        e = [int(v) for v in uniq[u]]
-        for dy, dx in (e[4:6], e[7:9]):
-            _check_window(pad - 2 + e[1] + dy, pad - 2 + e[2] + dx, H, W,
-                          hps[e[0]].shape[1:], "half-pel")
-        for dy in (0, 1):
-            for dx in (0, 1):
-                _check_window(cpad + e[9] + dy, cpad + e[10] + dx, H // 2,
-                              W // 2, ref_u.shape[1:], "chroma")
+    ly, lx = pad - 2 + e[:, 1], pad - 2 + e[:, 2]
+    cy, cx = cpad + e[:, 9], cpad + e[:, 10]
+    ys = np.stack([ly + e[:, 4], ly + e[:, 7], cy, cy, cy + 1, cy + 1], 1)
+    xs = np.stack([lx + e[:, 5], lx + e[:, 8], cx, cx + 1, cx, cx + 1], 1)
+    rows = np.array([H] * 2 + [H // 2] * 4)
+    cols = np.array([W] * 2 + [W // 2] * 4)
+    shapes = [tuple(hps[0].shape[1:])] * 2 + [tuple(ref_u.shape[1:])] * 4
+    Hs = np.array([h for h, _ in shapes])
+    Ws = np.array([w for _, w in shapes])
+    bad = ~((0 <= ys) & (ys + rows <= Hs) & (0 <= xs) & (xs + cols <= Ws))
+    if bad.any():
+        u, k = np.argwhere(bad)[0]
+        raise ValueError(
+            f"{'half-pel' if k < 2 else 'chroma'} slice at ({ys[u, k]}, "
+            f"{xs[u, k]}) size {rows[k]}x{cols[k]} leaves the "
+            f"{Hs[k]}x{Ws[k]} plane")
     return uniq, slots, nuniq, nslots, hps
 
 
@@ -554,21 +561,26 @@ def _mc_fixups(out_y, out_u, out_v, ref_y, ref_u, ref_v, pad, p, mb_w,
 
 
 def k6_operands(ref_y, ref_u, ref_v, pad, p, mb_w, mb_h):
-    """K6's operands on CUDA tensors (uint8 rings [R, H+2pad, W+2pad] and
-    [R, H/2+pad, W/2+pad], unit column stride): K1's planes of the active
-    slots (K1 launches here) and the window checks on the host
-    (_mc_prep; the kernel does not clamp), and the fresh int32 outputs.
-    Returns (args of pip_mc_bucket before the stream, (pred_y, pred_u,
-    pred_v), the tensors the args point into)."""
+    """K6's operands on CUDA tensors: K1's planes of the active slots (K1
+    launches here), the window checks on the host (_mc_prep; the table
+    path does not clamp), the plan's device tensors (bucket, fix list,
+    ref_slot, mv) and the rings [R, H+2pad, W+2pad] and [R, H/2+pad,
+    W/2+pad] (uint8, unit column stride) as they are, and the fresh int32
+    outputs. Returns (args of
+    pip_mc_bucket before the stream, (pred_y, pred_u, pred_v), the
+    tensors the args point into)."""
     rings = (ref_y, ref_u, ref_v)
     if any(r.device.type != "cuda" or r.device != ref_y.device
            for r in rings):
         raise ValueError("bucketed MC kernel takes CUDA tensors on one "
                          f"device, got {[str(r.device) for r in rings]}")
     if any(r.dtype != torch.uint8 or r.dim() != 3 or r.stride(2) != 1
-           for r in rings):
+           for r in rings) or ref_u.shape != ref_v.shape \
+            or ref_u.stride() != ref_v.stride() \
+            or ref_y.shape[0] != ref_u.shape[0]:
         raise ValueError("bucketed MC kernel takes uint8 [R, Hp, Wp] rings "
-                         "with unit column stride")
+                         "with unit column stride, U and V alike")
+    n = mb_w * mb_h
     H, W = mb_h * 16, mb_w * 16
     dev = ref_y.device
     uniq, slots, nuniq, nslots, hps = _mc_prep(ref_y, ref_u, pad, p, mb_w,
@@ -576,42 +588,54 @@ def k6_operands(ref_y, ref_u, ref_v, pad, p, mb_w, mb_h):
     if uniq.shape != (MC_CAP, 16) or not 0 <= nuniq <= MC_CAP:
         raise ValueError(f"mc plan: uniq {uniq.shape}, nuniq {nuniq}")
     ss = [int(slots[0]), int(slots[1]) if nslots > 1 else int(slots[0])]
-    bucket = p["mc_bucket"]
-    if bucket.device != dev or bucket.dtype != torch.uint8 or \
-            tuple(bucket.shape) != (mb_w * mb_h, 16):
-        raise ValueError(f"mc bucket {tuple(bucket.shape)} {bucket.dtype} "
-                         f"on {bucket.device}")
-    bucket = bucket.contiguous()
+    plan = {"mc_bucket": ((n, 16), (torch.uint8,)),
+            "mc_fix": ((MC_FIX_CAP,), (torch.int32,)),
+            "ref_slot": ((n, 16), (torch.int32,)),
+            "mv": ((n, 16, 2), (torch.int16,))}
+    for k, (shape, dtypes) in plan.items():
+        t = p[k]
+        if t.device != dev or t.dtype not in dtypes or \
+                tuple(t.shape) != shape:
+            raise ValueError(f"mc plan {k}: {tuple(t.shape)} {t.dtype} on "
+                             f"{t.device}, the kernel takes {shape} "
+                             f"{dtypes} on {dev}")
+    bucket, fix, rs, mv = (p[k].contiguous() for k in plan)
     table = np.ascontiguousarray(uniq, np.int32)
     pred_y = torch.empty((H, W), dtype=torch.int32, device=dev)
     pred_u = torch.empty((H // 2, W // 2), dtype=torch.int32, device=dev)
     pred_v = torch.empty_like(pred_u)
     P = ctypes.c_void_p
-    args = [P(table.ctypes.data), nuniq, P(bucket.data_ptr())]
+    args = [P(table.ctypes.data), nuniq, P(bucket.data_ptr()),
+            P(fix.data_ptr()), P(rs.data_ptr()), P(mv.data_ptr())]
     for hp, s in zip(hps, ss):
-        args += [P(hp.data_ptr()), hp.stride(0), hp.stride(1),
-                 P(ref_u[s].data_ptr()), P(ref_v[s].data_ptr()),
-                 ref_u.stride(1)]
-    args += [P(pred_y.data_ptr()), P(pred_u.data_ptr()),
+        args += [P(hp.data_ptr()), hp.stride(0), hp.stride(1), s]
+    args += [P(ref_y.data_ptr()), ref_y.stride(0), ref_y.stride(1),
+             ref_y.shape[1], ref_y.shape[2], P(ref_u.data_ptr()),
+             P(ref_v.data_ptr()), ref_u.stride(0), ref_u.stride(1),
+             ref_u.shape[1], ref_u.shape[2], ref_y.shape[0],
+             P(pred_y.data_ptr()), P(pred_u.data_ptr()),
              P(pred_v.data_ptr()), mb_w, mb_h, pad]
-    return args, (pred_y, pred_u, pred_v), (table, bucket, *hps, *rings)
+    return args, (pred_y, pred_u, pred_v), (table, bucket, fix, rs, mv,
+                                            *hps, *rings)
 
 
 def _mc_bucketed_launch(ref_y, ref_u, ref_v, pad, p, mb_w, mb_h):
-    """K1 for the active slots, K6 (csrc/mc_bucket.cu) over every pixel,
-    then the fix-ups, on CUDA tensors."""
+    """K1 for the active slots, then one launch of K6
+    (csrc/mc_bucket.cu) for every pixel, fix-up cells included, on CUDA
+    tensors."""
     args, preds, _ = k6_operands(ref_y, ref_u, ref_v, pad, p, mb_w, mb_h)
     rc = _build.lib().pip_mc_bucket(*args, _build.stream(ref_y.device))
     _build.check(rc, "bucketed MC")
     _build.count_launch(mc_bucketed)
-    return _mc_fixups(*preds, ref_y, ref_u, ref_v, pad, p, mb_w, mb_h)
+    return preds
 
 
 def mc_bucketed(ref_y, ref_u, ref_v, pad, p, mb_w, mb_h):
     """K6 wrapper: the whole-frame pred planes of mc_bucketed_plain (same
     arguments and result). CPU tensors take the plain version; CUDA
-    tensors run K1 for the active slots, one launch of
-    csrc/mc_bucket.cu for every pixel, then the same per-cell fix-ups."""
+    tensors run K1 for the active slots and one launch of
+    csrc/mc_bucket.cu, which computes the table's cells and the per-cell
+    fix-ups."""
     if ref_y.device.type == "cpu":
         return mc_bucketed_plain(ref_y, ref_u, ref_v, pad, p, mb_w, mb_h)
     return _mc_bucketed_launch(ref_y, ref_u, ref_v, pad, p, mb_w, mb_h)

@@ -144,14 +144,31 @@ def test_search_and_mc_entries_refuse_cpu_tensors():
                                 9, 4)
 
 
+@pytest.mark.parametrize("col,plane", [(3, 4), (6, -1)])
+def test_mc_refuses_tap_plane_outside_k1(col, plane):
+    """An entry whose tap names no K1 plane (0..3) raises before anything
+    reads the planes, in the plain version as before the kernel."""
+    *rings, pad, p = random_mc_case(9, 4, 5, 5, 2, 3, False)
+    p["mc_uniq"] = p["mc_uniq"].copy()
+    p["mc_uniq"][1, col] = plane
+    with pytest.raises(ValueError, match="tap planes"):
+        tmc.mc_bucketed(*rings, pad, p, 9, 4)
+
+
 def _check_mc_case(p, n_main, n_slots, n_extra, edge):
     """The plan of random_mc_case has the triples, slots and fix-up cells
     its case names: every main and extra triple in the table (the 32 most
     populated when there are more), 512 fix-up cells when 32 MBs spill,
-    and some when MVs at +-MC_MV_MAX clip at the frame's edge."""
+    some when MVs at +-MC_MV_MAX clip at the frame's edge, and every cell
+    of the far MBs, on slots outside the active ones too."""
     fix = int((p["mc_fix"] >= 0).sum())
     assert p["mc_nslots"] == n_slots
-    if edge:
+    if edge == "far":
+        assert p["mc_nuniq"] == n_main and fix == 16 * n_extra
+        cells = p["mc_fix"][:fix].long()
+        slots = p["ref_slot"].reshape(-1)[cells].long()
+        assert set(slots.tolist()) == {0, 1, 2, 3}
+    elif edge:
         assert 0 < fix < tmc.MC_FIX_CAP and p["mc_nuniq"] <= n_main
     else:
         assert p["mc_nuniq"] == min(tmc.MC_CAP, n_main + n_extra)
@@ -648,9 +665,10 @@ def test_dense_search_kernel_refuses_radius(cuda_device):
                          K6_CASES)
 def test_mc_bucket_kernel_on_card(cuda_device, name, mb_w, mb_h, seed,
                                   n_main, n_slots, n_extra, edge):
-    """K6 (with K1 and the fix-ups around it) equals the plain bucketed MC
-    on the card, 3 launches: 1, 2 and 32 table triples, 1 and 2 slots, 0
-    and 512 fix-up cells, MVs at +-MC_MV_MAX."""
+    """K6 (with K1 before it) equals the plain bucketed MC on the card, 3
+    launches: 1, 2 and 32 table triples, 1 and 2 slots, 0 and 512 fix-up
+    cells, MVs at +-MC_MV_MAX, far MBs (clipped and long MVs, fix-up cells
+    on every ring slot, at the frame's corners)."""
     case = random_mc_case(mb_w, mb_h, seed, n_main, n_slots, n_extra, edge,
                           cuda_device)
     _check_mc_case(case[-1], n_main, n_slots, n_extra, edge)
@@ -664,6 +682,26 @@ def test_mc_bucket_kernel_on_card(cuda_device, name, mb_w, mb_h, seed,
 
 
 @pytest.mark.cuda
+def test_mc_bucket_is_k1_and_one_k6_launch(cuda_device, monkeypatch):
+    """On CUDA tensors mc_bucketed is K1 for the active slots and one K6
+    launch, fix-up cells included: the fix-ups' torch path is never
+    called (a sentinel in its place raises)."""
+    def sentinel(*args, **kw):
+        raise AssertionError("_mc_fixups ran on the CUDA path")
+    for name, mb_w, mb_h, *rest in K6_CASES:
+        case = random_mc_case(mb_w, mb_h, *rest, device=cuda_device)
+        want = tmc.mc_bucketed_plain(*case, mb_w, mb_h)
+        with monkeypatch.context() as m:
+            m.setattr(tmc, "_mc_fixups", sentinel)
+            before = (tmc.halfpel_planes.launches, tmc.mc_bucketed.launches)
+            got = tmc.mc_bucketed(*case, mb_w, mb_h)
+            after = (tmc.halfpel_planes.launches, tmc.mc_bucketed.launches)
+        k1 = max(1, case[-1]["mc_nslots"])     # slot 0's planes always
+        assert after == (before[0] + k1, before[1] + 1)
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), name
+
+
+@pytest.mark.cuda
 def test_mc_bucket_kernel_refuses_window(cuda_device):
     """An entry whose taps leave the half-pel planes raises before the
     launch, as the plain version raises."""
@@ -674,6 +712,20 @@ def test_mc_bucket_kernel_refuses_window(cuda_device):
     for fn in (tmc.mc_bucketed, tmc.mc_bucketed_plain):
         with pytest.raises(ValueError, match="half-pel slice"):
             fn(*rings, pad, p, 9, 4)
+    assert tmc.mc_bucketed.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key,dtype", [("ref_slot", torch.int8),
+                                       ("mv", torch.int32)])
+def test_mc_bucket_kernel_refuses_plan_dtypes(cuda_device, key, dtype):
+    """The kernel reads ref_slot as int32 and mv as int16, the decoder's
+    dtypes; a plan of other widths raises before the launch."""
+    *rings, pad, p = random_mc_case(9, 4, 5, 5, 2, 3, False, cuda_device)
+    p[key] = p[key].to(dtype)
+    before = tmc.mc_bucketed.launches
+    with pytest.raises(ValueError, match=key):
+        tmc.mc_bucketed(*rings, pad, p, 9, 4)
     assert tmc.mc_bucketed.launches == before
 
 

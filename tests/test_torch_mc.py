@@ -158,10 +158,24 @@ def _torch_plan(plan, mv, ref_slot):
     return planes_to_torch(p, "cpu")
 
 
-@pytest.mark.parametrize("trial,n_mvs", [(0, 5), (1, 60)])
+def _far_case():
+    """The 9x4-MB far case of cases.K6_CASES (clipped and long MVs, fix-up
+    cells on every ring slot and at the frame's corners) in
+    _bucket_case's form."""
+    from losslessh264_tpu_torch.cases import K6_CASES, random_mc_case
+    name, mb_w, mb_h, *rest = K6_CASES[-1]
+    assert name.startswith("9x4") and rest[-1] == "far"
+    ref_y, ref_u, ref_v, pad, p = random_mc_case(mb_w, mb_h, *rest)
+    mv, ref_slot = p["mv"].numpy(), p["ref_slot"].numpy()
+    plan = tmc.mc_fast_plan(mb_w, mb_h, ref_slot, mv.astype(np.int32), pad)
+    return (mb_w, mb_h, pad, ref_y.numpy(), ref_u.numpy(), ref_v.numpy(), mv,
+            ref_slot, plan)
+
+
+@pytest.mark.parametrize("trial,n_mvs", [(0, 5), (1, 60), ("far", None)])
 def test_mc_bucketed_matches_jax(plain_pallas, trial, n_mvs):
     mb_w, mb_h, pad, ref_y, ref_u, ref_v, mv, ref_slot, plan = \
-        _bucket_case(trial, n_mvs)
+        _far_case() if trial == "far" else _bucket_case(trial, n_mvs)
     assert plan["mc_fast"]
     jplan = jmc.mc_fast_plan(mb_w, mb_h, ref_slot, mv.astype(np.int32), pad)
     for k in plan:

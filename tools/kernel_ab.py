@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Time a kernel of the port (K1 csrc/halfpel.cu, K2 csrc/deblock.cu, K3
-csrc/intra_dec.cu or K4 csrc/intra_enc.cu) against other builds of it,
+csrc/intra_dec.cu, K4 csrc/intra_enc.cu, K5 csrc/me_dense.cu or K6
+csrc/mc_bucket.cu) against other builds of it,
 or the port's kernel build against one nvcc over all sources, in turns,
 on one GPU (run from the repo root on a machine with an H100):
 
@@ -15,6 +16,10 @@ on one GPU (run from the repo root on a machine with an H100):
         cfd9e6c:losslessh264_tpu_torch/csrc/$f > build/cfd9e6c/$f; done
     python3 tools/kernel_ab.py k3 build/cfd9e6c/intra_dec.cu
     python3 tools/kernel_ab.py k4 build/cfd9e6c/intra_enc.cu --parts
+    mkdir -p build/0ae75fb && for f in me_dense.cu mc_bucket.cu; do git \\
+        show 0ae75fb:losslessh264_tpu_torch/csrc/$f > build/0ae75fb/$f; done
+    python3 tools/kernel_ab.py k5 build/0ae75fb/me_dense.cu --parts
+    python3 tools/kernel_ab.py k6 build/0ae75fb/mc_bucket.cu
     python3 tools/kernel_ab.py build
 
 Each extra source is built with nvcc like the port's own kernels and
@@ -60,6 +65,26 @@ lie beside it. --parts adds builds of the port's own K3 or K4 with one
 part of the MB step taken out (PARTS below, written under build/parts/):
 they are not exact (reported, and timed all the same), and their times
 split a step into its parts.
+
+k5: `pip_me_dense` on cases.dense_search_case (noise, the reference a
+strided slice as the encoder takes it) at 720p and 1080p at radius 16
+and 720p at radius 8; each round the kernel alone, a CUDA graph's replays
+of the bare entry (chip_smoke.kernel_device_ms), beside the bound at the
+int8 rate. --parts adds, for each K5 source timed (the port's own and
+0ae75fb's, e.g. `git show 0ae75fb:losslessh264_tpu_torch/csrc/me_dense.cu
+> build/0ae75fb/me_dense.cu`), builds with one part of the search taken
+out (K5_PARTS, under build/parts/).
+
+k6: `pip_mc_bucket` of the port against 0ae75fb's (`git show
+0ae75fb:losslessh264_tpu_torch/csrc/mc_bucket.cu >
+build/0ae75fb/mc_bucket.cu`; an extra source whose entry takes no fix
+list is taken to have 0ae75fb's entry, K6_OLD_ARGS) on every bucketed P
+frame of synth720p and on the 720p cases of cases.K6_CASES: the kernel
+alone (a CUDA graph's
+replays of the bare entry) and the whole wrapper (the port's
+mc_bucketed, against 0ae75fb's: K1, its Python loop of window checks, its
+kernel, then the fix-up cells as torch ops, ops/mc._mc_fixups), CUDA
+events around 10 back-to-back calls, in turns.
 
 build: the wall time of _build.build() (one nvcc per csrc/*.cu, all
 started together, then a link) against one nvcc over all the sources,
@@ -264,6 +289,82 @@ NOFENCE = ("    __threadfence();\n    st_release(prog, done);",
            "    st_release(prog, done);")
 
 
+# K5 builds with one part of the search taken out (--parts), for each K5
+# source timed (the port's own and the others given): a part is the first
+# of its edit lists whose every edit occurs once in that source (one list
+# per design of the kernel).
+#   k5_nokeys    the running keys and the partition sums: one min of the
+#                8x8 sums per chunk of displacements (0ae75fb) or per
+#                completed displacement (the sliding design)
+#   k5_noperm    no byte permutes: every dx reads aligned words (0ae75fb's
+#                design only; one more shared load a row)
+#   k5_staging   no displacement visited: staging, key merge and stores
+K5_PARTS = {
+    # 0ae75fb's design (a lane per 8x8 quadrant, 4 dx per chunk), then the
+    # sliding design (a lane per 16x8 half at one dx; it has no byte
+    # permutes)
+    "k5_nokeys": [
+        [(re.compile(r"const uint32_t accs\[4\] = .*?k16 = min\(k16, "
+                     r"key\(s16, idx\)\);\n        \}\n      \}", re.S),
+          "k8 = min(k8, acc0 ^ acc1 ^ acc2 ^ acc3);")],
+        [(re.compile(r"      if \(done\) \{.*?k\[i\] = min\(k\[i\], "
+                     r"kk\[i\]\);\n        \}\n      \}", re.S),
+          "      if (done) k[0] = min(k[0], acc[(s + 1) & 7][0] ^ "
+          "acc[(s + 1) & 7][1]);")]],
+    "k5_noperm": [
+        [("const uint32_t w0 = w[0], w1 = w[1], w2 = w[2];",
+          "const uint32_t w0 = w[0], w1 = w[1], w2 = w[2], w3 = w[3];"),
+         ("__byte_perm(w0, w1, 0x4321)", "w1"),
+         ("__byte_perm(w1, w2, 0x4321)", "w2"),
+         ("__byte_perm(w0, w1, 0x5432)", "w2"),
+         ("__byte_perm(w1, w2, 0x5432)", "w3"),
+         ("__byte_perm(w0, w1, 0x6543)", "w3"),
+         ("__byte_perm(w1, w2, 0x6543)", "w0")]],
+    "k5_staging": [
+        [("for (int dy = warp; dy < span; dy += nwarps) {",
+          "for (int dy = warp; dy < 0; dy += nwarps) {")],
+        [("for (int t0 = 0; t0 < span + 7; t0 += 8) {",
+          "for (int t0 = 0; t0 < 0; t0 += 8) {")]],
+}
+
+
+def apply_edits(text, edits):
+    """text with every edit applied, or None if one does not occur
+    exactly once."""
+    for old, new in edits:
+        if isinstance(old, str):
+            hits = text.count(old)
+            text = text.replace(old, new)
+        else:
+            text, hits = old.subn(new, text)
+        if hits != 1:
+            return None
+    return text
+
+
+def write_k5_parts(srcs):
+    """The K5_PARTS builds of each source in `srcs`, written under
+    build/parts/<source's label>/; returns their paths."""
+    paths = []
+    for src in srcs:
+        text = open(src).read()
+        for name, designs in K5_PARTS.items():
+            edited = next((t for t in (apply_edits(text, e)
+                                       for e in designs) if t), None)
+            if edited is None:
+                print(f"{name}: no edit list fits {src}; not built")
+                continue
+            out = os.path.join(_build.BUILD_DIR, os.pardir, "parts",
+                               label(src).replace(os.sep, "_")
+                               .replace(".cu", ""))
+            os.makedirs(out, exist_ok=True)
+            path = os.path.normpath(os.path.join(out, name + ".cu"))
+            with open(path, "w") as fh:
+                fh.write(edited)
+            paths.append(path)
+    return paths
+
+
 def write_parts(kernel):
     """Write the diagnostic builds of K3 or K4 (PARTS), each in a
     directory of its own beside copies of the headers (build() compiles a
@@ -354,6 +455,200 @@ def ab_intra(kernel, libs, dev):
                   f"step of {steps}", flush=True)
 
 
+# K5's timed cases: (name, H, W, radius, plane kind, seed) of
+# cases.dense_search_case, the reference a strided slice as the encoder
+# takes it
+K5_AB_CASES = [("720p radius 16", 720, 1280, 16, "random", 0),
+               ("1080p radius 16", 1088, 1920, 16, "random", 1),
+               ("720p radius 8", 720, 1280, 8, "random", 2)]
+
+
+def k5_call(lib, cur, ref, out, radius):
+    """A no-argument call of lib's pip_me_dense on (cur, ref) into out."""
+    H, W = cur.shape
+    args = [_P(cur.data_ptr()), cur.stride(0), cur.element_size(),
+            _P(ref.data_ptr()), ref.stride(0), _P(out.data_ptr()), W // 16,
+            H // 16, radius]
+
+    def run(keep=(cur, ref, out)):
+        _build.check(lib.pip_me_dense(*args, _build.stream(cur.device)),
+                     "dense search")
+    return run
+
+
+def ab_k5(libs, dev):
+    """K5 builds: each held to the plain search, then timed alone (a CUDA
+    graph's replays of its bare C entry, chip_smoke.kernel_device_ms) in
+    turns, beside the bounds of chip_smoke.k5_bytes_ops."""
+    from losslessh264_tpu_torch.cases import dense_search_case
+    from losslessh264_tpu_torch.ops import me as tme
+    for name, H, W, R, kind, seed in K5_AB_CASES:
+        cur, ref = dense_search_case(H, W, R, kind, seed, device=dev)
+        triples = tme.dense_full_search_plain(cur, ref, R)
+        want = torch.stack([torch.cat([t[i] for t in triples])
+                            for i in range(3)])           # [3, 9n]
+        n = (H // 16) * (W // 16)
+        outs = {}
+        for lname, lib in libs.items():
+            out = torch.empty((3, 9 * n), dtype=torch.int32, device=dev)
+            k5_call(lib, cur, ref, out, R)()
+            torch.cuda.synchronize()
+            outs[lname] = out
+            if not torch.equal(out, want):
+                if lname == "current":
+                    sys.exit(f"K5 differs from the plain version at {name}")
+                print(f"K5 {lname} {name}: DIFFERS from the plain version "
+                      "(timed all the same)")
+        times = rounds(list(libs), lambda lname: cs.kernel_device_ms(
+            [k5_call(libs[lname], cur, ref, outs[lname], R)]))
+        n_bytes, n_ops = cs.k5_bytes_ops(H, W, R, 4)
+        b8, by8 = cs.bound_ms(n_bytes, n_ops, cs.INT8_OPS_PER_S)
+        for lname, ts in times.items():
+            med = float(np.median(ts))
+            print(f"K5 {lname} {name}: kernel ms "
+                  f"{' '.join(f'{t:.5f}' for t in ts)}, median {med:.5f}; "
+                  f"{n_ops / 3 / med / 1e9:.1f} T pixel-displacements/s; "
+                  f"bound {b8:.5f} ms by {by8} at the int8 rate, share "
+                  f"{b8 / med:.4f}", flush=True)
+
+
+# The K6 entry of 0ae75fb: the table's cells only; its wrapper checked
+# the entries' windows in a Python loop and ran the fix-up cells after
+# the kernel as torch ops (ops/mc._mc_fixups). A K6 source given to `k6`
+# whose entry takes no fix list is taken to have this entry, so that the
+# comparison with that kernel can be rerun; one that does is called as
+# the port's own kernel is.
+K6_OLD_ARGS = ([_P, _I, _P] + [_P, ctypes.c_longlong, _I, _P, _P, _I] * 2
+                + [_P, _P, _P, _I, _I, _I, _P])
+
+
+def old_k6(lib, ref_y, ref_u, ref_v, pad, p, mb_w, mb_h):
+    """0ae75fb's K6 operands, as its k6_operands built them: (a no-argument
+    call of lib's entry, its outputs). K1 launches here."""
+    H, W = mb_h * 16, mb_w * 16
+    cpad = pad // 2
+    uniq = np.asarray(p["mc_uniq"]).astype(np.int64)
+    slots = np.asarray(p["mc_slots"]).astype(np.int64)
+    nuniq, nslots = int(p["mc_nuniq"]), int(p["mc_nslots"])
+    hp0 = tmc._halfpel_planes_u8(ref_y[int(slots[0])])
+    hps = [hp0, tmc._halfpel_planes_u8(ref_y[int(slots[1])])
+           if nslots > 1 else hp0]
+    for u in range(nuniq):                       # 0ae75fb's window checks
+        e = [int(v) for v in uniq[u]]
+        for dy, dx in (e[4:6], e[7:9]):
+            y, x = pad - 2 + e[1] + dy, pad - 2 + e[2] + dx
+            Hs, Ws = hps[e[0]].shape[1:]
+            if not (0 <= y and y + H <= Hs and 0 <= x and x + W <= Ws):
+                raise ValueError("half-pel slice leaves the plane")
+        for dy in (0, 1):
+            for dx in (0, 1):
+                y, x = cpad + e[9] + dy, cpad + e[10] + dx
+                Hs, Ws = ref_u.shape[1:]
+                if not (0 <= y and y + H // 2 <= Hs and 0 <= x
+                        and x + W // 2 <= Ws):
+                    raise ValueError("chroma slice leaves the plane")
+    ss = [int(slots[0]), int(slots[1]) if nslots > 1 else int(slots[0])]
+    bucket = p["mc_bucket"].contiguous()
+    table = np.ascontiguousarray(uniq, np.int32)
+    dev = ref_y.device
+    preds = (torch.empty((H, W), dtype=torch.int32, device=dev),
+             torch.empty((H // 2, W // 2), dtype=torch.int32, device=dev),
+             torch.empty((H // 2, W // 2), dtype=torch.int32, device=dev))
+    args = [_P(table.ctypes.data), nuniq, _P(bucket.data_ptr())]
+    for hp, sl in zip(hps, ss):
+        args += [_P(hp.data_ptr()), hp.stride(0), hp.stride(1),
+                 _P(ref_u[sl].data_ptr()), _P(ref_v[sl].data_ptr()),
+                 ref_u.stride(1)]
+    args += [_P(x.data_ptr()) for x in preds] + [mb_w, mb_h, pad]
+
+    def run(keep=(table, bucket, hps, preds)):
+        _build.check(lib.pip_mc_bucket(*args, _build.stream(dev)),
+                     "bucketed MC")
+    return run, preds
+
+
+def k6_runs(libs, old_abi, name, args):
+    """{build: (kernel call, wrapper call)}: the bare entry on its
+    operands, and the whole mc_bucketed of that build (0ae75fb's: K1, its
+    window checks, its kernel, then _mc_fixups)."""
+    runs = {}
+    for lname, lib in libs.items():
+        if lname not in old_abi:
+            ops, preds, keep = tmc.k6_operands(*args)
+
+            def kern(lib=lib, ops=ops, keep=(keep, preds)):
+                _build.check(lib.pip_mc_bucket(*ops, _build.stream(
+                    args[0].device)), "bucketed MC")
+
+            def wrap(lib=lib):
+                if lib is _build.lib():
+                    return tmc.mc_bucketed(*args)
+                ops, preds, keep = tmc.k6_operands(*args)
+                _build.check(lib.pip_mc_bucket(*ops, _build.stream(
+                    args[0].device)), "bucketed MC")
+                return preds
+        else:
+            kern, _ = old_k6(lib, *args)
+
+            def wrap(lib=lib):
+                run, preds = old_k6(lib, *args)
+                run()
+                return tmc._mc_fixups(*preds, *args)
+        want = tmc.mc_bucketed_plain(*args)
+        if not all(torch.equal(g, w) for g, w in zip(wrap(), want)):
+            if lname == "current":
+                sys.exit(f"K6 differs from the plain version at {name}")
+            print(f"K6 {lname} {name}: DIFFERS from the plain version")
+        runs[lname] = (kern, wrap)
+    return runs
+
+
+def ab_k6(libs, old_abi, dev):
+    """K6 builds on every bucketed P frame of synth720p (the rings its
+    decode gives each) and on the 720p cases of cases.K6_CASES: each
+    build's whole mc_bucketed held to the plain version, then the kernel
+    alone (a CUDA graph's replays of the bare entry) and the wrapper
+    (CUDA events around 10 back-to-back calls) timed in turns; the frames'
+    rows and their means."""
+    from losslessh264_tpu_torch.cases import (K6_CASES, bucketed_mc_frames,
+                                              random_mc_case)
+    for lname, lib in libs.items():
+        if lname in old_abi:
+            lib.pip_mc_bucket.argtypes = K6_OLD_ARGS
+
+    def one(name, args):
+        runs = k6_runs(libs, old_abi, name, args)
+        kt = rounds(list(libs), lambda n: cs.kernel_device_ms([runs[n][0]]))
+        wt = rounds(list(libs), lambda n: cs.cuda_ms(runs[n][1], 10))
+        fix = int((args[4]["mc_fix"] >= 0).sum())
+        nb, _ = cs.k6_bytes_ops(*args)
+        row = {}
+        for lname in libs:
+            row[lname] = (float(np.median(kt[lname])),
+                          float(np.median(wt[lname])))
+            print(f"K6 {lname} {name} (nuniq {args[4]['mc_nuniq']}, {fix} "
+                  f"fix-up cells, bound {nb / cs.HBM_BYTES_PER_S * 1e3:.5f} "
+                  f"ms): kernel ms {' '.join(f'{t:.5f}' for t in kt[lname])}"
+                  f", median {row[lname][0]:.5f}; wrapper ms "
+                  f"{' '.join(f'{t:.4f}' for t in wt[lname])}, median "
+                  f"{row[lname][1]:.4f}", flush=True)
+        return row
+
+    with open(os.path.join(ROOT, "tests", "data", "synth720p.264"),
+              "rb") as fh:
+        data = fh.read()
+    rows = [one(f"synth720p frame {i}", args)
+            for i, *args in bucketed_mc_frames(data, dev)]
+    for lname in libs:
+        print(f"K6 {lname} synth720p, mean of {len(rows)} bucketed P "
+              f"frames' medians: kernel ms "
+              f"{np.mean([r[lname][0] for r in rows]):.5f}, wrapper ms "
+              f"{np.mean([r[lname][1] for r in rows]):.4f}", flush=True)
+    for name, mb_w, mb_h, *rest in K6_CASES:
+        if mb_w == 80:
+            *rings, pad, p = random_mc_case(mb_w, mb_h, *rest, device=dev)
+            one(name, (*rings, pad, p, mb_w, mb_h))
+
 def ab_build():
     """The port's build (_build.build) against one nvcc over all of
     csrc/*.cu, wall time, each from nothing."""
@@ -381,9 +676,9 @@ def ab_build():
 
 def main():
     if len(sys.argv) < 2 or sys.argv[1] not in ("k1", "k2", "k3", "k4",
-                                                "build"):
-        sys.exit("usage: kernel_ab.py k1|k2|k3|k4 [build.cu ...] [--parts] "
-                 "| build")
+                                                "k5", "k6", "build"):
+        sys.exit("usage: kernel_ab.py k1|k2|k3|k4|k5|k6 [build.cu ...] "
+                 "[--parts] | build")
     if not torch.cuda.is_available():
         sys.exit("kernel_ab.py needs a CUDA device")
     if sys.argv[1] == "build":
@@ -393,14 +688,21 @@ def main():
     libs = {"current": _build.lib()}
     srcs = [a for a in sys.argv[2:] if a != "--parts"]
     if "--parts" in sys.argv[2:]:
-        if sys.argv[1] not in ("k3", "k4"):
-            sys.exit("--parts is for k3 and k4")
-        srcs += write_parts(sys.argv[1])
+        if sys.argv[1] not in ("k3", "k4", "k5"):
+            sys.exit("--parts is for k3, k4 and k5")
+        srcs += (write_k5_parts([os.path.join(CSRC, "me_dense.cu")] + srcs)
+                 if sys.argv[1] == "k5" else write_parts(sys.argv[1]))
     for src in srcs:
         libs[label(src)] = build(src)
     print(cs.card_line(), flush=True)
     if sys.argv[1] in ("k3", "k4"):
         return ab_intra(sys.argv[1], libs, dev)
+    if sys.argv[1] == "k5":
+        return ab_k5(libs, dev)
+    if sys.argv[1] == "k6":
+        old_abi = {label(src) for src in srcs
+                   if "const void* fix," not in open(src).read()}
+        return ab_k6(libs, old_abi, dev)
     (ab_k1 if sys.argv[1] == "k1" else ab_k2)(libs, dev)
 
 
