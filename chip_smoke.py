@@ -24,7 +24,8 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
      once per frame that is deblocked, K3 once per frame with intra MBs
      (frames 0, 10 and 20), K6 once per P frame on the bucketed MC path
      and K1 once per slot such a frame reads (a second, stage-timed
-     decode gives each frame's MC route), K4 and K5 never.
+     decode gives each frame's MC route), K7 once per frame, K4, K5 and
+     K8 never.
   6. encode: TorchEncoder(device="cuda") at 1280x720 on the first frames
      of phase 5's decode, in the configurations of
      tests/data/synth720p_enc_golden.json and its sibling
@@ -43,10 +44,11 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
      frame and, for C, D and E, the JAX decoders' pictures of the golden
      (TorchDecoder; E: the port's SimulcastDecoder). K1 must launch once
      per P encode, K2 once per encode that deblocks, K4 once per encode
-     with intra MBs and K5 once per reference a P encode searches (B's
-     second P frame two), as JaxEncoder's control flow implies (no K2
-     for a fused-path non-reference P frame without intra MBs; a
-     size-capped slice's re-encode counts again), K3 and K6 never.
+     with intra MBs, K5 once per reference a P encode searches (B's
+     second P frame two) and K8 once per P encode, as JaxEncoder's
+     control flow implies (no K2 for a fused-path non-reference P frame
+     without intra MBs; a size-capped slice's re-encode counts again),
+     K3, K6 and K7 never.
      A first pass gives encode fps, a second the per-stage wall times of
      every frame (encoder_torch.StageTimer).
   7. older encoder: losslessh264_tpu_torch.encoder.Encoder(1280, 720,
@@ -61,8 +63,9 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
      50 frames) through parallel.decode_yuv_gop_parallel with 2 workers
      (a TorchDecoder and a CUDA stream each), then through one sequential
      TorchDecoder; every frame's CRC32 must equal the golden,
-     twice over, and each decode must launch K1-K6 twice as often as
-     phase 5's decode (K1 44, K2 50, K3 6, K6 44). Prints both fps.
+     twice over, and each decode must launch K1-K8 twice as often as
+     phase 5's decode (K1 44, K2 50, K3 6, K6 44, K7 50). Prints both
+     fps.
   9. CLI: `python -m losslessh264_tpu_torch walk_analog.264 x.pip
      --shards 4` (must equal native.compress_sharded and decompress to
      the input) and `roundtrip ... --shards 4` (must print bit-exact), as
@@ -70,8 +73,8 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
  10. graft: graft_entry.dryrun_multichip(2) on the card, two gloo ranks
      at 80x45 MBs; each rank's recY, mvx and bits must equal the step in
      this process, the all-reduced total their sum, and each rank must
-     launch K1, K2 and K5 once (K3, K4 and K6 never, in this process's
-     runs).
+     launch K1, K2, K5 and K8 once (K3, K4, K6 and K7 never, in this
+     process's runs).
  11. runs decode: tests/data/runs720p.264 (tools/gen_run_streams.py)
      with TorchDecoder on the card: four IDRs as one all-intra batch
      (recon_intra_batch), then P frames whose intra MBs populate 0, 1, 8
@@ -79,16 +82,16 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
      populated ones, the full table). Every frame's CRC32 must equal
      NpDecoder's (tests/data/runs720p_np_crc.json), each frame must take
      its route, K2 must launch once per deblocked frame, K1 and K6 as the
-     MC plans imply and K3 once per route with an intra pass (the batch of
-     4 once: 4 in all). A stage-timed decode prints each frame's intra ms on
-     its route (K3) beside the plain full-table pass on the same planes
-     (and requires the two equal).
+     MC plans imply, K3 once per route with an intra pass (the batch of
+     4 once: 4 in all) and K7 once per frame. A stage-timed decode
+     prints each frame's intra ms on its route (K3) beside the plain
+     full-table pass on the same planes (and requires the two equal).
  12. encode runs: configuration G (tests/data/synth720p_enc_golden_g.json,
      A's settings on frames 0-6) through TorchEncoder.encode_frames(batch=
      3): an IDR and two runs of 3 P frames, each run's entropy written on
      a writer thread while the next run's device work goes on. SHA-256 of
      every frame, the recon after the runs, frames 0-3 also against
-     golden A, K1 / K2 / K4 / K5 as the encodes imply; then the 6 P
+     golden A, K1 / K2 / K4 / K5 / K8 as the encodes imply; then the 6 P
      frames in turns one encode_frame each and in runs, from the IDR's state, each turn
      held to the golden: P-frame fps of both, the writer's ms and the ms
      the caller waited for it.
@@ -119,11 +122,28 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
      a window off the planes. Their times: K5 at 720p radius 16 on the
      synth720p pair, K6 per bucketed P frame of synth720p: wrapper, kernel
      alone, plain version, bound.
- 15. times: K1 at 720p, 1080p, 2160p and on the encoder's refs=2 plane
+ 15. K7 and K8 against their plain versions on the card, exact: K7 on
+     cases.K7_CASES (every class, cbp and MC route, PCM, 8x8 transforms,
+     scaling matrices, qp 0 and 51, chroma QP offsets of +-12, levels at
+     the int16 extremes; 9x4 to 720p; 3 launches each) and on every frame
+     of a decode of synth720p and of runs720p (each call of the decode
+     held to the plain version on its arguments, cases.HeldToPlain; the
+     CRCs must hold); K8 on cases.K8_CASES (per-MB qp with 0 and 51, R 1
+     and 2, rd_lam None and 144, chroma windows clamped on every side,
+     uint8 and int32 sources; 3 launches each) and on every P frame of
+     the encodes of A-E and G (held the same way; the SHA-256 must hold).
+     Their times: K7 per frame of synth720p (means over the P frames,
+     those with a prediction, and over the IDR), K8 per P frame of A:
+     wrapper, kernel alone (a CUDA graph's replays over copies of the
+     operands that move more than 100 MB a turn: cold L2), plain
+     version, bound.
+ 16. times: K1 at 720p, 1080p, 2160p and on the encoder's refs=2 plane
      (784x2688), both entries, wrapper and kernel alone, beside their
      bounds, its plain version and the conv2d yardstick; K2 against its
      plain version at 720p (CUDA events); the per-stage breakdown of every
-     decoded frame from phase 5's stage-timed decode (deblock split into
+     decoded frame from phase 5's stage-timed decode (residual + inter
+     split into the inter prediction, mc_ms, and the residual
+     reconstruction, residual_recon_ms: K7's wrapper; deblock split into
      edge parameters, K2 and crop);
      then torch.profiler windows (decode: P frames 1-3, intra frame 10;
      encode A: P frames 1-3) with the device busy share. A profiler
@@ -133,13 +153,13 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
 The line before the last is the kernel report
 {"kernels": [{"name", "route", "source", "replaces", "launches",
 "launches_per_decode", "launches_per_encode", "max_abs_err", "ms",
-"plain_ms", "bound_ms", "bound_by", "library_ms"}, ...]} for K1-K6,
+"plain_ms", "bound_ms", "bound_by", "library_ms"}, ...]} for K1-K8,
 preceded by the card line; `launches` counts phases 5-12, and
 `launches_per_decode`,
 `_per_encode`, `_per_older_encode`, `_per_gop_parallel_decode`,
 `_per_graft_ranks`, `_per_runs_decode` and `_per_encode_runs` each path's
 own count (K1 and K2 print `launches_per_decode` and `_per_encode` and
-the other paths; K3-K6 every path, `launches_per_decode` included). For
+the other paths; K3-K8 every path, `launches_per_decode` included). For
 K1:
 `ms`, `kernel_ms`, `bound_ms` and `bound_by` are its int32 entry's at
 720p, and `ms_uint8_entry`, `kernel_ms_uint8_entry` and
@@ -171,8 +191,11 @@ wrapper's `ms` holds the K1 launches before the kernel), with their
 `fix_cells`. K6's `operands_ms` is its wrapper but for the launch: K1,
 the window checks and the outputs (`ops/mc.k6_operands`); `k1_ms` the
 K1 calls of the frame's active slots in it. K5's `int32_rate_ms` is its
-operations at the int32 lane rate. `library_ms` is null for
-K2-K6 (no PyTorch call computes them). The last line
+operations at the int32 lane rate. K7's `ms`, `kernel_ms`, `plain_ms`
+and bound are the means over synth720p's P frames (`frames` of them, the
+frames with a prediction; `intra_frames` the same over its IDR,
+`per_frame` each frame's), K8's over A's P frames 1-3. `library_ms` is
+null for K2-K8 (no PyTorch call computes them). The last line
 is {"ok": true, "device": {"platform": "gpu", ...}}. Without a GPU, or without the package beside it, the script
 exits non-zero and prints no result.
 
@@ -187,10 +210,12 @@ cores). Tensor cores cannot take an absolute difference: K5's bound at
 the measured rate of the fastest byte SAD (vabsdiff4 with its
 accumulate) is tools/sad_rates.py's, not this script's. K6's bytes are
 the input samples its frame's prediction depends on, each once
-(k6_reads). K1, K2, K3 and K6 are bound by bytes,
+(k6_reads). K1, K2, K3, K6, K7 and K8 are bound by bytes,
 K4 and K5 by operations (K3_OPS_PER_MB, K4_OPS_PER_MB, k5_bytes_ops:
 3 per pixel and displacement); K2, K3 and K4 are far from the bound, a
-chain of dependent MB steps.
+chain of dependent MB steps. K7's and K8's bytes are the inputs the
+frame's outputs depend on, each once, and the outputs (k7_bytes_ops,
+k8_bytes_ops).
 """
 import ctypes
 import json
@@ -237,18 +262,20 @@ def log(*a):
     print(*a, flush=True)
 
 
-KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6")
+KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8")
 
 
 def wrappers():
-    """The wrappers whose `launches` count K1-K6, in KERNELS order."""
+    """The wrappers whose `launches` count K1-K8, in KERNELS order."""
+    from losslessh264_tpu_torch import decoder_torch as dt
     from losslessh264_tpu_torch import encoder_torch as et
     from losslessh264_tpu_torch.ops import deblock as tdb
     from losslessh264_tpu_torch.ops import intra as tintra
     from losslessh264_tpu_torch.ops import mc as tmc
     from losslessh264_tpu_torch.ops import me as tme
     return (tmc.halfpel_planes, tdb.deblock_wavefront, tintra.intra_recon,
-            et.intra_wavefront, tme.dense_full_search, tmc.mc_bucketed)
+            et.intra_wavefront, tme.dense_full_search, tmc.mc_bucketed,
+            dt._residual_recon, et.inter_residual)
 
 
 def reset_launches():
@@ -257,7 +284,7 @@ def reset_launches():
 
 
 def launches_now():
-    """(K1, ..., K6) launches since the last reset_launches()."""
+    """(K1, ..., K8) launches since the last reset_launches()."""
     return tuple(w.launches for w in wrappers())
 
 
@@ -296,6 +323,19 @@ def bound_ms(n_bytes, n_ops, ops_per_s=INT32_OPS_PER_S):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def same(got, want, what):
+    """The largest difference of a kernel's outputs `got` from its plain
+    version's `want` (0); exits if a dtype or a value differs (phases 14
+    and 15)."""
+    torch.cuda.synchronize()
+    err = max(max_abs_err(g, w) for g, w in zip(got, want))
+    if err or not all(g.dtype == w.dtype and torch.equal(g, w)
+                      for g, w in zip(got, want)):
+        raise SystemExit(f"{what}: the kernel differs from its plain "
+                         f"version (max abs err {err})")
+    return err
 
 
 def cuda_ms_each(fns, warmup=2):
@@ -436,8 +476,10 @@ def k2_bytes(mb_w, mb_h):
 
 def stage_decode(data, device):
     """One decode of the stream with a synchronised timer around every
-    stage of TorchDecoder._decode_one (deblock split into _edge_params,
-    the K2 wrapper and the crop); returns per-frame rows, each with the
+    stage of TorchDecoder._decode_one (its _residual_and_inter split into
+    the inter prediction, _inter_pred, and the residual reconstruction,
+    the K7 wrapper; deblock split into _edge_params, the K2 wrapper and
+    the crop); returns per-frame rows, each with the
     frame's MC route (`bucketed`: mc_bucketed, one K6 launch) and the K1
     launches that route implies (one per active slot)."""
     from losslessh264_tpu_torch import decoder_torch as dt
@@ -461,8 +503,10 @@ def stage_decode(data, device):
         planes_np, _, has_intra, _ = dec._prep_planes(f)
         p = dt.planes_to_torch(planes_np, dec.device)
         t1 = now()
-        Yw, Uw, Vw, ry, ru, rv = dt._residual_and_inter(
-            mb_w, mb_h, p, dec.ref_y, dec.ref_u, dec.ref_v)
+        pred = dt._inter_pred(mb_w, mb_h, p, dec.ref_y, dec.ref_u, dec.ref_v)
+        t1a = now()
+        Yw, Uw, Vw, ry, ru, rv = dt._residual_recon(mb_w, mb_h, p, *(
+            pred or (None,) * 3))
         t2 = now()
         if has_intra:
             Yw, Uw, Vw = dt._intra_scan(mb_w, mb_h, Yw, Uw, Vw, ry, ru, rv,
@@ -492,14 +536,15 @@ def stage_decode(data, device):
             mc_fast=bool(planes_np["mc_fast"]), bucketed=bucketed,
             k1=bucketed * (1 + (int(planes_np["mc_nslots"]) > 1)),
             deblocked=bool(deblocked),
-            host_ms=(t1 - t0) * 1e3, residual_inter_ms=(t2 - t1) * 1e3,
+            host_ms=(t1 - t0) * 1e3, mc_ms=(t1a - t1) * 1e3,
+            residual_recon_ms=(t2 - t1a) * 1e3,
             intra_ms=(t3 - t2) * 1e3, edge_params_ms=(t3a - t3) * 1e3,
             k2_ms=(t3b - t3a) * 1e3, crop_ms=(t4 - t3b) * 1e3,
             store_ms=(t5 - t4) * 1e3))
 
 
 def expected_launches(runs):
-    """(K1, ..., K6) launches that JaxEncoder's control flow implies for
+    """(K1, ..., K8) launches that JaxEncoder's control flow implies for
     the encodes `runs` ((deblock_idc, kind, path, is_ref, intra MBs,
     references searched) each, from TorchEncoder.encodes and
     refs_searched): K1 once per P encode; K2 once per encode that
@@ -507,14 +552,15 @@ def expected_launches(runs):
     frame that is not a reference and has no intra MB; K3 never (an
     encoder decodes nothing); K4 once per encode with an intra MB (every
     IDR, and each P frame with intra-fallback MBs); K5 once per reference
-    a P encode searches; K6 never."""
+    a P encode searches; K6 and K7 never (an encoder decodes nothing); K8
+    once per P encode, beside K1 in encode_inter_mbs."""
     k1 = sum(kind == "P" for _, kind, _, _, _, _ in runs)
     k2 = sum(idc != 1 and bool(path == "aq" or kind == "I" or is_ref
                                or n_intra)
              for idc, kind, path, is_ref, n_intra, _ in runs)
     k4 = sum(kind == "I" or n_intra > 0 for _, kind, _, _, n_intra, _ in runs)
     k5 = sum(refs for _, kind, _, _, _, refs in runs if kind == "P")
-    return k1, k2, 0, k4, k5, 0
+    return k1, k2, 0, k4, k5, 0, 0, k1
 
 
 def refs_searched(enc, path, had_ref2):
@@ -529,7 +575,7 @@ def encode_phase(frames, dev, card):
     """Phase 6: configurations A and B of the encode golden, and C, D and
     E of its sibling, on the card. `frames` are phase 5's decoded frames
     (host tensors), which that phase held to the NpDecoder CRCs the
-    golden's source frames also match. Returns the K1-K6 launches of the
+    golden's source frames also match. Returns the K1-K8 launches of the
     encode pass, the number of frames encoded, and C's per-MB qp plane of
     its IDR (phase 13 holds K4 to its plain version on it)."""
     import hashlib
@@ -647,7 +693,7 @@ def encode_phase(frames, dev, card):
             f"{[r[1:] for r in runs]}; launches {launch_str(got)}, implied "
             f"{launch_str(want)}")
         if got != want or want[0] == 0 or want[4] == 0:
-            raise SystemExit(f"encode {name}: K1-K6 launched {got}, the "
+            raise SystemExit(f"encode {name}: K1-K8 launched {got}, the "
                              f"encodes imply {want}")
         for k, v in zip(KERNELS, got):
             launches[k] += v
@@ -715,7 +761,7 @@ def older_encode_phase(frames, dev, card):
                              f"{g['bytes']} {g['sha256'][:16]} "
                              f"{g['recon_crc32']}")
     if got != (0,) * len(KERNELS):
-        raise SystemExit(f"older encoder: K1-K6 launched {got}; the "
+        raise SystemExit(f"older encoder: K1-K8 launched {got}; the "
                          "integer-pel, unfiltered path (its window search "
                          "is not the dense one) launches none")
     split = {k: round(v, 3) for k, v in enc.times.items()}
@@ -749,7 +795,7 @@ def gop_parallel_phase(data, golden, dec_launches, dev, card):
     TorchDecoder: one pair keeps the smoke short (PERF.md has four runs
     in turns).
     Every frame's CRC32 must equal the NpDecoder golden, twice over, and
-    each decode must launch K1-K6 twice as often as phase 5's."""
+    each decode must launch K1-K8 twice as often as phase 5's."""
     from losslessh264_tpu_torch import decoder_torch as dt
     from losslessh264_tpu_torch import native
     from losslessh264_tpu_torch.parallel import decode_yuv_gop_parallel
@@ -784,7 +830,7 @@ def gop_parallel_phase(data, golden, dec_launches, dev, card):
             raise SystemExit(f"{name} decode of synth720p x2: {len(got)} "
                              f"frames, frame {bad} differs from the golden")
         if counts != want:
-            raise SystemExit(f"{name} decode of synth720p x2 launched K1-K6 "
+            raise SystemExit(f"{name} decode of synth720p x2 launched K1-K8 "
                              f"{counts}, expected {want}")
         if name == "parallel":
             launches = counts
@@ -850,7 +896,7 @@ def graft_phase(dev, card, mb_w=80, mb_h=45):
     ranks = ge.dryrun_multichip(2, device=dev.type, mb_w=mb_w, mb_h=mb_h)
     wall = time.perf_counter() - t0
     bits = []
-    for rank, recY, mvx, rbits, total, k1, k2, k5, step_ms in ranks:
+    for rank, recY, mvx, rbits, total, k1, k2, k5, k8, step_ms in ranks:
         want = ge.per_frame(mb_w, mb_h,
                             *ge.frame_args(mb_w, mb_h, 2, rank, dev))
         if not (np.array_equal(recY, want[0].cpu().numpy())
@@ -858,9 +904,9 @@ def graft_phase(dev, card, mb_w=80, mb_h=45):
                 and rbits == int(want[2])):
             raise SystemExit(f"graft rank {rank}: its step differs from the "
                              "same step in this process")
-        if (k1, k2, k5) != (1, 1, 1):
-            raise SystemExit(f"graft rank {rank}: K1/K2/K5 launched "
-                             f"{(k1, k2, k5)}, once each expected")
+        if (k1, k2, k5, k8) != (1, 1, 1, 1):
+            raise SystemExit(f"graft rank {rank}: K1/K2/K5/K8 launched "
+                             f"{(k1, k2, k5, k8)}, once each expected")
         bits.append(rbits)
         log(f"graft rank {rank}: {mb_w}x{mb_h} MBs, recY {recY.shape}, "
             f"bits {rbits}, step {step_ms:.3f} ms (first call in the rank, "
@@ -871,15 +917,16 @@ def graft_phase(dev, card, mb_w=80, mb_h=45):
     # the step's warm time in this process
     args = ge.frame_args(mb_w, mb_h, 2, 0, dev)
     step = cuda_ms(lambda: ge.per_frame(mb_w, mb_h, *args), 5, warmup=1)
-    k3, k4, k6 = (launches_now()[i] for i in (2, 3, 5))
-    if (k3, k4, k6) != (0, 0, 0):
-        raise SystemExit(f"graft: the step launched K3/K4/K6 "
-                         f"{(k3, k4, k6)}")
+    k3, k4, k6, k7 = (launches_now()[i] for i in (2, 3, 5, 6))
+    if (k3, k4, k6, k7) != (0, 0, 0, 0):
+        raise SystemExit(f"graft: the step launched K3/K4/K6/K7 "
+                         f"{(k3, k4, k6, k7)}")
     log(f"graft dryrun: 2 ranks, total bits {sum(bits)} == the all-reduce; "
         f"{wall:.3f} s with process start; warm step {step:.3f} ms per rank "
         f"frame (CUDA events) on {card}")
     return {"K1": sum(r[5] for r in ranks), "K2": sum(r[6] for r in ranks),
-            "K3": k3, "K4": k4, "K5": sum(r[7] for r in ranks), "K6": k6}
+            "K3": k3, "K4": k4, "K5": sum(r[7] for r in ranks), "K6": k6,
+            "K7": k7, "K8": sum(r[8] for r in ranks)}
 
 
 def runs_routes(gold):
@@ -1013,9 +1060,9 @@ def runs_decode_phase(dev, card):
     if dec.routes != routes:
         raise SystemExit(f"runs720p routes {dec.routes}, expected {routes}")
     rows, k1, k6 = runs_stage_decode(data, routes, dev)
-    want = (k1, deblocked, k3, 0, 0, k6)
+    want = (k1, deblocked, k3, 0, 0, k6, len(frames), 0)
     if got != want or k6 == 0:
-        raise SystemExit(f"runs720p: K1-K6 launched {got}, the frames imply "
+        raise SystemExit(f"runs720p: K1-K8 launched {got}, the frames imply "
                          f"{want}")
     log(f"runs decode: {len(frames)} frames of runs720p match the NpDecoder "
         f"CRCs; {wall:.3f} s = {len(frames) / wall:.3f} fps on {card}; "
@@ -1089,7 +1136,7 @@ def encode_runs_phase(frames, dev, card):
                          "from the golden")
     if [r[2] for r in runs] != ["fused"] + ["run"] * 6 or got != want:
         raise SystemExit(f"encode G: encodes {[r[1:] for r in runs]}, "
-                         f"K1-K6 launched {got}, implied {want}")
+                         f"K1-K8 launched {got}, implied {want}")
     log(f"encode G {cfg['kwargs']} batch {cfg['batch']}: {len(out)} frames "
         f"{W}x{H} match the JAX golden (SHA-256, the recon after the runs; "
         f"frames 0-3 golden A's); {wall:.3f} s = {len(out) / wall:.4f} fps "
@@ -1599,15 +1646,6 @@ def search_mc_phase(data, frames, dev, card):
     from losslessh264_tpu_torch.ops import me as tme
     lib = _build.lib()
 
-    def same(got, want, what):
-        torch.cuda.synchronize()
-        err = max(max_abs_err(g, w) for g, w in zip(got, want))
-        if err or not all(g.dtype == w.dtype and torch.equal(g, w)
-                          for g, w in zip(got, want)):
-            raise SystemExit(f"{what}: the kernel differs from its plain "
-                             f"version (max abs err {err})")
-        return err
-
     def flat(triples):
         return [a for t in triples for a in t]
 
@@ -1735,6 +1773,289 @@ def search_mc_phase(data, frames, dev, card):
         f"torch {k6['plain_ms']:.3f} ms on {card}")
     k5["max_abs_err"], k6["max_abs_err"] = k5_err, k6_err
     return k5, k6
+
+
+# integer operations per output sample (estimates from the kernels' code,
+# for the bound): K7 ~16 (a sample's dequant, its share of the inverse
+# transform's butterflies, the rounding shift, the add of the prediction
+# and the clamps); K8 ~40 (the residual, the forward and inverse
+# transforms, the quantizer with its trellis test, the dequant, the
+# recon, and chroma's bilinear prediction)
+K7_OPS_PER_SAMPLE = 16
+K8_OPS_PER_SAMPLE = 40
+
+
+def k7_bytes_ops(mb_w, mb_h, p, pred_y):
+    """(bytes, operations) K7 must take for the frame `p`: every input
+    byte its outputs depend on, once: the five per-MB bytes and the
+    ref_slot row of every MB; the levels of the blocks each MB's path
+    reads (on the 4x4 path a coded 4x4 block's 32 bytes of luma_ac, an
+    I16 MB's 16 blocks and its 32 bytes of luma_dc; a coded 8x8 block's
+    128 bytes of luma8; chroma_dc's 16 bytes where cbp_chroma != 0 and
+    the 8 chroma_ac blocks where it is 2); the int32 prediction of the
+    inter MBs that are not PCM (384 samples each), a PCM MB's 384 bytes
+    and, with use_scaling, the weight matrices; and the padded int32
+    planes and the residual tiles written once. Operations:
+    K7_OPS_PER_SAMPLE for each of an MB's 384 samples."""
+    n = mb_w * mb_h
+    H, W = 16 * mb_h, 16 * mb_w
+    g = {k: p[k].cpu().numpy().astype(np.int64) for k in (
+        "mb_class", "cbp_luma", "cbp_chroma", "transform8", "ref_slot")}
+    cls, cbp, cbpc = g["mb_class"], g["cbp_luma"], g["cbp_chroma"]
+    i16 = cls == 1
+    t8 = (g["transform8"] != 0) & ~i16
+    coded8 = sum((cbp >> b) & 1 for b in range(4))
+    luma = np.where(t8, coded8 * (128 if "luma8" in p else 0),
+                    np.where(i16, 16 * 32 + 32, coded8 * 4 * 32))
+    chroma = (cbpc != 0) * 16 + (cbpc == 2) * 8 * 32
+    pcm = (cls == 8) & ("pcm" in p)
+    inter = (g["ref_slot"] >= 0).all(1) & ~pcm & (pred_y is not None)
+    n_bytes = (n * (5 + 64) + int(luma.sum()) + int(chroma.sum())
+               + int(inter.sum()) * 384 * 4 + int(pcm.sum()) * 384
+               + (6 * 64 + 2 * 256 if p["use_scaling"] else 0)
+               + 4 * ((H + 16) * (W + 16) + 2 * (H // 2 + 16) * (W // 2 + 16))
+               + 4 * 384 * n)
+    return n_bytes, K7_OPS_PER_SAMPLE * 384 * n
+
+
+def k8_bytes_ops(mb_w, mb_h, args):
+    """(bytes, operations) K8 must take for inter_residual's arguments
+    `args`: the source planes (in their dtype), pred_q, the quadrants'
+    MVs and the per-MB SAD, partition, x offset, qp and qpc, once; the
+    chroma reference samples the quadrants' bilinear windows weigh by
+    more than 0 (the right column only if fx > 0, the lower row only if
+    fy > 0; the window clamped as the kernel clamps it), each once, U and
+    V alike; the outputs written once (use_intra and no_res a byte each,
+    the rest int32). Operations: K8_OPS_PER_SAMPLE for each of an MB's
+    384 samples."""
+    Y, U, V, pred_q, mvqx, mvqy = args[:6]
+    refU, xoffC = args[8], args[10]
+    n = mb_w * mb_h
+    Hc, Wc = refU.shape
+    mx, my, xo = (a.cpu().numpy().astype(np.int64)
+                  for a in (mvqx, mvqy, xoffC))
+    quad, mbi = np.arange(4), np.arange(n)
+    cy = (((mbi // mb_w) * 8)[:, None] + (quad // 2) * 4).reshape(-1)
+    cx = (((mbi % mb_w) * 8 + xo)[:, None] + (quad % 2) * 4).reshape(-1)
+    iy = np.clip(16 + cy + (my >> 3), 0, Hc - 5)
+    ix = np.clip(16 + cx + (mx >> 3), 0, Wc - 5)
+    o = np.arange(5)
+    keep = ((o[None, :, None] < 4 + ((my & 7) > 0)[:, None, None])
+            & (o[None, None, :] < 4 + ((mx & 7) > 0)[:, None, None]))
+    ys = np.broadcast_to(iy[:, None, None] + o[None, :, None], keep.shape)
+    xs = np.broadcast_to(ix[:, None, None] + o[None, None, :], keep.shape)
+    mask = np.zeros((Hc, Wc), bool)
+    mask[ys[keep], xs[keep]] = True
+    n_bytes = ((Y.numel() + U.numel() + V.numel()) * Y.element_size()
+               + 4 * (pred_q.numel() + 8 * n + 5 * n) + 2 * int(mask.sum())
+               + n * (2 + 4 * (1 + 8 + 256 + 8 + 128 + 256 + 128)))
+    return n_bytes, K8_OPS_PER_SAMPLE * 384 * n
+
+
+def clone_args(args):
+    """A copy of a call's arguments: tensors cloned, a plane dict's
+    tensors (and lists of them) cloned, the rest as they are."""
+    def c(a):
+        if torch.is_tensor(a):
+            return a.clone()
+        if isinstance(a, dict):
+            return {k: c(v) for k, v in a.items()}
+        if isinstance(a, list):
+            return [c(v) for v in a]
+        return a
+    return tuple(c(a) for a in args)
+
+
+def cold_calls(entry, operands, args, n_bytes, cold_bytes=100e6):
+    """No-argument calls of the bare C entry `entry` on enough copies of
+    the arguments `args` (made into the entry's operands by `operands`,
+    each copy with its own outputs) that one turn through them moves more
+    than `cold_bytes`, twice the H100's 50 MB L2: every launch finds its
+    inputs out of L2, as the frame's own launch does."""
+    from losslessh264_tpu_torch import _build
+    calls = []
+    for _ in range(int(min(16, max(2, -(-cold_bytes // n_bytes))))):
+        ops, outs, keep = operands(*clone_args(args))
+        dev = outs[0].device
+
+        def run(ops=ops, keep=(ops, outs, keep), dev=dev):
+            _build.check(entry(*ops, _build.stream(dev)), "residual")
+        calls.append(run)
+    return calls
+
+
+def residual_phase(data, frames, dev, card):
+    """Phase 15: K7 (csrc/residual_dec.cu) and K8 (csrc/residual_enc.cu)
+    against their plain versions on the card, exact (dtype and
+    torch.equal of every output): K7 on cases.K7_CASES (3 launches each)
+    and on every frame of a decode of synth720p and of runs720p (the
+    decode's own calls held to the plain version on the same arguments,
+    cases.HeldToPlain; the CRCs must hold); K8 on cases.K8_CASES (3
+    launches each) and on every P frame of the encodes of A-E and G (the
+    same, over encodes that must reproduce the goldens' SHA-256). Then
+    their times: K7 per frame of synth720p (the means over its P frames,
+    the frames with a prediction, and over its IDR), K8 per P frame of A
+    (frames 1-3):
+    `ms` the wrapper (CUDA events around back-to-back calls), `kernel_ms`
+    the bare C entry (a CUDA graph's replays over copies of the operands
+    that move more than 100 MB a turn, so that every launch finds its
+    inputs out of L2), `plain_ms` the plain version, beside the bound.
+    Returns the K7 and K8 rows of the kernel report."""
+    import hashlib
+    from losslessh264_tpu_torch import _build
+    from losslessh264_tpu_torch import decoder_torch as dt
+    from losslessh264_tpu_torch import encoder_torch as et
+    from losslessh264_tpu_torch.cases import (K7_CASES, K8_CASES, HeldToPlain,
+                                              golden_encoder,
+                                              inter_residual_args,
+                                              random_inter_residual_case,
+                                              random_residual_case,
+                                              residual_frames)
+    lib = _build.lib()
+
+    # ---- K7 ----
+    k7_err = 0
+    for name, mb_w, mb_h, seed, kw in K7_CASES:
+        planes, *rings = random_residual_case(mb_w, mb_h, seed, **kw)
+        p = dt.planes_to_torch(planes, dev)
+        pred = dt._inter_pred(mb_w, mb_h, p, *(torch.as_tensor(
+            r, device=dev) for r in rings)) or (None,) * 3
+        want = dt._residual_recon_plain(mb_w, mb_h, p, *pred)
+        for _ in range(3):
+            got = dt._residual_recon(mb_w, mb_h, p, *pred)
+            k7_err = max(k7_err, same(got, want, f"K7 {name}"))
+        log(f"K7 residual_recon == plain: {name}, 3 launches")
+    for stream, blob, gold in (
+            ("synth720p", data, json.load(open(GOLDEN))["synth720p"]),
+            ("runs720p", open(RUNS_STREAM, "rb").read(),
+             json.load(open(RUNS_GOLDEN))["runs720p"])):
+        with HeldToPlain(dt, "_residual_recon",
+                         dt._residual_recon_plain) as held:
+            crcs = [zlib.crc32(b"".join(a.cpu().numpy().tobytes()
+                                        for a in yuv))
+                    for yuv in dt.TorchDecoder(blob, device=dev).frames()]
+        crcs_hold = crcs == gold["crc32"]
+        if not crcs_hold or held.bad or held.calls != len(crcs):
+            raise SystemExit(f"K7 on {stream}: {held.calls} calls, frames "
+                             f"{held.bad} differ from the plain version (max "
+                             f"abs err {held.max_abs_err}); CRCs "
+                             f"{'hold' if crcs_hold else 'differ'}")
+        k7_err = max(k7_err, held.max_abs_err)
+        log(f"K7 residual_recon == plain: every frame of {stream} "
+            f"({held.calls}), its CRCs hold")
+
+    # ---- K8 ----
+    k8_err = 0
+    for name, mb_w, mb_h, seed, R, qp, rd_lam in K8_CASES:
+        args = inter_residual_args(random_inter_residual_case(
+            mb_w, mb_h, seed, R, qp, rd_lam, dev))
+        want = et.inter_residual_plain(mb_w, mb_h, *args)
+        for _ in range(3):
+            got = et.inter_residual(mb_w, mb_h, *args)
+            k8_err = max(k8_err, same(got, want, f"K8 {name}"))
+        log(f"K8 inter_residual == plain: {name}, 3 launches")
+    configs = []
+    for path, names in ((ENC_GOLDEN, "AB"), (ENC_GOLDEN_CDE, "CDE"),
+                        (ENC_GOLDEN_G, "G")):
+        gold = json.load(open(path))
+        configs += [(name, gold[name]) for name in names]
+    W, H = gold["source"]["width"], gold["source"]["height"]
+    src = [tuple(np.ascontiguousarray(p.numpy()) for p in f)
+           for f in frames[:max(len(c["frames"]) for _, c in configs)]]
+    a_args = None
+    for name, cfg in configs:
+        enc = golden_encoder(cfg, W, H, dev)
+        reset_launches()
+        with HeldToPlain(et, "inter_residual", et.inter_residual_plain,
+                         keep=3 if name == "A" else 0) as held:
+            n_frames = len(cfg["frames"])
+            if name == "G":
+                out = enc.encode_frames(src[:n_frames], batch=cfg["batch"])
+            else:
+                out = []
+                for i, f in enumerate(src[:n_frames]):
+                    for call in cfg.get("calls", {}).get(str(i), ()):
+                        getattr(enc, call)()
+                    out.append(enc.encode_frame_layers(*f)
+                               if "simulcast" in cfg else enc.encode_frame(*f))
+        k1 = launches_now()[0]
+        shas = [[hashlib.sha256(d).hexdigest() for d in (
+            o if isinstance(o, list) else [o])] for o in out]
+        gold_shas = [[gl["sha256"] for gl in g.get("layers", [g])]
+                     for g in cfg["frames"]]
+        if shas != gold_shas or held.bad or held.calls != k1 or k1 == 0:
+            raise SystemExit(f"K8 on encode {name}: {held.calls} calls ({k1} "
+                             f"K1 launches), calls {held.bad} differ from the "
+                             f"plain version (max abs err "
+                             f"{held.max_abs_err}); SHA-256 "
+                             f"{'hold' if shas == gold_shas else 'differ'}")
+        k8_err = max(k8_err, held.max_abs_err)
+        if name == "A":
+            a_args = held.kept
+        log(f"K8 inter_residual == plain: every P frame of encode {name} "
+            f"({held.calls}), its SHA-256 hold")
+
+    # ---- times ----
+    def k7_row(mb_w, mb_h, p, *pred):
+        nb, no = k7_bytes_ops(mb_w, mb_h, p, pred[0])
+        args = (mb_w, mb_h, p, *pred)
+        row = {"ms": cuda_ms(lambda: dt._residual_recon(*args), 10),
+               "kernel_ms": kernel_device_ms(cold_calls(
+                   lib.pip_residual_dec, dt.k7_operands, args, nb)),
+               "plain_ms": cuda_ms(lambda: dt._residual_recon_plain(*args),
+                                   3, warmup=1),
+               "bytes": nb, "operations": no}
+        row["bound_ms"], row["bound_by"] = bound_ms(nb, no)
+        return row
+
+    rows = []
+    for i, mb_w, mb_h, p, *pred in residual_frames(data, dev):
+        row = k7_row(mb_w, mb_h, p, *pred)
+        row["frame"], row["inter"] = i, pred[0] is not None
+        rows.append(row)
+    keys = ("ms", "kernel_ms", "plain_ms", "bytes", "operations", "bound_ms")
+    inter = [r for r in rows if r["inter"]]
+    intra = [r for r in rows if not r["inter"]]
+    k7 = {k: sum(r[k] for r in inter) / len(inter) for k in keys}
+    k7["bound_by"] = inter[0]["bound_by"]
+    k7["bound_share"] = k7["bound_ms"] / k7["kernel_ms"]
+    k7["frames"] = len(inter)
+    k7["intra_frames"] = {k: sum(r[k] for r in intra) / len(intra)
+                          for k in keys}
+    k7["per_frame"] = [{k: (round(v, 5) if isinstance(v, float) else v)
+                        for k, v in r.items()} for r in rows]
+    log(f"time K7 residual_recon, mean of the {len(inter)} P frames of "
+        f"synth720p: wrapper {k7['ms']:.4f} ms, kernel alone "
+        f"{k7['kernel_ms']:.5f} ms; bound {k7['bound_ms']:.5f} ms by "
+        f"{k7['bound_by']} ({k7['bytes']:.0f} bytes), share "
+        f"{k7['bound_share']:.3f}; plain torch {k7['plain_ms']:.3f} ms; "
+        f"its {len(intra)} intra frames: kernel "
+        f"{k7['intra_frames']['kernel_ms']:.5f} ms, bound "
+        f"{k7['intra_frames']['bound_ms']:.5f} ms, plain "
+        f"{k7['intra_frames']['plain_ms']:.3f} ms on {card}")
+
+    rows = []
+    for args in a_args:
+        nb, no = k8_bytes_ops(args[0], args[1], args[2:])
+        row = {"ms": cuda_ms(lambda: et.inter_residual(*args), 10),
+               "kernel_ms": kernel_device_ms(cold_calls(
+                   lib.pip_residual_enc, et.k8_operands, args, nb)),
+               "plain_ms": cuda_ms(lambda: et.inter_residual_plain(*args), 3,
+                                   warmup=1),
+               "bytes": nb, "operations": no}
+        row["bound_ms"], row["bound_by"] = bound_ms(nb, no)
+        rows.append(row)
+    k8 = {k: sum(r[k] for r in rows) / len(rows) for k in keys}
+    k8["bound_by"] = rows[0]["bound_by"]
+    k8["bound_share"] = k8["bound_ms"] / k8["kernel_ms"]
+    k8["frames"] = len(rows)
+    log(f"time K8 inter_residual, mean of A's P frames 1-{len(rows)}: "
+        f"wrapper {k8['ms']:.4f} ms, kernel alone {k8['kernel_ms']:.5f} ms; "
+        f"bound {k8['bound_ms']:.5f} ms by {k8['bound_by']} "
+        f"({k8['bytes']:.0f} bytes), share {k8['bound_share']:.3f}; plain "
+        f"torch {k8['plain_ms']:.3f} ms on {card}")
+    k7["max_abs_err"], k8["max_abs_err"] = k7_err, k8_err
+    return k7, k8
 
 
 def profile_report(prof, wall_ms, what, card):
@@ -1921,7 +2242,8 @@ def main():
     torch.cuda.synchronize()
     decode_s = time.perf_counter() - t0
     dec_launches = launches_now()
-    k1_launches, k2_launches, k3_launches, _, _, k6_launches = dec_launches
+    (k1_launches, k2_launches, k3_launches, _, _, k6_launches, k7_launches,
+     _) = dec_launches
     # a second decode, stage by stage (synchronised), which also gives
     # each frame's MC route: the K1 and K6 launches the first one implies
     stage_rows = stage_decode(data, dev)
@@ -1945,11 +2267,14 @@ def main():
         f"{deblocked} deblocked frames, {intra_frames} frames with intra "
         f"MBs and {bucketed} bucketed P frames (K1 {k1_implied} implied); "
         f"routes {dec.routes}")
-    if min(k1_launches, k2_launches, k3_launches, k6_launches) <= 0:
+    if min(k1_launches, k2_launches, k3_launches, k6_launches,
+           k7_launches) <= 0:
         raise SystemExit("a kernel of the decode path was never launched")
-    want = (k1_implied, deblocked, intra_frames, 0, 0, bucketed)
+    # K7 once per frame
+    want = (k1_implied, deblocked, intra_frames, 0, 0, bucketed, len(frames),
+            0)
     if dec_launches != want:
-        raise SystemExit(f"K1-K6 launched {dec_launches} times, the frames "
+        raise SystemExit(f"K1-K8 launched {dec_launches} times, the frames "
                          f"imply {want}")
 
     # ---- 6. encode on the card ----
@@ -1977,7 +2302,10 @@ def main():
     # ---- 14. K5 and K6 against their plain versions, and their times ----
     k5, k6 = search_mc_phase(data, frames, dev, card)
 
-    # ---- 15. times ----
+    # ---- 15. K7 and K8 against their plain versions, and their times ----
+    k7, k8 = residual_phase(data, frames, dev, card)
+
+    # ---- 16. times ----
     # K1 at each size, both entries: `ms` the wrapper by CUDA events over
     # back-to-back calls, `kernel_ms` the bare C entry's kernel alone (a
     # CUDA graph's replays, cold L2), beside the bound, the plain version
@@ -2040,8 +2368,8 @@ def main():
     for r in rows:
         log("stage " + json.dumps({k: (round(v, 3) if isinstance(v, float)
                                        else v) for k, v in r.items()}))
-    for key in ("host_ms", "residual_inter_ms", "intra_ms", "edge_params_ms",
-                "k2_ms", "crop_ms", "store_ms"):
+    for key in ("host_ms", "mc_ms", "residual_recon_ms", "intra_ms",
+                "edge_params_ms", "k2_ms", "crop_ms", "store_ms"):
         log(f"stage total {key}: {sum(r[key] for r in rows):.3f} ms over "
             f"{len(rows)} frames on {card}")
     k1 = k1_sizes["720p"]
@@ -2107,12 +2435,16 @@ def main():
            **{k: row[k] for k in ("bytes", "operations", "bound_share",
                                   "int32_rate_ms",
                                   "operands_ms", "k1_ms", "fix_cells",
-                                  "frames") if k in row}}
+                                  "frames", "intra_frames") if k in row}}
           for name, source, replaces, key, row in (
               ("dense_full_search", "losslessh264_tpu_torch/csrc/me_dense.cu",
                "losslessh264_tpu/ops/me.py:132", "K5", k5),
               ("mc_bucketed", "losslessh264_tpu_torch/csrc/mc_bucket.cu",
-               "losslessh264_tpu/ops/mc.py:436", "K6", k6))),
+               "losslessh264_tpu/ops/mc.py:436", "K6", k6),
+              ("residual_recon", "losslessh264_tpu_torch/csrc/residual_dec.cu",
+               "losslessh264_tpu/decoder_jax.py:693", "K7", k7),
+              ("inter_residual", "losslessh264_tpu_torch/csrc/residual_enc.cu",
+               "losslessh264_tpu/encoder_jax.py:481", "K8", k8))),
     ]}))
     log(card_line())
     print(json.dumps({"ok": True, "device": {

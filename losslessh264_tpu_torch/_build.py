@@ -59,6 +59,17 @@ _SIGNATURES = {
     "pip_mc_bucket": [_P, _I, _P, _P, _P, _P] + [_P, _L, _I, _I] * 2
     + [_P, _L, _I, _I, _I, _P, _P, _L, _I, _I, _I, _I]
     + [_P, _P, _P, _I, _I, _I, _P],
+    # (mb_class, qp, cbp_luma, cbp_chroma, transform8, luma_ac, luma_dc,
+    #  luma8, chroma_ac, chroma_dc, ref_slot, pcm, w4 x6, w8 x2,
+    #  use_scaling, chroma qp offsets x2, pred_y, pred_u, pred_v, Yw, Uw,
+    #  Vw, res_y, res_u, res_v, mb_w, mb_h, stream)
+    "pip_residual_dec": [_P] * 20 + [_I] * 3 + [_P] * 9 + [_I, _I, _P],
+    # (src Y, U, V, their element bytes, Y and chroma row strides, pred_q,
+    #  mvq_x, mvq_y, best_sad, part, xoffC, qp, qpc, ref U, ref V, ref rows,
+    #  ref cols, rd_lam, use_intra, no_res, part out, mv8, luma levels,
+    #  cdc, cac, tile_y, tile_u, tile_v, mb_w, mb_h, stream)
+    "pip_residual_enc": [_P] * 3 + [_I] * 3 + [_P] * 10 + [_I] * 3
+    + [_P] * 10 + [_I, _I, _P],
 }
 
 _lib = None

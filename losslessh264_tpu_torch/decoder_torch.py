@@ -24,9 +24,12 @@ Validated frame-exact against decoder_np.NpDecoder and the JAX stages
 """
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
+from . import _build
 from . import native
 from . import ref_np
 from .ops import deblock as tdb
@@ -223,15 +226,120 @@ def _plane_to_tiles(plane, mb_w, mb_h, t):
         .reshape(mb_w * mb_h, t, t)
 
 
+def _inter_pred(mb_w, mb_h, p, ref_y, ref_u, ref_v):
+    """The frame's inter prediction planes ([H, W], [H/2, W/2], [H/2,
+    W/2] int32): the bucketed dense-shift path (K1 and K6 on CUDA) when
+    the host plan served the frame (mc_fast), the general per-cell path
+    otherwise; None on a frame whose plan has no inter cell (mc_any
+    False)."""
+    if "mc_bucket" in p and not p["mc_any"]:
+        return None
+    if "mc_bucket" in p and p["mc_fast"]:
+        return tmc.mc_bucketed(ref_y, ref_u, ref_v, PAD, p, mb_w, mb_h)
+    ty, tu, tv = _mc_legacy_cells(mb_w, mb_h, p, ref_y, ref_u, ref_v)
+    return (_tiles_to_plane(ty, mb_w, mb_h, 16),
+            _tiles_to_plane(tu, mb_w, mb_h, 8),
+            _tiles_to_plane(tv, mb_w, mb_h, 8))
+
+
 def _residual_and_inter(mb_w, mb_h, p, ref_y, ref_u, ref_v):
-    """Residuals of every MB, plus inter prediction: the bucketed
-    dense-shift path when the host plan served the frame (mc_fast), the
-    general per-cell path otherwise. Returns the WPAD-padded int32
-    working planes with inter MBs reconstructed (0 elsewhere) and the
-    residual tiles."""
+    """Inter prediction (_inter_pred), then the residuals of every MB and
+    the reconstruction of the inter MBs (_residual_recon: one K7 launch on
+    CUDA). Returns the WPAD-padded int32 working planes with inter MBs
+    reconstructed (0 elsewhere) and the residual tiles."""
+    pred = _inter_pred(mb_w, mb_h, p, ref_y, ref_u, ref_v)
+    return _residual_recon(mb_w, mb_h, p, *(pred or (None,) * 3))
+
+
+def _residual_recon(mb_w, mb_h, p, pred_y, pred_u, pred_v):
+    """K7 wrapper: (Yw, Uw, Vw, res_y, res_u, res_v) of
+    _residual_recon_plain (same arguments and results; pred_* None on a
+    frame without prediction, read as 0). CPU tensors take the plain
+    version; CUDA tensors one launch of csrc/residual_dec.cu."""
+    if p["luma_ac"].device.type == "cpu":
+        return _residual_recon_plain(mb_w, mb_h, p, pred_y, pred_u, pred_v)
+    args, outs, _ = k7_operands(mb_w, mb_h, p, pred_y, pred_u, pred_v)
+    rc = _build.lib().pip_residual_dec(*args,
+                                       _build.stream(p["luma_ac"].device))
+    _build.check(rc, "residual reconstruction")
+    _build.count_launch(_residual_recon)
+    return outs
+
+
+_residual_recon.launches = 0
+
+# the plane-dict entries K7 reads: (key, dtype, shape per MB); luma8 and
+# pcm may be absent (frames without 8x8 transforms or PCM MBs)
+K7_PLANES = (("mb_class", torch.uint8, ()), ("qp", torch.uint8, ()),
+             ("cbp_luma", torch.uint8, ()), ("cbp_chroma", torch.uint8, ()),
+             ("transform8", torch.uint8, ()),
+             ("luma_ac", torch.int16, (16, 4, 4)),
+             ("luma_dc", torch.int16, (4, 4)),
+             ("luma8", torch.int16, (4, 8, 8)),
+             ("chroma_ac", torch.int16, (8, 4, 4)),
+             ("chroma_dc", torch.int16, (2, 2, 2)),
+             ("ref_slot", torch.int32, (16,)), ("pcm", torch.uint8, (384,)))
+
+
+def k7_operands(mb_w, mb_h, p, pred_y, pred_u, pred_v):
+    """K7's operands on CUDA tensors, checked: the plane dict's buffers in
+    the symbol layer's dtypes (K7_PLANES; a null pointer for an absent
+    luma8 or pcm), the eight weight matrices (int32), use_scaling and the
+    two chroma QP offsets, the prediction planes (int32, or null without
+    prediction) and the fresh outputs. Returns (the args of
+    pip_residual_dec before the stream, (Yw, Uw, Vw, res_y, res_u, res_v),
+    the tensors the args point into)."""
+    dev = p["luma_ac"].device
+    if dev.type != "cuda":
+        raise ValueError(f"residual kernel takes CUDA tensors, got {dev}")
     n = mb_w * mb_h
     H, W = mb_h * 16, mb_w * 16
-    dev = ref_y.device
+    P = ctypes.c_void_p
+    keep, args = [], []
+
+    def operand(t, dtype, shape, what):
+        if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(f"residual kernel {what}: {tuple(t.shape)} "
+                             f"{t.dtype} on {t.device}, the kernel takes "
+                             f"{shape} {dtype} on {dev}")
+        t = t.contiguous()
+        keep.append(t)
+        return P(t.data_ptr())
+
+    for key, dtype, shape in K7_PLANES:
+        absent = key in ("luma8", "pcm") and key not in p
+        args.append(None if absent else operand(p[key], dtype, (n,) + shape,
+                                                key))
+    args += [operand(w, torch.int32, (4, 4), "w4") for w in p["w4"]]
+    args += [operand(w, torch.int32, (8, 8), "w8") for w in p["w8"]]
+    if len(args) != len(K7_PLANES) + 8:
+        raise ValueError("residual kernel takes 6 w4 and 2 w8 matrices")
+    args += [int(bool(p["use_scaling"])), int(p["chroma_qp_offset"]),
+             int(p["second_chroma_qp_offset"])]
+    preds = (pred_y, pred_u, pred_v)
+    shapes = ((H, W), (H // 2, W // 2), (H // 2, W // 2))
+    if pred_y is None:
+        args += [None] * 3
+    else:
+        args += [operand(a, torch.int32, s, "prediction plane")
+                 for a, s in zip(preds, shapes)]
+    outs = tuple(torch.empty(s, dtype=torch.int32, device=dev) for s in (
+        (H + 2 * WPAD, W + 2 * WPAD), (H // 2 + 2 * WPAD, W // 2 + 2 * WPAD),
+        (H // 2 + 2 * WPAD, W // 2 + 2 * WPAD), (n, 16, 16), (n, 8, 8),
+        (n, 8, 8)))
+    args += [P(o.data_ptr()) for o in outs] + [mb_w, mb_h]
+    return args, outs, keep
+
+
+def _residual_recon_plain(mb_w, mb_h, p, pred_y, pred_u, pred_v):
+    """Plain version of K7: the residuals of every MB (ops/transform
+    luma_residuals, chroma_residuals), clip(pred + residual) on MBs whose
+    16 ref_slot cells are all >= 0 (0 elsewhere; pred_* None reads as 0),
+    the PCM overlay, and the placement into the WPAD-padded int32 working
+    planes. Returns (Yw, Uw, Vw, res_y, res_u, res_v)."""
+    n = mb_w * mb_h
+    H, W = mb_h * 16, mb_w * 16
+    dev = p["luma_ac"].device
     cls = p["mb_class"].to(torch.int32)
     qp = p["qp"].to(torch.int32)
     flat4 = torch.full((4, 4), 16, dtype=torch.int32, device=dev)
@@ -247,22 +355,12 @@ def _residual_and_inter(mb_w, mb_h, p, ref_y, ref_u, ref_v):
         cls, qp, p["cbp_chroma"], p["chroma_ac"], p["chroma_dc"],
         p["chroma_qp_offset"], p["second_chroma_qp_offset"],
         w4[1], w4[2], w4[4], w4[5])
-
-    # ---- inter prediction (whole-frame planes) ----
-    valid = p["ref_slot"].reshape(-1) >= 0
-    if "mc_bucket" in p and not p["mc_any"]:
+    if pred_y is None:
         pred_y = torch.zeros((H, W), dtype=torch.int32, device=dev)
         pred_u = torch.zeros((H // 2, W // 2), dtype=torch.int32, device=dev)
         pred_v = torch.zeros_like(pred_u)
-    elif "mc_bucket" in p and p["mc_fast"]:
-        pred_y, pred_u, pred_v = tmc.mc_bucketed(ref_y, ref_u, ref_v, PAD, p,
-                                                 mb_w, mb_h)
-    else:
-        ty, tu, tv = _mc_legacy_cells(mb_w, mb_h, p, ref_y, ref_u, ref_v)
-        pred_y = _tiles_to_plane(ty, mb_w, mb_h, 16)
-        pred_u = _tiles_to_plane(tu, mb_w, mb_h, 8)
-        pred_v = _tiles_to_plane(tv, mb_w, mb_h, 8)
 
+    valid = p["ref_slot"].reshape(-1) >= 0
     inter_mb = valid.reshape(n, 16).all(1).reshape(mb_h, mb_w)
     im_y = _repeat2(inter_mb, 16)
     im_c = _repeat2(inter_mb, 8)

@@ -497,8 +497,6 @@ def encode_inter_mbs(mb_w, mb_h, radius, Y, U, V, refY_s, refU_s, refV_s,
     WpC = refU_s.shape[2]
     lam = on(LAMBDA, dev)[qp.long()]
     srcY_t = _plane_to_tiles(Y.to(i32), mb_w, mb_h, 16)
-    srcU_t = _plane_to_tiles(U.to(i32), mb_w, mb_h, 8)
-    srcV_t = _plane_to_tiles(V.to(i32), mb_w, mb_h, 8)
     mbi = torch.arange(n, device=dev)
     mby0 = (mbi // mb_w) * 16
     mbx0 = (mbi % mb_w) * 16
@@ -571,6 +569,129 @@ def encode_inter_mbs(mb_w, mb_h, radius, Y, U, V, refY_s, refU_s, refV_s,
         planes, PAD, by8, bx8 + xo4, ivx_q * 4, ivy_q * 4, src8, part)
     stage("subpel_k1")
 
+    mvq = torch.stack([mvqx, mvqy], 1).reshape(n, 4, 2)
+    (use_intra, part, mv8, qac_zz, cdc, cac, tile_y, tile_u, tile_v,
+     no_res) = inter_residual(mb_w, mb_h, Y, U, V, pred_q, mvqx, mvqy,
+                              best_sad, part, refcatU, refcatV, xoffC, qp,
+                              qpc, rd_lam)
+    stage("residual")
+    return (mvq[:, 0, 0], mvq[:, 0, 1], use_intra, part, ref_sel, mv8, mvq,
+            qac_zz, cdc, cac, tile_y, tile_u, tile_v, no_res)
+
+
+def inter_residual(mb_w, mb_h, Y, U, V, pred_q, mvqx, mvqy, best_sad, part,
+                   refcatU, refcatV, xoffC, qp, qpc, rd_lam):
+    """K8 wrapper: the residual half of encode_inter_mbs, as
+    inter_residual_plain (same arguments and results). CPU tensors take
+    the plain version; CUDA tensors one launch of csrc/residual_enc.cu."""
+    if Y.device.type == "cpu":
+        return inter_residual_plain(mb_w, mb_h, Y, U, V, pred_q, mvqx, mvqy,
+                                    best_sad, part, refcatU, refcatV, xoffC,
+                                    qp, qpc, rd_lam)
+    args, outs, _ = k8_operands(mb_w, mb_h, Y, U, V, pred_q, mvqx, mvqy,
+                                best_sad, part, refcatU, refcatV, xoffC, qp,
+                                qpc, rd_lam)
+    rc = _build.lib().pip_residual_enc(*args, _build.stream(Y.device))
+    _build.check(rc, "inter residual")
+    _build.count_launch(inter_residual)
+    return outs
+
+
+inter_residual.launches = 0
+
+
+def k8_operands(mb_w, mb_h, Y, U, V, pred_q, mvqx, mvqy, best_sad, part,
+                refcatU, refcatV, xoffC, qp, qpc, rd_lam):
+    """K8's operands on CUDA tensors, checked: the source planes (uint8 or
+    int32, unit column stride, U and V with one row stride), the int32
+    per-quadrant and per-MB vectors, the uint8 concatenated chroma
+    references (contiguous, one shape), rd_lam (None: -1) and the fresh
+    outputs. Returns (the args of pip_residual_enc before the stream, the
+    outputs in inter_residual's order, the tensors the args point
+    into)."""
+    dev = Y.device
+    if dev.type != "cuda":
+        raise ValueError(f"inter residual kernel takes CUDA tensors, got "
+                         f"{dev}")
+    n = mb_w * mb_h
+    H, W = mb_h * 16, mb_w * 16
+    i32 = torch.int32
+    P = ctypes.c_void_p
+    srcs = [Y, U, V]
+    if any(a.device != dev or a.dtype != Y.dtype for a in srcs) or \
+            Y.dtype not in (torch.uint8, i32) or \
+            [tuple(a.shape) for a in srcs] != [(H, W), (H // 2, W // 2),
+                                               (H // 2, W // 2)]:
+        raise ValueError(f"inter residual kernel: source planes "
+                         f"{[(tuple(a.shape), a.dtype) for a in srcs]}, "
+                         f"the kernel takes uint8 or int32 planes of "
+                         f"{mb_w}x{mb_h} MBs on {dev}")
+    if Y.stride(1) != 1:
+        srcs[0] = Y.contiguous()
+    if U.stride(1) != 1 or V.stride(1) != 1 or U.stride(0) != V.stride(0):
+        srcs[1:] = [U.contiguous(), V.contiguous()]
+    vecs = []
+    for a, shape in ((pred_q, (4 * n, 8, 8)), (mvqx, (4 * n,)),
+                     (mvqy, (4 * n,)), (best_sad, (n,)), (part, (n,)),
+                     (xoffC, (n,)), (qp, (n,)), (qpc, (n,))):
+        if a.device != dev or tuple(a.shape) != shape:
+            raise ValueError(f"inter residual kernel: an operand "
+                             f"{tuple(a.shape)} on {a.device}, the kernel "
+                             f"takes {shape} on {dev}")
+        vecs.append(a.to(i32).contiguous())
+    refs = [refcatU, refcatV]
+    if any(r.device != dev or r.dtype != torch.uint8 or r.dim() != 2
+           or not r.is_contiguous() or r.shape != refcatU.shape
+           for r in refs) or refcatU.shape[0] != H // 2 + PAD:
+        raise ValueError("inter residual kernel takes contiguous uint8 "
+                         f"[{H // 2 + PAD}, Wc] chroma references")
+    if rd_lam is not None and not 0 <= int(rd_lam) < 2 ** 31:
+        raise ValueError(f"inter residual kernel: rd_lam {rd_lam}")
+    outs = (torch.empty(n, dtype=torch.bool, device=dev),
+            torch.empty(n, dtype=i32, device=dev),
+            torch.empty((n, 4, 2), dtype=i32, device=dev),
+            torch.empty((n, 16, 16), dtype=i32, device=dev),
+            torch.empty((n, 2, 4), dtype=i32, device=dev),
+            torch.empty((n, 2, 4, 16), dtype=i32, device=dev),
+            torch.empty((n, 16, 16), dtype=i32, device=dev),
+            torch.empty((n, 8, 8), dtype=i32, device=dev),
+            torch.empty((n, 8, 8), dtype=i32, device=dev),
+            torch.empty(n, dtype=torch.bool, device=dev))
+    args = ([P(a.data_ptr()) for a in srcs]
+            + [srcs[0].element_size(), srcs[0].stride(0), srcs[1].stride(0)]
+            + [P(a.data_ptr()) for a in vecs + refs]
+            + [refcatU.shape[0], refcatU.shape[1],
+               -1 if rd_lam is None else int(rd_lam)]
+            + [P(o.data_ptr()) for o in (outs[0], outs[9]) + outs[1:9]]
+            + [mb_w, mb_h])
+    return args, outs, srcs + vecs + refs
+
+
+def inter_residual_plain(mb_w, mb_h, Y, U, V, pred_q, mvqx, mvqy, best_sad,
+                         part, refcatU, refcatV, xoffC, qp, qpc, rd_lam):
+    """Plain version of K8: the residual half of encode_inter_mbs after
+    the subpel refinement. Y/U/V: the source planes; pred_q [4n, 8, 8]
+    int32 and mvqx/mvqy [4n] the refined quadrants' luma prediction and
+    quarter-pel MVs, best_sad [n] their SAD; part [n] the partition;
+    refcatU/refcatV the width-concatenated edge-padded chroma references
+    and xoffC [n] each MB's x offset into them; qp, qpc [n]; rd_lam None
+    or the trellis-lite lambda. The intra SAD proxy and the intra
+    fallback, the writer's partition MVs, chroma MC, and the
+    position-major residual path as the JAX function has it. Returns
+    (use_intra, part, mv8, luma levels in zigzag order, chroma_dc,
+    chroma_ac, tile_y, tile_u, tile_v, no_res)."""
+    n = mb_w * mb_h
+    dev = Y.device
+    i32 = torch.int32
+    srcY_t = _plane_to_tiles(Y.to(i32), mb_w, mb_h, 16)
+    srcU_t = _plane_to_tiles(U.to(i32), mb_w, mb_h, 8)
+    srcV_t = _plane_to_tiles(V.to(i32), mb_w, mb_h, 8)
+    mbi = torch.arange(n, device=dev)
+    quad = torch.arange(4, device=dev)
+    by8 = ((mbi // mb_w) * 16)[:, None] + (quad // 2)[None, :] * 8
+    bx8 = ((mbi % mb_w) * 16)[:, None] + (quad % 2)[None, :] * 8
+    by8, bx8 = by8.reshape(-1), bx8.reshape(-1)
+
     intra_cost = tme.intra_sad_proxy(srcY_t)
     use_intra = best_sad > intra_cost + 2048
     part = torch.where(use_intra, 0, part)
@@ -583,8 +704,6 @@ def encode_inter_mbs(mb_w, mb_h, radius, Y, U, V, refY_s, refU_s, refV_s,
 
     # MVs in the writer's partition slots and per 8x8 quadrant
     mvq = torch.stack([mvqx, mvqy], 1).reshape(n, 4, 2)
-    mvx = mvq[:, 0, 0]
-    mvy = mvq[:, 0, 1]
     p2 = part[:, None, None]
     zpad = torch.zeros((n, 2, 2), dtype=i32, device=dev)
     mv8 = torch.where(p2 == 1, torch.cat([mvq[:, 0::2], zpad], 1),
@@ -632,9 +751,8 @@ def encode_inter_mbs(mb_w, mb_h, radius, Y, U, V, refY_s, refU_s, refV_s,
 
     no_res = ((qac == 0).all(3).all(2).all(1)
               & (cdc == 0).all(2).all(1) & (cac == 0).all(3).all(2).all(1))
-    stage("residual")
-    return (mvx, mvy, use_intra, part, ref_sel, mv8, mvq, tt.zigzag4(qac),
-            cdc, cac, tile_y, tiles_c[0], tiles_c[1], no_res)
+    return (use_intra, part, mv8, tt.zigzag4(qac), cdc, cac, tile_y,
+            tiles_c[0], tiles_c[1], no_res)
 
 
 # ---------------------------------------------------------------------------

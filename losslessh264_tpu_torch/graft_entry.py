@@ -108,7 +108,7 @@ def _rank_main(rank, world, init, mb_w, mb_h, device, queue):
             _build.lib()
         args = frame_args(mb_w, mb_h, world, rank, dev)
         kernels = (tmc.halfpel_planes, tdb.deblock_wavefront,
-                   tme.dense_full_search)
+                   tme.dense_full_search, et.inter_residual)
         for k in kernels:
             k.launches = 0
         t0 = time.perf_counter()
@@ -116,7 +116,7 @@ def _rank_main(rank, world, init, mb_w, mb_h, device, queue):
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         step_ms = (time.perf_counter() - t0) * 1e3
-        k1, k2, k5 = (k.launches for k in kernels)
+        k1, k2, k5, k8 = (k.launches for k in kernels)
         # the global coded-bits aggregate (gloo reduces host tensors)
         total = bits.detach().to("cpu", torch.int64).reshape(1).clone()
         dist.all_reduce(total, op=dist.ReduceOp.SUM)
@@ -124,7 +124,7 @@ def _rank_main(rank, world, init, mb_w, mb_h, device, queue):
         assert tuple(mvx.shape) == (mb_w * mb_h,)
         assert int(total) >= 0
         queue.put((rank, recY.cpu().numpy(), mvx.cpu().numpy(), int(bits),
-                   int(total), k1, k2, k5, step_ms))
+                   int(total), k1, k2, k5, k8, step_ms))
     finally:
         dist.destroy_process_group()
 
@@ -136,8 +136,8 @@ def dryrun_multichip(n_devices: int, device="cuda", mb_w=4, mb_h=3):
     meet through a file in a fresh temporary directory, not a TCP port,
     so several dryruns can run side by side. Returns, per rank in order,
     (rank, recY, mvx, bits, total_bits, K1 launches, K2 launches, K5
-    launches, step_ms) with the arrays on the host; step_ms is the wall time of the
-    rank's step, its first call, synchronized."""
+    launches, K8 launches, step_ms) with the arrays on the host; step_ms
+    is the wall time of the rank's step, its first call, synchronized."""
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("dryrun_multichip: device 'cuda' requested but "
                            "torch.cuda.is_available() is False")

@@ -4,8 +4,10 @@ K1 (csrc/halfpel.cu, ops/mc.halfpel_planes), K2 (csrc/deblock.cu,
 ops/deblock.deblock_wavefront), K3 (csrc/intra_dec.cu,
 ops/intra.intra_recon), K4 (csrc/intra_enc.cu,
 encoder_torch.intra_wavefront), K5 (csrc/me_dense.cu,
-ops/me.dense_full_search) and K6 (csrc/mc_bucket.cu,
-ops/mc.mc_bucketed) have no CPU mode. The tests marked
+ops/me.dense_full_search), K6 (csrc/mc_bucket.cu,
+ops/mc.mc_bucketed), K7 (csrc/residual_dec.cu,
+decoder_torch._residual_recon) and K8 (csrc/residual_enc.cu,
+encoder_torch.inter_residual) have no CPU mode. The tests marked
 `cuda` build them with nvcc and compare them on the card with
 torch.equal, and run the decoder and the encoder, which launch them, on
 the card against the committed goldens and the port's CPU run; they
@@ -29,12 +31,16 @@ from losslessh264_tpu_torch import decoder_torch as dt
 from losslessh264_tpu_torch import encoder_torch as et
 from losslessh264_tpu_torch import native
 from losslessh264_tpu_torch.cases import (INTRA_CLASSES, K5_CASES, K6_CASES,
+                                          K7_CASES, K8_CASES, HeldToPlain,
                                           bucketed_mc_frames,
-                                          dense_search_case, moving_frames,
+                                          dense_search_case,
+                                          inter_residual_args, moving_frames,
                                           random_deblock_case,
+                                          random_inter_residual_case,
                                           random_intra_case,
                                           random_intra_encode_case,
-                                          random_mc_case)
+                                          random_mc_case,
+                                          random_residual_case)
 from losslessh264_tpu_torch.ops import deblock as tdb
 from losslessh264_tpu_torch.ops import intra as tintra
 from losslessh264_tpu_torch.ops import mc as tmc
@@ -743,3 +749,183 @@ def test_mc_bucket_kernel_on_stream_plans(cuda_device, stream):
         assert all(torch.equal(g, w) for g, w in zip(got, want)), i
         frames += 1
     assert frames > 0
+
+
+# ---------------------------------------------------------------------------
+# K7 (csrc/residual_dec.cu) and K8 (csrc/residual_enc.cu)
+# ---------------------------------------------------------------------------
+def _residual_case(mb_w, mb_h, seed, kw, device):
+    """(p, pred_y, pred_u, pred_v) of a random_residual_case on `device`:
+    the plane dict as the decoder uploads it and the frame's prediction
+    (None on a frame without inter cells)."""
+    planes, *rings = random_residual_case(mb_w, mb_h, seed, **kw)
+    p = dt.planes_to_torch(planes, device)
+    pred = dt._inter_pred(mb_w, mb_h, p, *(torch.as_tensor(r, device=device)
+                                           for r in rings))
+    return (p, *(pred or (None,) * 3))
+
+
+def test_residual_wrappers_take_plain_version_on_cpu():
+    """K7's and K8's wrappers on CPU tensors return their plain versions'
+    results and launch nothing."""
+    case = _residual_case(9, 4, 0, {}, "cpu")
+    got = dt._residual_recon(9, 4, *case)
+    want = dt._residual_recon_plain(9, 4, *case)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    args = inter_residual_args(random_inter_residual_case(4, 3, 1, 2, "mb",
+                                                          144))
+    got = et.inter_residual(4, 3, *args)
+    want = et.inter_residual_plain(4, 3, *args)
+    assert all(g.dtype == w.dtype and torch.equal(g, w)
+               for g, w in zip(got, want))
+    assert dt._residual_recon.launches == et.inter_residual.launches == 0
+
+
+def test_residual_entries_refuse_cpu_tensors():
+    with pytest.raises(ValueError, match="CUDA"):
+        dt.k7_operands(9, 4, *_residual_case(9, 4, 0, {}, "cpu"))
+    with pytest.raises(ValueError, match="CUDA"):
+        et.k8_operands(4, 3, *inter_residual_args(
+            random_inter_residual_case(4, 3, 0, 1, 28, None)))
+
+
+@pytest.mark.parametrize("name,mb_w,mb_h,seed,kw", K7_CASES)
+def test_residual_cases(name, mb_w, mb_h, seed, kw):
+    """random_residual_case's frames hold what K7's cases name: every
+    class (PCM unless dropped) with its planes, the cbp_luma patterns and
+    every cbp_chroma 0-2, MBs with a mix of valid and invalid ref_slot cells,
+    levels at the int16 extremes, and the MC route of the case."""
+    p, *_ = random_residual_case(mb_w, mb_h, seed, **kw)
+    pcm = kw.get("pcm", True)
+    assert set(p["mb_class"].tolist()) == set(range(9 if pcm else 8))
+    assert ("pcm" in p) == pcm and ("luma8" in p) == kw.get("t8", True)
+    # every pattern where the frame has 16 MBs (the 4x3 and 5x3 frames
+    # hold the first 12 and 15)
+    assert set(p["cbp_luma"].tolist()) >= set(range(min(16, mb_w * mb_h)))
+    assert set(p["cbp_chroma"].tolist()) == {0, 1, 2}
+    assert (np.abs(p["luma_ac"].astype(np.int32)) >= 32767).any()
+    valid = (p["ref_slot"] >= 0).sum(1)
+    mc = kw.get("mc", "bucketed")
+    assert bool(p["mc_any"]) == (mc != "none")
+    assert bool(p["mc_fast"]) == (mc == "bucketed")
+    if mc != "none":
+        assert ((valid > 0) & (valid < 16)).any() and (valid == 16).any()
+
+
+@pytest.mark.parametrize("name,mb_w,mb_h,seed,R,qp,rd_lam", K8_CASES)
+def test_inter_residual_cases(name, mb_w, mb_h, seed, R, qp, rd_lam):
+    """random_inter_residual_case's corner MBs take their chroma windows
+    off the concatenated planes on every side (clamped), and its SADs put
+    MBs on both sides of the intra fallback."""
+    c = random_inter_residual_case(mb_w, mb_h, seed, R, qp, rd_lam)
+    n, Wc = mb_w * mb_h, c["refcatU"].shape[1]
+    my, mx = np.divmod(np.arange(n), mb_w)
+    qx = (mx[:, None] * 8 + np.array([0, 4, 0, 4]) + 16
+          + c["xoffC"].numpy()[:, None]).reshape(-1)
+    qy = (my[:, None] * 8 + np.array([0, 0, 4, 4]) + 16).reshape(-1)
+    ix = qx + (c["mvqx"].numpy() >> 3)
+    iy = qy + (c["mvqy"].numpy() >> 3)
+    H2 = c["refcatU"].shape[0]
+    assert (ix < 0).any() and (ix > Wc - 5).any()
+    assert (iy < 0).any() and (iy > H2 - 5).any()
+    if qp == "mb":
+        assert {0, 51} <= set(c["qp"].tolist())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,mb_w,mb_h,seed,kw", K7_CASES)
+def test_residual_dec_kernel_on_card(cuda_device, name, mb_w, mb_h, seed, kw):
+    """K7 equals the plain residual reconstruction on the card, 3
+    launches, every output of the right dtype (the padded planes' border
+    included)."""
+    case = _residual_case(mb_w, mb_h, seed, kw, cuda_device)
+    want = dt._residual_recon_plain(mb_w, mb_h, *case)
+    before = dt._residual_recon.launches
+    for _ in range(3):
+        got = dt._residual_recon(mb_w, mb_h, *case)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype == torch.int32 and torch.equal(g, w)
+    assert dt._residual_recon.launches == before + 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,mb_w,mb_h,seed,R,qp,rd_lam", K8_CASES)
+def test_residual_enc_kernel_on_card(cuda_device, name, mb_w, mb_h, seed, R,
+                                     qp, rd_lam):
+    """K8 equals the plain residual half of encode_inter_mbs on the card,
+    3 launches."""
+    args = inter_residual_args(random_inter_residual_case(
+        mb_w, mb_h, seed, R, qp, rd_lam, cuda_device))
+    want = et.inter_residual_plain(mb_w, mb_h, *args)
+    before = et.inter_residual.launches
+    for _ in range(3):
+        got = et.inter_residual(mb_w, mb_h, *args)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and torch.equal(g, w)
+    assert et.inter_residual.launches == before + 3
+
+
+@pytest.mark.cuda
+def test_residual_wrappers_are_one_launch(cuda_device, monkeypatch):
+    """On CUDA tensors each wrapper launches its kernel once and never
+    calls its plain version (a sentinel in its place raises)."""
+    def sentinel(*args, **kw):
+        raise AssertionError("a plain version ran on the CUDA path")
+    case = _residual_case(9, 4, 0, {}, cuda_device)
+    args = inter_residual_args(random_inter_residual_case(
+        4, 3, 1, 2, "mb", 144, cuda_device))
+    want = (dt._residual_recon_plain(9, 4, *case),
+            et.inter_residual_plain(4, 3, *args))
+    monkeypatch.setattr(dt, "_residual_recon_plain", sentinel)
+    monkeypatch.setattr(et, "inter_residual_plain", sentinel)
+    before = (dt._residual_recon.launches, et.inter_residual.launches)
+    got = (dt._residual_recon(9, 4, *case), et.inter_residual(4, 3, *args))
+    assert (dt._residual_recon.launches,
+            et.inter_residual.launches) == (before[0] + 1, before[1] + 1)
+    for g2, w2 in zip(got, want):
+        assert all(torch.equal(g, w) for g, w in zip(g2, w2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key,dtype", [("luma_ac", torch.int32),
+                                       ("mb_class", torch.int32),
+                                       ("ref_slot", torch.int16)])
+def test_residual_dec_kernel_refuses_dtypes(cuda_device, key, dtype):
+    """K7 reads the symbol layer's dtypes; other widths raise before the
+    launch."""
+    p, *pred = _residual_case(9, 4, 0, {}, cuda_device)
+    p[key] = p[key].to(dtype)
+    before = dt._residual_recon.launches
+    with pytest.raises(ValueError, match=key):
+        dt._residual_recon(9, 4, p, *pred)
+    assert dt._residual_recon.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stream", ["synth720p.264", "runs720p.264"])
+def test_residual_dec_kernel_on_streams(cuda_device, stream):
+    """K7 equals the plain version on every frame of the stream's decode
+    (the all-intra batch of runs720p included), and the decode's CRCs
+    hold."""
+    with open(os.path.join(DATA, stream), "rb") as fh:
+        data = fh.read()
+    gold = json.load(open(os.path.join(
+        DATA, stream.replace(".264", "_np_crc.json"))))
+    with HeldToPlain(dt, "_residual_recon", dt._residual_recon_plain) as held:
+        crcs = [zlib.crc32(b"".join(a.cpu().numpy().tobytes() for a in yuv))
+                for yuv in dt.TorchDecoder(data, device=cuda_device).frames()]
+    assert crcs == gold[stream[:-4]]["crc32"]
+    assert held.calls == len(crcs) and held.bad == []
+
+
+@pytest.mark.cuda
+def test_residual_enc_kernel_on_encode(cuda_device):
+    """K8 equals the plain version on every P frame of a 2-reference
+    CABAC encode with trellis rounding, once per P frame."""
+    frames = moving_frames(5, 96, 64)
+    enc = et.TorchEncoder(96, 64, qp=30, refs=2, cabac=True, trellis=True,
+                          device=cuda_device)
+    with HeldToPlain(et, "inter_residual", et.inter_residual_plain) as held:
+        for f in frames:
+            enc.encode_frame(*f)
+    assert held.calls == 4 and held.bad == []

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Time a kernel of the port (K1 csrc/halfpel.cu, K2 csrc/deblock.cu, K3
-csrc/intra_dec.cu, K4 csrc/intra_enc.cu, K5 csrc/me_dense.cu or K6
-csrc/mc_bucket.cu) against other builds of it,
+csrc/intra_dec.cu, K4 csrc/intra_enc.cu, K5 csrc/me_dense.cu, K6
+csrc/mc_bucket.cu, K7 csrc/residual_dec.cu or K8 csrc/residual_enc.cu)
+against other builds of it,
 or the port's kernel build against one nvcc over all sources, in turns,
 on one GPU (run from the repo root on a machine with an H100):
 
@@ -20,6 +21,8 @@ on one GPU (run from the repo root on a machine with an H100):
         show 0ae75fb:losslessh264_tpu_torch/csrc/$f > build/0ae75fb/$f; done
     python3 tools/kernel_ab.py k5 build/0ae75fb/me_dense.cu --parts
     python3 tools/kernel_ab.py k6 build/0ae75fb/mc_bucket.cu
+    python3 tools/kernel_ab.py k7 build/other/residual_dec.cu
+    python3 tools/kernel_ab.py k8 build/other/residual_enc.cu
     python3 tools/kernel_ab.py build
 
 Each extra source is built with nvcc like the port's own kernels and
@@ -85,6 +88,14 @@ replays of the bare entry) and the whole wrapper (the port's
 mc_bucketed, against 0ae75fb's: K1, its Python loop of window checks, its
 kernel, then the fix-up cells as torch ops, ops/mc._mc_fixups), CUDA
 events around 10 back-to-back calls, in turns.
+
+k7, k8: `pip_residual_dec` on every frame of synth720p (the rings its
+decode gives each frame) and the 720p cases of cases.K7_CASES, or
+`pip_residual_enc` on the 720p cases of cases.K8_CASES; each round the
+kernel alone, a CUDA graph's replays of the bare entry over copies of
+the operands that leave L2 cold (chip_smoke.cold_calls), beside the
+bound. An extra source is built alone, so transform.cuh must lie beside
+it, and its entry must take the port's arguments.
 
 build: the wall time of _build.build() (one nvcc per csrc/*.cu, all
 started together, then a link) against one nvcc over all the sources,
@@ -649,6 +660,84 @@ def ab_k6(libs, old_abi, dev):
             *rings, pad, p = random_mc_case(mb_w, mb_h, *rest, device=dev)
             one(name, (*rings, pad, p, mb_w, mb_h))
 
+def ab_residual(kernel, libs, dev):
+    """K7 (`k7`) or K8 (`k8`) builds: each held to the plain version, then
+    timed alone in turns: a CUDA graph's replays of its bare C entry over
+    copies of the operands that move more than 100 MB a turn, so that
+    every launch finds its inputs out of L2 (chip_smoke.cold_calls,
+    kernel_device_ms), beside the bound (chip_smoke.k7_bytes_ops,
+    k8_bytes_ops). K7 on every frame of synth720p (on the rings its
+    decode gives each) and on the 720p cases of cases.K7_CASES, K8 on the
+    720p cases of cases.K8_CASES. A build must take the port's entry's
+    arguments."""
+    from losslessh264_tpu_torch import decoder_torch as dt
+    from losslessh264_tpu_torch import encoder_torch as et
+    from losslessh264_tpu_torch.cases import (K7_CASES, K8_CASES,
+                                              inter_residual_args,
+                                              random_inter_residual_case,
+                                              random_residual_case,
+                                              residual_frames)
+    if kernel == "k7":
+        entry, operands, plain = ("pip_residual_dec", dt.k7_operands,
+                                  dt._residual_recon_plain)
+
+        def cases():
+            with open(os.path.join(ROOT, "tests", "data", "synth720p.264"),
+                      "rb") as fh:
+                data = fh.read()
+            for i, mb_w, mb_h, p, *pred in residual_frames(data, dev):
+                yield (f"synth720p frame {i}", (mb_w, mb_h, p, *pred),
+                       cs.k7_bytes_ops(mb_w, mb_h, p, pred[0]))
+            for name, mb_w, mb_h, seed, kw in K7_CASES:
+                if mb_w == 80:
+                    planes, *rings = random_residual_case(mb_w, mb_h, seed,
+                                                          **kw)
+                    p = dt.planes_to_torch(planes, dev)
+                    pred = dt._inter_pred(mb_w, mb_h, p, *(torch.as_tensor(
+                        r, device=dev) for r in rings)) or (None,) * 3
+                    yield (name, (mb_w, mb_h, p, *pred),
+                           cs.k7_bytes_ops(mb_w, mb_h, p, pred[0]))
+    else:
+        entry, operands, plain = ("pip_residual_enc", et.k8_operands,
+                                  et.inter_residual_plain)
+
+        def cases():
+            for name, mb_w, mb_h, seed, R, qp, rd_lam in K8_CASES:
+                if mb_w == 80:
+                    args = inter_residual_args(random_inter_residual_case(
+                        mb_w, mb_h, seed, R, qp, rd_lam, dev))
+                    yield (name, (mb_w, mb_h, *args),
+                           cs.k8_bytes_ops(mb_w, mb_h, args))
+
+    means = {lname: [] for lname in libs}
+    for name, args, (nb, no) in cases():
+        want = plain(*args)
+        for lname, lib in libs.items():
+            ops, outs, _ = operands(*cs.clone_args(args))
+            _build.check(getattr(lib, entry)(*ops, _build.stream(dev)),
+                         kernel)
+            torch.cuda.synchronize()
+            if not all(torch.equal(o, w) for o, w in zip(outs, want)):
+                if lname == "current":
+                    sys.exit(f"{kernel} differs from the plain version at "
+                             f"{name}")
+                print(f"{kernel} {lname} {name}: DIFFERS from the plain "
+                      "version (timed all the same)")
+        times = rounds(list(libs), lambda n: cs.kernel_device_ms(
+            cs.cold_calls(getattr(libs[n], entry), operands, args, nb)))
+        bound, by = cs.bound_ms(nb, no)
+        for lname, ts in times.items():
+            med = float(np.median(ts))
+            means[lname].append(med)
+            print(f"{kernel} {lname} {name}: kernel ms "
+                  f"{' '.join(f'{t:.5f}' for t in ts)}, median {med:.5f}; "
+                  f"bound {bound:.5f} ms by {by} ({nb} bytes), share "
+                  f"{bound / med:.3f}", flush=True)
+    for lname, ms in means.items():
+        print(f"{kernel} {lname}: mean of {len(ms)} medians {np.mean(ms):.5f}"
+              f" ms", flush=True)
+
+
 def ab_build():
     """The port's build (_build.build) against one nvcc over all of
     csrc/*.cu, wall time, each from nothing."""
@@ -676,8 +765,9 @@ def ab_build():
 
 def main():
     if len(sys.argv) < 2 or sys.argv[1] not in ("k1", "k2", "k3", "k4",
-                                                "k5", "k6", "build"):
-        sys.exit("usage: kernel_ab.py k1|k2|k3|k4|k5|k6 [build.cu ...] "
+                                                "k5", "k6", "k7", "k8",
+                                                "build"):
+        sys.exit("usage: kernel_ab.py k1|k2|k3|k4|k5|k6|k7|k8 [build.cu ...] "
                  "[--parts] | build")
     if not torch.cuda.is_available():
         sys.exit("kernel_ab.py needs a CUDA device")
@@ -699,6 +789,8 @@ def main():
         return ab_intra(sys.argv[1], libs, dev)
     if sys.argv[1] == "k5":
         return ab_k5(libs, dev)
+    if sys.argv[1] in ("k7", "k8"):
+        return ab_residual(sys.argv[1], libs, dev)
     if sys.argv[1] == "k6":
         old_abi = {label(src) for src in srcs
                    if "const void* fix," not in open(src).read()}
