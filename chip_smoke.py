@@ -20,10 +20,10 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
      2x7; 20 launches per case, each exact against the plain result.
   5. decode: all 25 frames of synth720p with TorchDecoder(device="cuda");
      every frame's CRC32 of Y|U|V must equal the committed NpDecoder
-     goldens (tests/data/synth720p_np_crc.json), K2 must launch exactly
-     once per frame that is deblocked, K3 once per frame with intra MBs
-     (frames 0, 10 and 20), K6 once per P frame on the bucketed MC path
-     and K1 once per slot such a frame reads (a second, stage-timed
+     goldens (tests/data/synth720p_np_crc.json), K9 and K2 must launch
+     exactly once per frame that is deblocked, K3 once per frame with intra
+     MBs (frames 0, 10 and 20), K6 once per P frame on the bucketed MC
+     path and K1 once per slot such a frame reads (a second, stage-timed
      decode gives each frame's MC route), K7 once per frame, K4, K5 and
      K8 never.
   6. encode: TorchEncoder(device="cuda") at 1280x720 on the first frames
@@ -43,8 +43,8 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
      on the card must give back the encoder's recon after every reference
      frame and, for C, D and E, the JAX decoders' pictures of the golden
      (TorchDecoder; E: the port's SimulcastDecoder). K1 must launch once
-     per P encode, K2 once per encode that deblocks, K4 once per encode
-     with intra MBs, K5 once per reference a P encode searches (B's
+     per P encode, K2 and K9 once per encode that deblocks, K4 once per
+     encode with intra MBs, K5 once per reference a P encode searches (B's
      second P frame two) and K8 once per P encode, as JaxEncoder's
      control flow implies (no K2 for a fused-path non-reference P frame
      without intra MBs; a size-capped slice's re-encode counts again),
@@ -63,8 +63,8 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
      50 frames) through parallel.decode_yuv_gop_parallel with 2 workers
      (a TorchDecoder and a CUDA stream each), then through one sequential
      TorchDecoder; every frame's CRC32 must equal the golden,
-     twice over, and each decode must launch K1-K8 twice as often as
-     phase 5's decode (K1 44, K2 50, K3 6, K6 44, K7 50). Prints both
+     twice over, and each decode must launch K1-K9 twice as often as
+     phase 5's decode (K1 44, K2 50, K3 6, K6 44, K7 50, K9 50). Prints both
      fps.
   9. CLI: `python -m losslessh264_tpu_torch walk_analog.264 x.pip
      --shards 4` (must equal native.compress_sharded and decompress to
@@ -73,7 +73,7 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
  10. graft: graft_entry.dryrun_multichip(2) on the card, two gloo ranks
      at 80x45 MBs; each rank's recY, mvx and bits must equal the step in
      this process, the all-reduced total their sum, and each rank must
-     launch K1, K2, K5 and K8 once (K3, K4, K6 and K7 never, in this
+     launch K1, K2, K5, K8 and K9 once (K3, K4, K6 and K7 never, in this
      process's runs).
  11. runs decode: tests/data/runs720p.264 (tools/gen_run_streams.py)
      with TorchDecoder on the card: four IDRs as one all-intra batch
@@ -81,7 +81,8 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
      and 42 of the 168 diagonals (no intra pass, the sparse pass over the
      populated ones, the full table). Every frame's CRC32 must equal
      NpDecoder's (tests/data/runs720p_np_crc.json), each frame must take
-     its route, K2 must launch once per deblocked frame, K1 and K6 as the
+     its route, K2 and K9 must launch once per deblocked frame, K1 and K6
+     as the
      MC plans imply, K3 once per route with an intra pass (the batch of
      4 once: 4 in all) and K7 once per frame. A stage-timed decode
      prints each frame's intra ms on its route (K3) beside the plain
@@ -91,7 +92,7 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
      3): an IDR and two runs of 3 P frames, each run's entropy written on
      a writer thread while the next run's device work goes on. SHA-256 of
      every frame, the recon after the runs, frames 0-3 also against
-     golden A, K1 / K2 / K4 / K5 / K8 as the encodes imply; then the 6 P
+     golden A, K1 / K2 / K4 / K5 / K8 / K9 as the encodes imply; then the 6 P
      frames in turns one encode_frame each and in runs, from the IDR's state, each turn
      held to the golden: P-frame fps of both, the writer's ms and the ms
      the caller waited for it.
@@ -132,19 +133,31 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
      and 2, rd_lam None and 144, chroma windows clamped on every side,
      uint8 and int32 sources; 3 launches each) and on every P frame of
      the encodes of A-E and G (held the same way; the SHA-256 must hold).
-     Their times: K7 per frame of synth720p (means over the P frames,
-     those with a prediction, and over the IDR), K8 per P frame of A:
+     K9 is held the same way on every call of those decodes and encodes
+     (phase 16). Their times: K7 per frame of synth720p (means over the P
+     frames, those with a prediction, and over the IDR), K8 per P frame of A:
      wrapper, kernel alone (a CUDA graph's replays over copies of the
      operands that move more than 100 MB a turn: cold L2), plain
      version, bound.
- 16. times: K1 at 720p, 1080p, 2160p and on the encoder's refs=2 plane
+ 16. K9 against its plain version on the card, exact in all 384 lanes:
+     on cases.K9_CASES (the decoder's dtypes, int32, the encoder's planes
+     with absent offsets and an expanded ref_idx, PCM, qp 0 and 51 with
+     offsets of +-12, chroma QP offsets of +-12, deblock_idc 1 and 2 with
+     slices that start mid-row; 1x1 to 720p; 3 launches each); phase 15
+     held it (cases.HeldToPlain) on every call of its decodes of synth720p
+     and runs720p and its encodes of A-E and G, where it must launch just
+     where K2 does. Its times per deblocked frame of synth720p and of
+     encode A: wrapper, kernel alone (cold L2, a CUDA graph's replays),
+     plain version, bound.
+ 17. times: K1 at 720p, 1080p, 2160p and on the encoder's refs=2 plane
      (784x2688), both entries, wrapper and kernel alone, beside their
      bounds, its plain version and the conv2d yardstick; K2 against its
-     plain version at 720p (CUDA events); the per-stage breakdown of every
+     plain version at 720p (CUDA events; the wrapper on packed rows); the
+     per-stage breakdown of every
      decoded frame from phase 5's stage-timed decode (residual + inter
      split into the inter prediction, mc_ms, and the residual
      reconstruction, residual_recon_ms: K7's wrapper; deblock split into
-     edge parameters, K2 and crop);
+     edge parameters, edge_params_ms: K9's wrapper, K2 and crop);
      then torch.profiler windows (decode: P frames 1-3, intra frame 10;
      encode A: P frames 1-3) with the device busy share. A profiler
      session slows the host's launches after it, so the windows come
@@ -153,7 +166,7 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
 The line before the last is the kernel report
 {"kernels": [{"name", "route", "source", "replaces", "launches",
 "launches_per_decode", "launches_per_encode", "max_abs_err", "ms",
-"plain_ms", "bound_ms", "bound_by", "library_ms"}, ...]} for K1-K8,
+"plain_ms", "bound_ms", "bound_by", "library_ms"}, ...]} for K1-K9,
 preceded by the card line; `launches` counts phases 5-12, and
 `launches_per_decode`,
 `_per_encode`, `_per_older_encode`, `_per_gop_parallel_decode`,
@@ -175,7 +188,7 @@ rounding pass). `sizes` holds, for "720p", "1080p", "2160p" and
 "720p_refs2" (the encoder's two references side by side), `ms_i32`,
 `ms_u8`, `kernel_ms_i32`, `kernel_ms_u8`, `bytes_*`, `bound_ms_*`,
 `bound_by_*`, `bound_share_*` (bound over kernel time), `plain_ms` and
-`library_ms`. K2's `ms` is its wrapper (packing, plane copies, launch)
+`library_ms`. K2's `ms` is its wrapper on packed rows (plane copies, launch)
 and `kernel_ms` the bare C entry by CUDA events, each launch on fresh
 planes. K3's and K4's `ms` is the wrapper, `kernel_ms` the bare C entry
 (CUDA events, each launch on its own copy of the planes), `chain_steps`
@@ -194,10 +207,12 @@ K1 calls of the frame's active slots in it. K5's `int32_rate_ms` is its
 operations at the int32 lane rate. K7's `ms`, `kernel_ms`, `plain_ms`
 and bound are the means over synth720p's P frames (`frames` of them, the
 frames with a prediction; `intra_frames` the same over its IDR,
-`per_frame` each frame's), K8's over A's P frames 1-3. `library_ms` is
-null for K2-K8 (no PyTorch call computes them). The last line
-is {"ok": true, "device": {"platform": "gpu", ...}}. Without a GPU, or without the package beside it, the script
-exits non-zero and prints no result.
+`per_frame` each frame's), K8's over A's P frames 1-3, K9's over the
+deblocked frames of synth720p (`encode_a`: the same over encode A's
+frames). `library_ms` is null for K2-K9 (no PyTorch call computes them).
+The last line is {"ok": true, "device": {"platform": "gpu", ...}}.
+Without a GPU, or without the package beside it, the script exits
+non-zero and prints no result.
 
 Bounds: the larger of the bytes each kernel must move (every input read
 once, every output written once) over 3.35 TB/s, and its integer
@@ -210,12 +225,13 @@ cores). Tensor cores cannot take an absolute difference: K5's bound at
 the measured rate of the fastest byte SAD (vabsdiff4 with its
 accumulate) is tools/sad_rates.py's, not this script's. K6's bytes are
 the input samples its frame's prediction depends on, each once
-(k6_reads). K1, K2, K3, K6, K7 and K8 are bound by bytes,
+(k6_reads). K1, K2, K3, K6, K7, K8 and K9 are bound by bytes,
 K4 and K5 by operations (K3_OPS_PER_MB, K4_OPS_PER_MB, k5_bytes_ops:
 3 per pixel and displacement); K2, K3 and K4 are far from the bound, a
 chain of dependent MB steps. K7's and K8's bytes are the inputs the
 frame's outputs depend on, each once, and the outputs (k7_bytes_ops,
-k8_bytes_ops).
+k8_bytes_ops); K9's its planes' distinct elements in their own dtypes,
+the tables and its [n, 384] rows (k9_bytes_ops).
 """
 import ctypes
 import json
@@ -250,7 +266,8 @@ K1_SIZES = {"720p": (784, 1344), "1080p": (1152, 1984),
             "2160p": (2224, 3904), "720p_refs2": (784, 2688)}
 # the encoder's per-frame stages (encoder_torch.StageTimer), in order
 ENC_STAGES = ("upload", "dense_search", "subpel_k1", "residual", "fetch",
-              "intra", "deblock_edge_params", "deblock_k2", "write",
+              "intra", "deblock_host_planes", "deblock_upload",
+              "deblock_edge_params", "deblock_k2", "write",
               "denoise", "scene_cut", "rc", "scroll", "aq_maps",
               "dyn_slice_reencode")
 # 3 six-taps (b, h, j) of 11 ops, 3 round-and-clamps of 4 ops and the j
@@ -262,11 +279,11 @@ def log(*a):
     print(*a, flush=True)
 
 
-KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8")
+KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9")
 
 
 def wrappers():
-    """The wrappers whose `launches` count K1-K8, in KERNELS order."""
+    """The wrappers whose `launches` count K1-K9, in KERNELS order."""
     from losslessh264_tpu_torch import decoder_torch as dt
     from losslessh264_tpu_torch import encoder_torch as et
     from losslessh264_tpu_torch.ops import deblock as tdb
@@ -275,7 +292,7 @@ def wrappers():
     from losslessh264_tpu_torch.ops import me as tme
     return (tmc.halfpel_planes, tdb.deblock_wavefront, tintra.intra_recon,
             et.intra_wavefront, tme.dense_full_search, tmc.mc_bucketed,
-            dt._residual_recon, et.inter_residual)
+            dt._residual_recon, et.inter_residual, tdb.edge_params_packed)
 
 
 def reset_launches():
@@ -284,7 +301,7 @@ def reset_launches():
 
 
 def launches_now():
-    """(K1, ..., K8) launches since the last reset_launches()."""
+    """(K1, ..., K9) launches since the last reset_launches()."""
     return tuple(w.launches for w in wrappers())
 
 
@@ -478,8 +495,8 @@ def stage_decode(data, device):
     """One decode of the stream with a synchronised timer around every
     stage of TorchDecoder._decode_one (its _residual_and_inter split into
     the inter prediction, _inter_pred, and the residual reconstruction,
-    the K7 wrapper; deblock split into _edge_params, the K2 wrapper and
-    the crop); returns per-frame rows, each with the
+    the K7 wrapper; deblock split into the K9 wrapper, edge_params_ms,
+    the K2 wrapper and the crop); returns per-frame rows, each with the
     frame's MC route (`bucketed`: mc_bucketed, one K6 launch) and the K1
     launches that route implies (one per active slot)."""
     from losslessh264_tpu_torch import decoder_torch as dt
@@ -514,7 +531,7 @@ def stage_decode(data, device):
         t3 = now()
         deblocked = dec._needs_deblock(f, planes_np["nnz"])
         if deblocked:   # decoder_torch._deblock_crop, stage by stage
-            params = tdb._edge_params(
+            params = tdb.edge_params_packed(
                 mb_w, mb_h, p["mb_class"], p["qp"], p["nnz"], p["mv"],
                 p["ref_idx"], p["slice_id"], p["deblock_idc"],
                 p["alpha_off"], p["beta_off"], p["transform8"],
@@ -544,7 +561,7 @@ def stage_decode(data, device):
 
 
 def expected_launches(runs):
-    """(K1, ..., K8) launches that JaxEncoder's control flow implies for
+    """(K1, ..., K9) launches that JaxEncoder's control flow implies for
     the encodes `runs` ((deblock_idc, kind, path, is_ref, intra MBs,
     references searched) each, from TorchEncoder.encodes and
     refs_searched): K1 once per P encode; K2 once per encode that
@@ -553,14 +570,15 @@ def expected_launches(runs):
     encoder decodes nothing); K4 once per encode with an intra MB (every
     IDR, and each P frame with intra-fallback MBs); K5 once per reference
     a P encode searches; K6 and K7 never (an encoder decodes nothing); K8
-    once per P encode, beside K1 in encode_inter_mbs."""
+    once per P encode, beside K1 in encode_inter_mbs; K9 wherever K2
+    launches, just before it."""
     k1 = sum(kind == "P" for _, kind, _, _, _, _ in runs)
     k2 = sum(idc != 1 and bool(path == "aq" or kind == "I" or is_ref
                                or n_intra)
              for idc, kind, path, is_ref, n_intra, _ in runs)
     k4 = sum(kind == "I" or n_intra > 0 for _, kind, _, _, n_intra, _ in runs)
     k5 = sum(refs for _, kind, _, _, _, refs in runs if kind == "P")
-    return k1, k2, 0, k4, k5, 0, 0, k1
+    return k1, k2, 0, k4, k5, 0, 0, k1, k2
 
 
 def refs_searched(enc, path, had_ref2):
@@ -575,7 +593,7 @@ def encode_phase(frames, dev, card):
     """Phase 6: configurations A and B of the encode golden, and C, D and
     E of its sibling, on the card. `frames` are phase 5's decoded frames
     (host tensors), which that phase held to the NpDecoder CRCs the
-    golden's source frames also match. Returns the K1-K8 launches of the
+    golden's source frames also match. Returns the K1-K9 launches of the
     encode pass, the number of frames encoded, and C's per-MB qp plane of
     its IDR (phase 13 holds K4 to its plain version on it)."""
     import hashlib
@@ -693,7 +711,7 @@ def encode_phase(frames, dev, card):
             f"{[r[1:] for r in runs]}; launches {launch_str(got)}, implied "
             f"{launch_str(want)}")
         if got != want or want[0] == 0 or want[4] == 0:
-            raise SystemExit(f"encode {name}: K1-K8 launched {got}, the "
+            raise SystemExit(f"encode {name}: K1-K9 launched {got}, the "
                              f"encodes imply {want}")
         for k, v in zip(KERNELS, got):
             launches[k] += v
@@ -761,7 +779,7 @@ def older_encode_phase(frames, dev, card):
                              f"{g['bytes']} {g['sha256'][:16]} "
                              f"{g['recon_crc32']}")
     if got != (0,) * len(KERNELS):
-        raise SystemExit(f"older encoder: K1-K8 launched {got}; the "
+        raise SystemExit(f"older encoder: K1-K9 launched {got}; the "
                          "integer-pel, unfiltered path (its window search "
                          "is not the dense one) launches none")
     split = {k: round(v, 3) for k, v in enc.times.items()}
@@ -795,7 +813,7 @@ def gop_parallel_phase(data, golden, dec_launches, dev, card):
     TorchDecoder: one pair keeps the smoke short (PERF.md has four runs
     in turns).
     Every frame's CRC32 must equal the NpDecoder golden, twice over, and
-    each decode must launch K1-K8 twice as often as phase 5's."""
+    each decode must launch K1-K9 twice as often as phase 5's."""
     from losslessh264_tpu_torch import decoder_torch as dt
     from losslessh264_tpu_torch import native
     from losslessh264_tpu_torch.parallel import decode_yuv_gop_parallel
@@ -830,7 +848,7 @@ def gop_parallel_phase(data, golden, dec_launches, dev, card):
             raise SystemExit(f"{name} decode of synth720p x2: {len(got)} "
                              f"frames, frame {bad} differs from the golden")
         if counts != want:
-            raise SystemExit(f"{name} decode of synth720p x2 launched K1-K8 "
+            raise SystemExit(f"{name} decode of synth720p x2 launched K1-K9 "
                              f"{counts}, expected {want}")
         if name == "parallel":
             launches = counts
@@ -896,7 +914,7 @@ def graft_phase(dev, card, mb_w=80, mb_h=45):
     ranks = ge.dryrun_multichip(2, device=dev.type, mb_w=mb_w, mb_h=mb_h)
     wall = time.perf_counter() - t0
     bits = []
-    for rank, recY, mvx, rbits, total, k1, k2, k5, k8, step_ms in ranks:
+    for rank, recY, mvx, rbits, total, k1, k2, k5, k8, k9, step_ms in ranks:
         want = ge.per_frame(mb_w, mb_h,
                             *ge.frame_args(mb_w, mb_h, 2, rank, dev))
         if not (np.array_equal(recY, want[0].cpu().numpy())
@@ -904,9 +922,9 @@ def graft_phase(dev, card, mb_w=80, mb_h=45):
                 and rbits == int(want[2])):
             raise SystemExit(f"graft rank {rank}: its step differs from the "
                              "same step in this process")
-        if (k1, k2, k5, k8) != (1, 1, 1, 1):
-            raise SystemExit(f"graft rank {rank}: K1/K2/K5/K8 launched "
-                             f"{(k1, k2, k5, k8)}, once each expected")
+        if (k1, k2, k5, k8, k9) != (1, 1, 1, 1, 1):
+            raise SystemExit(f"graft rank {rank}: K1/K2/K5/K8/K9 launched "
+                             f"{(k1, k2, k5, k8, k9)}, once each expected")
         bits.append(rbits)
         log(f"graft rank {rank}: {mb_w}x{mb_h} MBs, recY {recY.shape}, "
             f"bits {rbits}, step {step_ms:.3f} ms (first call in the rank, "
@@ -926,7 +944,8 @@ def graft_phase(dev, card, mb_w=80, mb_h=45):
         f"frame (CUDA events) on {card}")
     return {"K1": sum(r[5] for r in ranks), "K2": sum(r[6] for r in ranks),
             "K3": k3, "K4": k4, "K5": sum(r[7] for r in ranks), "K6": k6,
-            "K7": k7, "K8": sum(r[8] for r in ranks)}
+            "K7": k7, "K8": sum(r[8] for r in ranks),
+            "K9": sum(r[9] for r in ranks)}
 
 
 def runs_routes(gold):
@@ -1060,9 +1079,9 @@ def runs_decode_phase(dev, card):
     if dec.routes != routes:
         raise SystemExit(f"runs720p routes {dec.routes}, expected {routes}")
     rows, k1, k6 = runs_stage_decode(data, routes, dev)
-    want = (k1, deblocked, k3, 0, 0, k6, len(frames), 0)
+    want = (k1, deblocked, k3, 0, 0, k6, len(frames), 0, deblocked)
     if got != want or k6 == 0:
-        raise SystemExit(f"runs720p: K1-K8 launched {got}, the frames imply "
+        raise SystemExit(f"runs720p: K1-K9 launched {got}, the frames imply "
                          f"{want}")
     log(f"runs decode: {len(frames)} frames of runs720p match the NpDecoder "
         f"CRCs; {wall:.3f} s = {len(frames) / wall:.3f} fps on {card}; "
@@ -1136,7 +1155,7 @@ def encode_runs_phase(frames, dev, card):
                          "from the golden")
     if [r[2] for r in runs] != ["fused"] + ["run"] * 6 or got != want:
         raise SystemExit(f"encode G: encodes {[r[1:] for r in runs]}, "
-                         f"K1-K8 launched {got}, implied {want}")
+                         f"K1-K9 launched {got}, implied {want}")
     log(f"encode G {cfg['kwargs']} batch {cfg['batch']}: {len(out)} frames "
         f"{W}x{H} match the JAX golden (SHA-256, the recon after the runs; "
         f"frames 0-3 golden A's); {wall:.3f} s = {len(out) / wall:.4f} fps "
@@ -1879,7 +1898,7 @@ def cold_calls(entry, operands, args, n_bytes, cold_bytes=100e6):
         dev = outs[0].device
 
         def run(ops=ops, keep=(ops, outs, keep), dev=dev):
-            _build.check(entry(*ops, _build.stream(dev)), "residual")
+            _build.check(entry(*ops, _build.stream(dev)), entry.__name__)
         calls.append(run)
     return calls
 
@@ -1900,7 +1919,11 @@ def residual_phase(data, frames, dev, card):
     the bare C entry (a CUDA graph's replays over copies of the operands
     that move more than 100 MB a turn, so that every launch finds its
     inputs out of L2), `plain_ms` the plain version, beside the bound.
-    Returns the K7 and K8 rows of the kernel report."""
+    K9's wrapper is held to its plain version the same way on every call
+    of those decodes and encodes, and must launch just where K2 does.
+    Returns the K7 and K8 rows of the kernel report, K9's largest
+    difference from its plain version and the arguments of its calls in
+    the synth720p decode and in encode A."""
     import hashlib
     from losslessh264_tpu_torch import _build
     from losslessh264_tpu_torch import decoder_torch as dt
@@ -1911,7 +1934,27 @@ def residual_phase(data, frames, dev, card):
                                               random_inter_residual_case,
                                               random_residual_case,
                                               residual_frames)
+    from losslessh264_tpu_torch.ops import deblock as tdb
     lib = _build.lib()
+    k9_err, k9_kept = 0, {}
+
+    def held_k9(keep=0):
+        """K9's wrapper held to its plain version beside K7 or K8."""
+        return HeldToPlain(tdb, "edge_params_packed",
+                           tdb.edge_params_packed_plain, keep=keep)
+
+    def check_k9(held9, what):
+        """K9 must have launched just where K2 did, each call equal to the
+        plain version; returns its largest difference (0)."""
+        k2, k9 = launches_now()[1], launches_now()[8]
+        if held9.bad or not held9.calls == k9 == k2 > 0:
+            raise SystemExit(f"K9 on {what}: {held9.calls} calls, {k9} "
+                             f"launches, K2 {k2}; calls {held9.bad} differ "
+                             f"from the plain version (max abs err "
+                             f"{held9.max_abs_err})")
+        log(f"K9 edge_params_packed == plain: every deblocked frame of "
+            f"{what} ({held9.calls}, all 384 lanes), launched where K2 was")
+        return held9.max_abs_err
 
     # ---- K7 ----
     k7_err = 0
@@ -1929,8 +1972,10 @@ def residual_phase(data, frames, dev, card):
             ("synth720p", data, json.load(open(GOLDEN))["synth720p"]),
             ("runs720p", open(RUNS_STREAM, "rb").read(),
              json.load(open(RUNS_GOLDEN))["runs720p"])):
+        reset_launches()
         with HeldToPlain(dt, "_residual_recon",
-                         dt._residual_recon_plain) as held:
+                         dt._residual_recon_plain) as held, held_k9(
+                keep=25 if stream == "synth720p" else 0) as held9:
             crcs = [zlib.crc32(b"".join(a.cpu().numpy().tobytes()
                                         for a in yuv))
                     for yuv in dt.TorchDecoder(blob, device=dev).frames()]
@@ -1943,6 +1988,9 @@ def residual_phase(data, frames, dev, card):
         k7_err = max(k7_err, held.max_abs_err)
         log(f"K7 residual_recon == plain: every frame of {stream} "
             f"({held.calls}), its CRCs hold")
+        k9_err = max(k9_err, check_k9(held9, f"the {stream} decode"))
+        if stream == "synth720p":
+            k9_kept["decode"] = held9.kept
 
     # ---- K8 ----
     k8_err = 0
@@ -1967,7 +2015,8 @@ def residual_phase(data, frames, dev, card):
         enc = golden_encoder(cfg, W, H, dev)
         reset_launches()
         with HeldToPlain(et, "inter_residual", et.inter_residual_plain,
-                         keep=3 if name == "A" else 0) as held:
+                         keep=3 if name == "A" else 0) as held, held_k9(
+                             keep=4 if name == "A" else 0) as held9:
             n_frames = len(cfg["frames"])
             if name == "G":
                 out = enc.encode_frames(src[:n_frames], batch=cfg["batch"])
@@ -1992,8 +2041,10 @@ def residual_phase(data, frames, dev, card):
         k8_err = max(k8_err, held.max_abs_err)
         if name == "A":
             a_args = held.kept
+            k9_kept["encode A"] = held9.kept
         log(f"K8 inter_residual == plain: every P frame of encode {name} "
             f"({held.calls}), its SHA-256 hold")
+        k9_err = max(k9_err, check_k9(held9, f"encode {name}"))
 
     # ---- times ----
     def k7_row(mb_w, mb_h, p, *pred):
@@ -2055,7 +2106,93 @@ def residual_phase(data, frames, dev, card):
         f"({k8['bytes']:.0f} bytes), share {k8['bound_share']:.3f}; plain "
         f"torch {k8['plain_ms']:.3f} ms on {card}")
     k7["max_abs_err"], k8["max_abs_err"] = k7_err, k8_err
-    return k7, k8
+    return k7, k8, k9_err, k9_kept
+
+
+# integer operations K9's function needs per MB (an estimate, for the
+# bound): the bS of its 32 distinct cell edges (~20 each: the class,
+# nnz, ref and MV tests, the slice, idc and transform-8x8 masks), a table
+# lookup for each of the 160 tc0 lanes (~4) and the 24 alpha / beta lanes
+# with their QP averages and clamps (~8)
+K9_OPS_PER_MB = 32 * 20 + 160 * 4 + 24 * 8
+
+
+def k9_bytes_ops(mb_w, mb_h, args):
+    """(bytes, operations) K9 must take for edge_params_packed's arguments
+    `args` (after mb_w, mb_h): each plane's distinct elements read once in
+    their own dtype (an expanded view's once), the table operand, and the
+    [n, 384] int32 rows written once. Operations: K9_OPS_PER_MB per MB."""
+    from losslessh264_tpu_torch.ops import deblock as tdb
+    n = mb_w * mb_h
+    n_bytes = tdb._K9_TABLES.nbytes + 4 * n * tdb.PACK_WIDTH
+    for a in args[:10]:
+        if torch.is_tensor(a):
+            distinct = 1
+            for size, stride in zip(a.shape, a.stride()):
+                distinct *= size if stride else 1
+            n_bytes += distinct * a.element_size()
+    return n_bytes, K9_OPS_PER_MB * n
+
+
+def edge_params_phase(k9_err, k9_kept, dev, card):
+    """Phase 16: K9 (csrc/deblock_params.cu) against its plain version on
+    the card on cases.K9_CASES, exact (dtype and torch.equal of all 384
+    lanes; 3 launches each; phase 15 held it on every call of its decodes
+    and encodes). Its times per frame of synth720p (the decoder's planes)
+    and of encode A (the encoder's int32 and absent planes), from the
+    arguments phase 15 kept: `ms` the wrapper (CUDA events around
+    back-to-back calls), `kernel_ms` the bare C entry (a CUDA graph's
+    replays over copies of the operands that move more than 100 MB a
+    turn: cold L2), `plain_ms` the plain version, beside the bound.
+    Returns K9's row of the kernel report."""
+    from losslessh264_tpu_torch import _build
+    from losslessh264_tpu_torch.cases import K9_CASES, random_edge_case
+    from losslessh264_tpu_torch.ops import deblock as tdb
+    lib = _build.lib()
+    for name, mb_w, mb_h, seed, kw in K9_CASES:
+        case = random_edge_case(mb_w, mb_h, seed, dev, **kw)
+        want = tdb.edge_params_packed_plain(mb_w, mb_h, *case)
+        for _ in range(3):
+            got = tdb.edge_params_packed(mb_w, mb_h, *case)
+            k9_err = max(k9_err, same((got,), (want,), f"K9 {name}"))
+        log(f"K9 edge_params_packed == plain: {name}, 3 launches")
+
+    keys = ("ms", "kernel_ms", "plain_ms", "bytes", "operations",
+            "bound_ms")
+    rows = {}
+    for what, kept in k9_kept.items():
+        rows[what] = []
+        for args in kept:
+            nb, no = k9_bytes_ops(args[0], args[1], args[2:])
+            row = {"ms": cuda_ms(lambda: tdb.edge_params_packed(*args), 20),
+                   "kernel_ms": kernel_device_ms(cold_calls(
+                       lib.pip_deblock_params, tdb.k9_operands, args, nb)),
+                   "plain_ms": cuda_ms(
+                       lambda: tdb.edge_params_packed_plain(*args), 3,
+                       warmup=1),
+                   "bytes": nb, "operations": no}
+            row["bound_ms"], row["bound_by"] = bound_ms(nb, no)
+            rows[what].append(row)
+    mean = {what: {k: sum(r[k] for r in rs) / len(rs) for k in keys}
+            for what, rs in rows.items()}
+    k9 = dict(mean["decode"])
+    k9["bound_by"] = rows["decode"][0]["bound_by"]
+    k9["bound_share"] = k9["bound_ms"] / k9["kernel_ms"]
+    k9["frames"] = len(rows["decode"])
+    k9["encode_a"] = dict(mean["encode A"], frames=len(rows["encode A"]),
+                          bound_by=rows["encode A"][0]["bound_by"])
+    k9["max_abs_err"] = k9_err
+    label = {"decode": "the synth720p decode", "encode A": "encode A"}
+    for what, m in mean.items():
+        log(f"time K9 edge_params_packed, mean of the {len(rows[what])} "
+            f"deblocked frames of {label[what]}: "
+            f"wrapper {m['ms']:.4f} ms, kernel alone "
+            f"{m['kernel_ms']:.5f} ms; "
+            f"bound {m['bound_ms']:.5f} ms by {rows[what][0]['bound_by']} "
+            f"({m['bytes']:.0f} bytes), share "
+            f"{m['bound_ms'] / m['kernel_ms']:.3f}; plain torch "
+            f"{m['plain_ms']:.3f} ms on {card}")
+    return k9
 
 
 def profile_report(prof, wall_ms, what, card):
@@ -2243,7 +2380,7 @@ def main():
     decode_s = time.perf_counter() - t0
     dec_launches = launches_now()
     (k1_launches, k2_launches, k3_launches, _, _, k6_launches, k7_launches,
-     _) = dec_launches
+     _, k9_launches) = dec_launches
     # a second decode, stage by stage (synchronised), which also gives
     # each frame's MC route: the K1 and K6 launches the first one implies
     stage_rows = stage_decode(data, dev)
@@ -2268,13 +2405,13 @@ def main():
         f"MBs and {bucketed} bucketed P frames (K1 {k1_implied} implied); "
         f"routes {dec.routes}")
     if min(k1_launches, k2_launches, k3_launches, k6_launches,
-           k7_launches) <= 0:
+           k7_launches, k9_launches) <= 0:
         raise SystemExit("a kernel of the decode path was never launched")
-    # K7 once per frame
+    # K7 once per frame, K9 before every K2
     want = (k1_implied, deblocked, intra_frames, 0, 0, bucketed, len(frames),
-            0)
+            0, deblocked)
     if dec_launches != want:
-        raise SystemExit(f"K1-K8 launched {dec_launches} times, the frames "
+        raise SystemExit(f"K1-K9 launched {dec_launches} times, the frames "
                          f"imply {want}")
 
     # ---- 6. encode on the card ----
@@ -2302,10 +2439,14 @@ def main():
     # ---- 14. K5 and K6 against their plain versions, and their times ----
     k5, k6 = search_mc_phase(data, frames, dev, card)
 
-    # ---- 15. K7 and K8 against their plain versions, and their times ----
-    k7, k8 = residual_phase(data, frames, dev, card)
+    # ---- 15. K7 and K8 against their plain versions, and their times; K9
+    # held to its plain version on the same decodes and encodes ----
+    k7, k8, k9_err, k9_kept = residual_phase(data, frames, dev, card)
 
-    # ---- 16. times ----
+    # ---- 16. K9 against its plain version on its cases, and its times ----
+    k9 = edge_params_phase(k9_err, k9_kept, dev, card)
+
+    # ---- 17. times ----
     # K1 at each size, both entries: `ms` the wrapper by CUDA events over
     # back-to-back calls, `kernel_ms` the bare C entry's kernel alone (a
     # CUDA graph's replays, cold L2), beside the bound, the plain version
@@ -2343,13 +2484,14 @@ def main():
             + f"; plain torch {row['plain_ms']:.4f} ms, conv2d + rounding "
             f"pass {row['library_ms']:.4f} ms on {card}")
     # K2 at 80x45 MBs on the parity inputs of 80x45 seed 0: `ms` is the
-    # wrapper (packing, int32 copies of the planes, the launch);
+    # wrapper on packed rows, as the main path calls it after K9 (int32
+    # copies of the planes, the launch);
     # `kernel_ms` the bare C entry on packed rows, each timed launch on
     # its own fresh copy of the planes
     (Yw, Uw, Vw), _, params = random_deblock_case(80, 45, 0, dev)
-    k2_ms = cuda_ms(lambda: tdb.deblock_wavefront(
-        80, 45, Yw, Uw, Vw, params), 20)
     P = tdb._pack_params(params).contiguous()
+    k2_ms = cuda_ms(lambda: tdb.deblock_wavefront(80, 45, Yw, Uw, Vw, P),
+                    20)
     k2_kernel_ms = cuda_ms_each([
         k2_launcher(_build.lib(), 80, 45, [a.clone() for a in (Yw, Uw, Vw)],
                     P, dev) for _ in range(22)])
@@ -2359,8 +2501,9 @@ def main():
     # and ~20 per chroma line (8 lines x 4 edges x 2 planes)
     k2_b = k2_bytes(80, 45)
     k2_bound, k2_by = bound_ms(k2_b, 80 * 45 * (128 * 40 + 64 * 20))
-    log(f"time K2 deblock 80x45 MBs per frame: wrapper (packing, copies, "
-        f"kernel) {k2_ms:.4f} ms, kernel alone {k2_kernel_ms:.4f} ms = "
+    log(f"time K2 deblock 80x45 MBs per frame: wrapper on packed rows "
+        f"(copies, kernel) {k2_ms:.4f} ms, kernel alone "
+        f"{k2_kernel_ms:.4f} ms = "
         f"{k2_kernel_ms * 1e3 / (2 * 44 + 80):.3f} us per step of the "
         f"{2 * 44 + 80}-MB chain; bound {k2_bound:.4f} ms by {k2_by} "
         f"({k2_b} bytes); plain torch {k2_plain_ms:.4f} ms on {card}")
@@ -2435,7 +2578,8 @@ def main():
            **{k: row[k] for k in ("bytes", "operations", "bound_share",
                                   "int32_rate_ms",
                                   "operands_ms", "k1_ms", "fix_cells",
-                                  "frames", "intra_frames") if k in row}}
+                                  "frames", "intra_frames", "encode_a")
+                 if k in row}}
           for name, source, replaces, key, row in (
               ("dense_full_search", "losslessh264_tpu_torch/csrc/me_dense.cu",
                "losslessh264_tpu/ops/me.py:132", "K5", k5),
@@ -2444,7 +2588,10 @@ def main():
               ("residual_recon", "losslessh264_tpu_torch/csrc/residual_dec.cu",
                "losslessh264_tpu/decoder_jax.py:693", "K7", k7),
               ("inter_residual", "losslessh264_tpu_torch/csrc/residual_enc.cu",
-               "losslessh264_tpu/encoder_jax.py:481", "K8", k8))),
+               "losslessh264_tpu/encoder_jax.py:481", "K8", k8),
+              ("edge_params_packed",
+               "losslessh264_tpu_torch/csrc/deblock_params.cu",
+               "losslessh264_tpu/ops/deblock.py:160", "K9", k9))),
     ]}))
     log(card_line())
     print(json.dumps({"ok": True, "device": {

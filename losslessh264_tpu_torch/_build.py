@@ -41,6 +41,9 @@ _SIGNATURES = {
     # (Y, U, V, y_stride, c_stride, params, sync scratch [1 + 2*mb_h],
     #  mb_w, mb_h, stream)
     "pip_deblock_frame": [_P, _P, _P, _I, _I, _P, _P, _I, _I, _P],
+    # (host plane descriptors [10 x 6] int64, tables, chroma_qp_offset,
+    #  out [n, 384], mb_w, mb_h, stream)
+    "pip_deblock_params": [_P, _P, _I, _P, _I, _I, _P],
     # (Y, U, V, res_y, res_u, res_v, MB rows, tables, sync scratch
     #  [1 + B*mb_h], mb_w, mb_h, B, stream)
     "pip_intra_dec": [_P] * 9 + [_I, _I, _I, _P],

@@ -1,9 +1,9 @@
 """Seeded inputs shared by the tests, chip_smoke.py and tools/kernel_ab.py:
 random cases for holding K2 (csrc/deblock.cu), K3 (csrc/intra_dec.cu),
 K4 (csrc/intra_enc.cu), K5 (csrc/me_dense.cu), K6 (csrc/mc_bucket.cu),
-K7 (csrc/residual_dec.cu) and K8 (csrc/residual_enc.cu) against their
-plain versions, so that all three check and time the same cases (and
-HeldToPlain, which holds a wrapper to its plain version on a whole
+K7 (csrc/residual_dec.cu), K8 (csrc/residual_enc.cu) and K9
+(csrc/deblock_params.cu) against their plain versions, so that all three
+check and time the same cases (and HeldToPlain, which holds a wrapper to its plain version on a whole
 run), the translating noise frames the encoder's tests encode, the frames of the decoder's intra
 routes (tests/data/runs720p.264 and the run tests), and the encoders of
 the encode goldens' configurations (tests/data/synth720p_enc_golden*.json)."""
@@ -51,6 +51,101 @@ def random_deblock_case(mb_w, mb_h, seed, device):
     sym = [torch.as_tensor(np.asarray(sym[k], np.int32), device=device)
            for k in SYMBOL_KEYS]
     return planes, sym, tdb._edge_params(mb_w, mb_h, *sym, seed)
+
+
+# K9's cases: (name, mb_w, mb_h, seed, options of random_edge_case). Every
+# class (PCM included), transform8 on intra and inter MBs, slices that
+# start mid-row, MV differences of 3, 4 and -4 between neighbouring cells,
+# alpha / beta offsets of -12 and +12; the decoder's dtypes, int32, and the
+# encoder's planes (bool nnz, a per-MB ref_idx expanded to its cells,
+# absent offsets and transform8, one deblock_idc for the frame); qp 0 and
+# 51 everywhere, chroma QP offsets of -12 and +12, deblock_idc 1 and 2
+# everywhere; frames of one MB, one MB column and row, and 720p.
+K9_CASES = [
+    ("1x1", 1, 1, 0, {}),
+    ("1x5", 1, 5, 1, {}),
+    ("5x1", 5, 1, 2, {}),
+    ("9x4 decoder dtypes", 9, 4, 3, {}),
+    ("9x4 int32", 9, 4, 4, dict(dtypes="int32")),
+    ("9x4 encoder planes, idc 0", 9, 4, 5, dict(dtypes="encoder", idc=0)),
+    ("9x4 encoder planes, idc 2", 9, 4, 6, dict(dtypes="encoder", idc=2)),
+    ("9x4 qp 0", 9, 4, 7, dict(qp=0)),
+    ("9x4 qp 51", 9, 4, 8, dict(qp=51)),
+    ("9x4 chroma offset -12", 9, 4, 9, dict(coff=-12)),
+    ("9x4 chroma offset +12", 9, 4, 10, dict(coff=12)),
+    ("9x4 idc 1", 9, 4, 11, dict(idc=1)),
+    ("9x4 idc 2", 9, 4, 12, dict(idc=2)),
+    ("720p decoder dtypes", 80, 45, 13, {}),
+    ("720p encoder planes", 80, 45, 14, dict(dtypes="encoder", idc=0)),
+]
+# the decoder's dtypes of the planes (decoder_torch.planes_to_torch of the
+# symbol layer's buffers; nnz is TorchDecoder._nnz_plane's int64)
+_DECODER_DTYPES = (np.uint8, np.uint8, np.int64, np.int16, np.int8,
+                   np.uint8, np.uint8, np.int8, np.int8, np.uint8)
+
+
+def random_edge_case(mb_w, mb_h, seed, device="cpu", dtypes="decoder",
+                     qp=None, coff=None, idc=None):
+    """The arguments of ops/deblock.edge_params_packed (after mb_w, mb_h)
+    for one frame: (cls, qp, nnz, mv, ref_idx, slice_id, deblock_idc,
+    alpha_off, beta_off, transform8, chroma_qp_offset). Every class 0-8
+    (each present from 9 MBs on),
+    qp over 0..51 with 0 and 51 present (or the int `qp`), nnz counts 0-3,
+    MVs whose neighbouring cells differ by 0, 3, 4, 6, 7 or 8 (and a few
+    by hundreds), ref_idx -1, 0 or 1 per cell, slices that start mid-row
+    (one at least where a row has two MBs) with a deblock_idc of 0, 1 or
+    2 each (or the int `idc` everywhere),
+    alpha / beta offsets over -12..12 with both ends present, transform8
+    on 40% of the MBs of every class, chroma_qp_offset in -12..12 (or
+    `coff`). dtypes: "decoder" (_DECODER_DTYPES), "int32", or "encoder"
+    (encoder_torch._deblock_recon's planes: int32, bool nnz, ref_idx an
+    expanded [n] plane, no alpha_off, beta_off or transform8, deblock_idc
+    the int `idc`)."""
+    rng = np.random.RandomState(seed)
+    n = mb_w * mb_h
+    cls = rng.choice(9, n, p=[0.1, 0.08, 0.08, 0.2, 0.12, 0.12, 0.12, 0.1,
+                              0.08])
+    if n >= 9:
+        cls[rng.choice(n, 9, replace=False)] = np.arange(9)
+    qps = np.full(n, qp) if qp is not None else rng.randint(0, 52, n)
+    offs = rng.randint(-6, 7, (2, n)) * 2
+    if n >= 2:
+        if qp is None:
+            qps[rng.choice(n, 2, replace=False)] = (0, 51)
+        for o in offs:
+            o[rng.choice(n, 2, replace=False)] = (-12, 12)
+    nnz = rng.randint(1, 4, (n, 16)) * (rng.rand(n, 16) < 0.3)
+    mv = (rng.randint(-2, 3, (n, 1, 2)) * 2
+          + rng.choice([0, 0, 3, -3, 4, -4], (n, 16, 2)))
+    mv += (rng.rand(n, 16, 2) < 0.03) * rng.choice([-300, 300], (n, 16, 2))
+    ref_mb = rng.choice([-1, 0, 0, 1], n)
+    ref = rng.choice([-1, 0, 0, 1], (n, 16))
+    sid = _slice_rows(rng, mb_w, mb_h)
+    if mb_w > 1:    # and one more slice, from a random MB inside a row
+        start = rng.randint(0, n // mb_w) * mb_w + rng.randint(1, mb_w)
+        sid[start:] += 1
+    idcs = (rng.choice([0, 0, 1, 2], sid.max() + 1)[sid] if idc is None
+            else np.full(n, idc))
+    t8 = rng.rand(n) < 0.4
+    if coff is None:
+        coff = int(rng.randint(-12, 13))
+
+    def T(a, dt):
+        return torch.as_tensor(np.ascontiguousarray(a, dt), device=device)
+
+    planes = (cls, qps, nnz, mv, ref, sid, idcs, offs[0], offs[1], t8)
+    if dtypes == "decoder":
+        out = [T(a, dt) for a, dt in zip(planes, _DECODER_DTYPES)]
+    elif dtypes == "int32":
+        out = [T(a, np.int32) for a in planes]
+    elif dtypes == "encoder":
+        out = [T(a, np.int32) for a in planes[:3]]
+        out[2] = out[2] != 0
+        out += [T(mv, np.int32), T(ref_mb, np.int32)[:, None].expand(n, 16),
+                T(sid, np.int32), int(idc or 0), None, None, None]
+    else:
+        raise ValueError(f"dtypes {dtypes!r}: decoder, int32 or encoder")
+    return (*out, coff)
 
 
 def moving_frames(n=4, W=64, H=48, seed=7):
@@ -707,8 +802,9 @@ class HeldToPlain:
     the kernel wrapper module.<name> also runs `plain` on the same
     arguments and holds each result to it (dtype and torch.equal);
     held.calls counts the calls, held.max_abs_err the largest difference
-    and held.bad the calls that differed; held.kept holds copies of the
-    first `keep` calls' arguments. The wrapper's launches still count on
+    and held.bad the calls that differed (a wrapper may return one tensor
+    or a tuple of them); held.kept holds copies of the first `keep` calls'
+    arguments. The wrapper's launches still count on
     it. Comparing costs the plain version's time, so a timed
     run goes without it."""
 
@@ -726,6 +822,8 @@ class HeldToPlain:
                                        else a for a in args))
             got = wrapper(*args)
             want = self.plain(*args)
+            one = torch.is_tensor(got)
+            got, want = ((got,), (want,)) if one else (got, want)
             err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs()
                           .max().item()) if g.numel() else 0
                       for g, w in zip(got, want))
@@ -734,7 +832,7 @@ class HeldToPlain:
                               for g, w in zip(got, want)):
                 self.bad.append(self.calls)
             self.calls += 1
-            return got
+            return got[0] if one else got
 
         held.launches = 0          # count_launch looks the wrapper up by name
         self.wrapper, self.held = wrapper, held

@@ -780,26 +780,27 @@ def _finalize_inter(mb_w, mb_h, tile_y, tile_u, tile_v):
 
 def _deblock_recon(mb_w, mb_h, recY, recU, recV, cls, qp, nnz, mv_cells,
                    slice_id, idc, ref_cells=None, stage=_no_stage):
-    """The shared in-loop filter (ops/deblock, K2 on CUDA) over the
-    encoder's recon planes, with the decoder-layout symbol planes of the
-    frame just written and its disable_deblocking_filter_idc, so the
-    filtered reference equals what a conformant decoder reconstructs."""
-    n = mb_w * mb_h
-    dev = recY.device
-    i32 = torch.int32
+    """The shared in-loop filter (ops/deblock: K9 then K2 on CUDA) over
+    the encoder's recon planes, with the decoder-layout symbol planes of
+    the frame just written and its disable_deblocking_filter_idc, so the
+    filtered reference equals what a conformant decoder reconstructs.
+    The planes go in as they are (K9 reads each dtype; no ref_cells,
+    alpha_off, beta_off or transform8 plane reads as 0). The working
+    planes are three views of one zeroed int32 buffer, which K2 filters
+    in place."""
     H, W = mb_h * 16, mb_w * 16
     P = tdb.WPAD
-    Yw, Uw, Vw = (F.pad(a.to(i32), (P,) * 4) for a in (recY, recU, recV))
-    zeros = torch.zeros(n, dtype=i32, device=dev)
-    if ref_cells is None:
-        ref_cells = torch.zeros((n, 16), dtype=i32, device=dev)
-    params = tdb._edge_params(
-        mb_w, mb_h, cls.to(i32), qp.to(i32), nnz.to(i32), mv_cells.to(i32),
-        ref_cells.to(i32), slice_id, torch.full((n,), idc, dtype=i32,
-                                                device=dev),
-        zeros, zeros, zeros, 0)
+    shapes = ((H + 2 * P, W + 2 * P), (H // 2 + 2 * P, W // 2 + 2 * P),
+              (H // 2 + 2 * P, W // 2 + 2 * P))
+    sizes = [h * w for h, w in shapes]
+    buf = torch.zeros(sum(sizes), dtype=torch.int32, device=recY.device)
+    work = [b.view(sh) for b, sh in zip(buf.split(sizes), shapes)]
+    for w, a in zip(work, (recY, recU, recV)):
+        w[P:-P, P:-P] = a
+    params = tdb.edge_params(mb_w, mb_h, cls, qp, nnz, mv_cells, ref_cells,
+                             slice_id, idc, None, None, None, 0)
     stage("deblock_edge_params")
-    Yw, Uw, Vw = tdb.deblock_planes(mb_w, mb_h, Yw, Uw, Vw, params)
+    Yw, Uw, Vw = tdb.deblock_planes(mb_w, mb_h, *work, params, inplace=True)
     stage("deblock_k2")
     u8 = torch.uint8
     return (Yw[P:P + H, P:P + W].to(u8), Uw[P:P + H // 2, P:P + W // 2].to(u8),
@@ -1332,14 +1333,15 @@ class TorchEncoder:
                 m = mbc == cls_v
                 if m.any():
                     mv_cells[m] = mv8r[:, idx][m]
+        self._stage("deblock_host_planes")
         dev = self.device
+        planes = [torch.as_tensor(a, device=dev) for a in (
+            np.asarray(mb_class, np.int32), self._out_qp.astype(np.int32),
+            nnz, mv_cells.astype(np.int32))]
+        self._stage("deblock_upload")
         self.ref = _deblock_recon(
-            self.mb_w, self.mb_h, *self.ref,
-            torch.as_tensor(np.asarray(mb_class, np.int32), device=dev),
-            torch.as_tensor(self._out_qp.astype(np.int32), device=dev),
-            torch.as_tensor(nnz, device=dev),
-            torch.as_tensor(mv_cells.astype(np.int32), device=dev),
-            self._slice_id, self.deblock_idc, stage=self._stage)
+            self.mb_w, self.mb_h, *self.ref, *planes, self._slice_id,
+            self.deblock_idc, stage=self._stage)
 
     # -- frame paths ------------------------------------------------------
     def _encode_i(self, buf):
@@ -1378,7 +1380,6 @@ class TorchEncoder:
             self.mb_w, self.mb_h, self.ME_RADIUS, buf, *stack, qp_d, qpc_d,
             self._scroll_dy, self.trellis_lam, self._stage)
         packed = packed_d.cpu().numpy()  # the frame's one symbol fetch
-        self._stage("fetch")
         meta = packed[:, :META_W]
         use_intra = meta[:, 2] != 0
         lac = packed[:, 14:270].reshape(n, 16, 16).copy()
@@ -1389,6 +1390,7 @@ class TorchEncoder:
         cm = np.zeros(n, np.int16)
         cls = np.ones(n, np.int16)
         m4 = np.full((n, 16), 2, np.int16)
+        self._stage("fetch")     # the fetch and its unpacking on the host
         self.encodes.append(("P", "fused", self._cur_is_ref,
                              int(use_intra.sum())))
         rec = None

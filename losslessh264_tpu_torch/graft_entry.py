@@ -8,12 +8,12 @@ device.
 
 dryrun_multichip(n): the same step in n processes joined by
 torch.distributed (gloo), one frame per process as the GOP/frame axis is
-sharded, each followed by the in-loop recon and deblock (`_p_finish`, K2
-on CUDA) and a coded-bits proxy that is all-reduced across the processes
+sharded, each followed by the in-loop recon and deblock (`_p_finish`, K9
+and K2 on CUDA) and a coded-bits proxy that is all-reduced across the processes
 (the rate-control aggregation collective). JAX runs this as a shard_map
 over a device mesh and pins the lax deblock there; the port needs no such
-switch, and on CUDA every rank launches K1, K2 and K5 (the dense
-search) once.
+switch, and on CUDA every rank launches K1, K2, K5 (the dense search),
+K8 and K9 once.
 """
 from __future__ import annotations
 
@@ -108,7 +108,8 @@ def _rank_main(rank, world, init, mb_w, mb_h, device, queue):
             _build.lib()
         args = frame_args(mb_w, mb_h, world, rank, dev)
         kernels = (tmc.halfpel_planes, tdb.deblock_wavefront,
-                   tme.dense_full_search, et.inter_residual)
+                   tme.dense_full_search, et.inter_residual,
+                   tdb.edge_params_packed)
         for k in kernels:
             k.launches = 0
         t0 = time.perf_counter()
@@ -116,7 +117,7 @@ def _rank_main(rank, world, init, mb_w, mb_h, device, queue):
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         step_ms = (time.perf_counter() - t0) * 1e3
-        k1, k2, k5, k8 = (k.launches for k in kernels)
+        k1, k2, k5, k8, k9 = (k.launches for k in kernels)
         # the global coded-bits aggregate (gloo reduces host tensors)
         total = bits.detach().to("cpu", torch.int64).reshape(1).clone()
         dist.all_reduce(total, op=dist.ReduceOp.SUM)
@@ -124,7 +125,7 @@ def _rank_main(rank, world, init, mb_w, mb_h, device, queue):
         assert tuple(mvx.shape) == (mb_w * mb_h,)
         assert int(total) >= 0
         queue.put((rank, recY.cpu().numpy(), mvx.cpu().numpy(), int(bits),
-                   int(total), k1, k2, k5, k8, step_ms))
+                   int(total), k1, k2, k5, k8, k9, step_ms))
     finally:
         dist.destroy_process_group()
 
@@ -136,7 +137,8 @@ def dryrun_multichip(n_devices: int, device="cuda", mb_w=4, mb_h=3):
     meet through a file in a fresh temporary directory, not a TCP port,
     so several dryruns can run side by side. Returns, per rank in order,
     (rank, recY, mvx, bits, total_bits, K1 launches, K2 launches, K5
-    launches, K8 launches, step_ms) with the arrays on the host; step_ms
+    launches, K8 launches, K9 launches, step_ms) with the arrays on the
+    host; step_ms
     is the wall time of the rank's step, its first call, synchronized."""
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("dryrun_multichip: device 'cuda' requested but "

@@ -8,13 +8,18 @@ loop WelsDeblockingFilterSlice / WelsDeblockingMb, deblocking.cpp
 :815-872), so MBs run in an order that respects those four
 dependencies; every such order gives the same planes.
 
-`deblock_frame` takes the plain version (`deblock_wavefront_plain`, a
-Python loop over the slope-2 MB diagonals, each step batched over the
-diagonal's MBs) for CPU tensors, and the hand-written CUDA kernel
-csrc/deblock.cu (`deblock_wavefront`, one persistent launch per frame
+`deblock_frame` takes the plain versions for CPU tensors: the edge
+parameters as `_edge_params`' dict of planes, then
+`deblock_wavefront_plain`, a Python loop over the slope-2 MB diagonals,
+each step batched over the diagonal's MBs. For CUDA tensors it runs two
+hand-written kernels on the stream: K9 (csrc/deblock_params.cu,
+`edge_params_packed`), which writes each MB's edge parameters straight
+into the packed row K2 reads, replacing the XLA program of
+losslessh264_tpu/ops/deblock.py:160 `_edge_params`; then K2
+(csrc/deblock.cu, `deblock_wavefront`, one persistent launch per frame
 that walks MB rows, replacing the Pallas kernel of
-losslessh264_tpu/ops/deblock_pallas.py:199) for CUDA tensors.
-Element-exact vs decoder_np._deblock.
+losslessh264_tpu/ops/deblock_pallas.py:199). Element-exact vs
+decoder_np._deblock.
 """
 from __future__ import annotations
 
@@ -326,11 +331,11 @@ def deblock_wavefront_plain(mb_w, mb_h, Yw, Uw, Vw, params):
 
 
 # ---------------------------------------------------------------------------
-# K2: the CUDA wavefront (csrc/deblock.cu)
+# the packed parameter rows K2 reads, and K9 (csrc/deblock_params.cu)
 # ---------------------------------------------------------------------------
 # packed per-MB param row (int32 lanes), the layout of the TPU kernel's
 # _pack_params (losslessh264_tpu/ops/deblock_pallas.py:37-54); the CUDA
-# source mirrors these offsets
+# sources mirror these offsets
 _PACK_FIELDS = (("bs_v", 64), ("bs_h", 64), ("tc0_v", 64), ("tc0_h", 64),
                 ("alpha_v", 4), ("beta_v", 4), ("alpha_h", 4),
                 ("beta_h", 4), ("bs_cv", 16), ("bs_ch", 16),
@@ -347,10 +352,122 @@ def _pack_params(params):
     return torch.nn.functional.pad(P, (0, PACK_WIDTH - P.shape[1]))
 
 
-def deblock_wavefront(mb_w, mb_h, Yw, Uw, Vw, params):
+# K9's table operand: ALPHA [52], BETA [52], TC0 [52 x 3], CHROMA_QP [52]
+_K9_TABLES = np.concatenate([ALPHA, BETA, TC0_FLAT, CHROMA_QP]) \
+    .astype(np.int32)
+# the symbol planes K9 reads, in _edge_params' order, with their shape past
+# the MB axis; the dtypes it reads (kinds of csrc/deblock_params.cu); the
+# planes a caller may leave out (None: read as 0; deblock_idc: an int, the
+# frame's one value)
+_K9_PLANES = (("cls", ()), ("qp", ()), ("nnz", (16,)), ("mv", (16, 2)),
+              ("ref_idx", (16,)), ("slice_id", ()), ("deblock_idc", ()),
+              ("alpha_off", ()), ("beta_off", ()), ("transform8", ()))
+_K9_KINDS = {torch.bool: 1, torch.uint8: 1, torch.int8: 2, torch.int16: 3,
+             torch.int32: 4, torch.int64: 5}
+_K9_ABSENT = ("ref_idx", "deblock_idc", "alpha_off", "beta_off",
+              "transform8")
+
+
+def _edge_params_full(mb_w, mb_h, cls, qp, nnz, mv, ref_idx, slice_id,
+                      deblock_idc, alpha_off, beta_off, transform8,
+                      chroma_qp_offset):
+    """_edge_params on edge_params_packed's arguments: an absent plane
+    (None) as zeros, an int deblock_idc as a plane of it."""
+    n = mb_w * mb_h
+    planes = []
+    for (key, shape), a in zip(_K9_PLANES, (
+            cls, qp, nnz, mv, ref_idx, slice_id, deblock_idc, alpha_off,
+            beta_off, transform8)):
+        if a is None or isinstance(a, int):
+            a = torch.full((n,) + shape, a or 0, dtype=torch.int32,
+                           device=cls.device)
+        planes.append(a)
+    return _edge_params(mb_w, mb_h, *planes, chroma_qp_offset)
+
+
+def edge_params_packed_plain(*args):
+    """Plain version of K9: _pack_params(_edge_params(...)), with
+    edge_params_packed's arguments."""
+    return _pack_params(_edge_params_full(*args))
+
+
+def k9_operands(mb_w, mb_h, cls, qp, nnz, mv, ref_idx, slice_id, deblock_idc,
+                alpha_off, beta_off, transform8, chroma_qp_offset):
+    """K9's operands, checked: a host array of the ten planes' descriptors
+    (pointer, kind, fill, element strides; the planes are read where they
+    lie, views included), the table operand, the chroma QP offset and the
+    fresh [n, PACK_WIDTH] int32 output. Every plane must lie on one CUDA
+    device with its shape ([n], [n, 16] or [n, 16, 2]) and an integer
+    dtype of _K9_KINDS. Returns (the args of pip_deblock_params before the
+    stream, (out,), the objects the args point into)."""
+    planes = (cls, qp, nnz, mv, ref_idx, slice_id, deblock_idc, alpha_off,
+              beta_off, transform8)
+    dev = cls.device
+    if dev.type != "cuda":
+        raise ValueError(f"edge-parameter kernel takes CUDA tensors, got "
+                         f"{dev}")
+    n = mb_w * mb_h
+    desc = []
+    for (key, shape), a in zip(_K9_PLANES, planes):
+        if a is None or isinstance(a, int):
+            if key not in _K9_ABSENT or (a is not None
+                                         and key != "deblock_idc"):
+                raise ValueError(f"edge-parameter kernel: {key} must be a "
+                                 "tensor")
+            desc += [0, 0, int(a or 0), 0, 0, 0]
+            continue
+        want = (n,) + shape
+        if (a.device != dev or a.dtype not in _K9_KINDS
+                or tuple(a.shape) != want):
+            raise ValueError(f"edge-parameter kernel {key}: "
+                             f"{tuple(a.shape)} {a.dtype} on {a.device}, "
+                             f"the kernel takes {want} integers on {dev}")
+        st = list(a.stride()) + [0] * (3 - a.dim())
+        desc += [a.data_ptr(), _K9_KINDS[a.dtype], 0] + st
+    desc = (ctypes.c_longlong * len(desc))(*desc)
+    tables = on(_K9_TABLES, dev)
+    out = torch.empty((n, PACK_WIDTH), dtype=torch.int32, device=dev)
+    P = ctypes.c_void_p
+    args = [ctypes.cast(desc, P), P(tables.data_ptr()),
+            int(chroma_qp_offset), P(out.data_ptr()), mb_w, mb_h]
+    return args, (out,), (planes, desc, tables)
+
+
+def edge_params_packed(mb_w, mb_h, cls, qp, nnz, mv, ref_idx, slice_id,
+                       deblock_idc, alpha_off, beta_off, transform8,
+                       chroma_qp_offset):
+    """K9 wrapper: the [n, PACK_WIDTH] int32 rows K2 reads, the packed
+    _edge_params of the symbol planes (_edge_params' arguments; ref_idx,
+    alpha_off, beta_off and transform8 may be None, read as 0, and
+    deblock_idc an int). CUDA tensors: one launch of
+    csrc/deblock_params.cu on the current stream, each plane read in its
+    own dtype; CPU tensors: the plain version."""
+    if cls.device.type == "cpu":
+        return edge_params_packed_plain(
+            mb_w, mb_h, cls, qp, nnz, mv, ref_idx, slice_id, deblock_idc,
+            alpha_off, beta_off, transform8, chroma_qp_offset)
+    args, (out,), keep = k9_operands(
+        mb_w, mb_h, cls, qp, nnz, mv, ref_idx, slice_id, deblock_idc,
+        alpha_off, beta_off, transform8, chroma_qp_offset)
+    _build.check(_build.lib().pip_deblock_params(
+        *args, _build.stream(cls.device)), "edge-parameter")
+    _build.count_launch(edge_params_packed)
+    return out
+
+
+edge_params_packed.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K2: the CUDA wavefront (csrc/deblock.cu)
+# ---------------------------------------------------------------------------
+def deblock_wavefront(mb_w, mb_h, Yw, Uw, Vw, params, inplace=False):
     """K2 wrapper: the whole frame as one persistent launch of
-    csrc/deblock.cu, in place on int32 copies of the planes. CUDA
-    tensors only; returns the filtered planes."""
+    csrc/deblock.cu. params: K9's packed [n, PACK_WIDTH] int32 rows (a
+    dict of _edge_params' planes is packed first). The kernel filters in
+    place: on int32 copies of the planes, or with `inplace` on the planes
+    given, which must then be contiguous int32. CUDA tensors only;
+    returns the filtered planes."""
     H, W = mb_h * 16, mb_w * 16
     shapes = ((H + 2 * WPAD, W + 2 * WPAD),
               (H // 2 + 2 * WPAD, W // 2 + 2 * WPAD))
@@ -361,11 +478,21 @@ def deblock_wavefront(mb_w, mb_h, Yw, Uw, Vw, params):
     dev = Yw.device
     if dev.type != "cuda":
         raise ValueError(f"deblock kernel takes CUDA tensors, got {dev}")
-    Y, U, V = (a.to(torch.int32).contiguous().clone() for a in (Yw, Uw, Vw))
-    P = _pack_params(params).contiguous()
-    if tuple(P.shape) != (mb_w * mb_h, PACK_WIDTH):
-        raise ValueError(f"params give {tuple(P.shape)} packed rows, "
-                         f"expected ({mb_w * mb_h}, {PACK_WIDTH})")
+    if inplace:
+        if not all(a.dtype == torch.int32 and a.is_contiguous()
+                   for a in (Yw, Uw, Vw)):
+            raise ValueError("deblock kernel in place takes contiguous "
+                             "int32 planes")
+        Y, U, V = Yw, Uw, Vw
+    else:
+        Y, U, V = (a.to(torch.int32).contiguous().clone()
+                   for a in (Yw, Uw, Vw))
+    P = params if torch.is_tensor(params) else _pack_params(params)
+    if (tuple(P.shape) != (mb_w * mb_h, PACK_WIDTH) or P.dtype != torch.int32
+            or P.device != dev or not P.is_contiguous()):
+        raise ValueError(f"params give {tuple(P.shape)} {P.dtype} rows on "
+                         f"{P.device}, expected contiguous "
+                         f"({mb_w * mb_h}, {PACK_WIDTH}) int32 on {dev}")
     # the work-item counter and the per-row progress of luma and chroma;
     # the C entry zeroes them on the stream before the launch
     sync = torch.empty(1 + 2 * mb_h, dtype=torch.int32, device=dev)
@@ -381,25 +508,41 @@ def deblock_wavefront(mb_w, mb_h, Yw, Uw, Vw, params):
 deblock_wavefront.launches = 0
 
 
+def edge_params(mb_w, mb_h, cls, qp, nnz, mv, ref_idx, slice_id, deblock_idc,
+                alpha_off, beta_off, transform8, chroma_qp_offset):
+    """The edge parameters deblock_planes takes (edge_params_packed's
+    arguments): K9's packed rows for CUDA tensors, _edge_params' dict of
+    planes, which the plain wavefront reads, for CPU tensors."""
+    if cls.device.type == "cpu":
+        return _edge_params_full(mb_w, mb_h, cls, qp, nnz, mv, ref_idx,
+                                 slice_id, deblock_idc, alpha_off, beta_off,
+                                 transform8, chroma_qp_offset)
+    return edge_params_packed(mb_w, mb_h, cls, qp, nnz, mv, ref_idx,
+                              slice_id, deblock_idc, alpha_off, beta_off,
+                              transform8, chroma_qp_offset)
+
+
 def deblock_frame(mb_w, mb_h, Yw, Uw, Vw, cls, qp, nnz, mv, ref_idx,
                   slice_id, deblock_idc, alpha_off, beta_off, transform8,
                   chroma_qp_offset):
     """Filter one frame (spec 8.7).
 
     Yw/Uw/Vw: int32 working planes padded by WPAD on every side. The
-    rest are the per-MB symbol planes (decoder layout);
-    chroma_qp_offset is the PPS scalar. CPU tensors take the plain
-    wavefront, CUDA tensors the K2 kernel. Returns filtered planes.
+    rest are the per-MB symbol planes (decoder layout; edge_params_packed
+    says which may be left out); chroma_qp_offset is the PPS scalar. CPU
+    tensors take _edge_params and the plain wavefront, CUDA tensors K9
+    then K2. Returns filtered planes.
     """
-    p = _edge_params(mb_w, mb_h, cls, qp, nnz, mv, ref_idx, slice_id,
-                     deblock_idc, alpha_off, beta_off, transform8,
-                     chroma_qp_offset)
+    p = edge_params(mb_w, mb_h, cls, qp, nnz, mv, ref_idx, slice_id,
+                    deblock_idc, alpha_off, beta_off, transform8,
+                    chroma_qp_offset)
     return deblock_planes(mb_w, mb_h, Yw, Uw, Vw, p)
 
 
-def deblock_planes(mb_w, mb_h, Yw, Uw, Vw, params):
-    """The filtering half of deblock_frame, on _edge_params' output: the
-    plain wavefront for CPU tensors, the K2 kernel for CUDA tensors."""
+def deblock_planes(mb_w, mb_h, Yw, Uw, Vw, params, inplace=False):
+    """The filtering half of deblock_frame, on edge_params' output: the
+    plain wavefront for CPU tensors, the K2 kernel for CUDA tensors
+    (`inplace`: deblock_wavefront's)."""
     if Yw.device.type == "cpu":
         return deblock_wavefront_plain(mb_w, mb_h, Yw, Uw, Vw, params)
-    return deblock_wavefront(mb_w, mb_h, Yw, Uw, Vw, params)
+    return deblock_wavefront(mb_w, mb_h, Yw, Uw, Vw, params, inplace)

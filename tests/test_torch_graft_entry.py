@@ -75,12 +75,12 @@ def test_per_frame_and_dryrun_match_jax():
         steps.append(got)
     ranks = tg.dryrun_multichip(2, device="cpu")
     total = sum(int(s[2]) for s in steps)
-    for (rank, recY, mvx, bits, tot, k1, k2, k5, k8, ms), s in zip(ranks,
-                                                                   steps):
+    for (rank, recY, mvx, bits, tot, k1, k2, k5, k8, k9, ms), s in zip(
+            ranks, steps):
         np.testing.assert_array_equal(recY, s[0].numpy())
         np.testing.assert_array_equal(mvx, s[1].numpy())
         assert bits == int(s[2]) and tot == total
-        assert (k1, k2, k5, k8) == (0, 0, 0, 0) and ms > 0
+        assert (k1, k2, k5, k8, k9) == (0, 0, 0, 0, 0) and ms > 0
     assert [r[0] for r in ranks] == [0, 1]
 
 

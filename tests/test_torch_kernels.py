@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain torch versions.
 
 K1 (csrc/halfpel.cu, ops/mc.halfpel_planes), K2 (csrc/deblock.cu,
-ops/deblock.deblock_wavefront), K3 (csrc/intra_dec.cu,
+ops/deblock.deblock_wavefront), K9 (csrc/deblock_params.cu,
+ops/deblock.edge_params_packed), K3 (csrc/intra_dec.cu,
 ops/intra.intra_recon), K4 (csrc/intra_enc.cu,
 encoder_torch.intra_wavefront), K5 (csrc/me_dense.cu,
 ops/me.dense_full_search), K6 (csrc/mc_bucket.cu,
@@ -26,16 +27,19 @@ import zlib
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from losslessh264_tpu_torch import decoder_torch as dt
 from losslessh264_tpu_torch import encoder_torch as et
 from losslessh264_tpu_torch import native
 from losslessh264_tpu_torch.cases import (INTRA_CLASSES, K5_CASES, K6_CASES,
-                                          K7_CASES, K8_CASES, HeldToPlain,
+                                          K7_CASES, K8_CASES, K9_CASES,
+                                          HeldToPlain,
                                           bucketed_mc_frames,
                                           dense_search_case,
                                           inter_residual_args, moving_frames,
                                           random_deblock_case,
+                                          random_edge_case,
                                           random_inter_residual_case,
                                           random_intra_case,
                                           random_intra_encode_case,
@@ -65,6 +69,11 @@ def test_wrappers_take_plain_version_on_cpu():
     want = tdb.deblock_wavefront_plain(5, 4, *planes, params)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
     assert not torch.equal(got[0], planes[0])   # the filter fired
+    edge = random_edge_case(5, 4, 2)
+    before = tdb.edge_params_packed.launches
+    assert torch.equal(tdb.edge_params_packed(5, 4, *edge),
+                       tdb.edge_params_packed_plain(5, 4, *edge))
+    assert tdb.edge_params_packed.launches == before
     case = random_intra_case(5, 4, 2, 3, "cpu")
     got = tintra.intra_recon(5, 4, *case)
     want = dt._intra_scan_plain(5, 4, *case, dt.diagonals(5, 4))
@@ -110,6 +119,8 @@ def test_kernel_entries_refuse_cpu_tensors():
     planes, _, params = random_deblock_case(3, 2, 0, "cpu")
     with pytest.raises(ValueError, match="CUDA"):
         tdb.deblock_wavefront(3, 2, *planes, params)
+    with pytest.raises(ValueError, match="CUDA"):
+        tdb.k9_operands(3, 2, *random_edge_case(3, 2, 0))
     with pytest.raises(ValueError, match="CUDA"):
         tintra._intra_recon_launch(3, 2, *random_intra_case(3, 2, 1, 0))
     with pytest.raises(ValueError, match="CUDA"):
@@ -335,11 +346,139 @@ def test_deblock_kernel_on_card(cuda_device, mb_w, mb_h, seed):
 
 @pytest.mark.cuda
 def test_deblock_frame_is_one_launch(cuda_device):
+    """One launch of K2, just after one of K9."""
     planes, sym, _ = random_deblock_case(80, 45, 7, cuda_device)
-    before = tdb.deblock_wavefront.launches
+    before = (tdb.deblock_wavefront.launches,
+              tdb.edge_params_packed.launches)
     tdb.deblock_frame(80, 45, *planes, *sym, 7)
     torch.cuda.synchronize()
-    assert tdb.deblock_wavefront.launches == before + 1
+    assert (tdb.deblock_wavefront.launches,
+            tdb.edge_params_packed.launches) == (before[0] + 1,
+                                                 before[1] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,mb_w,mb_h,seed,kw", K9_CASES)
+def test_deblock_params_kernel_on_card(cuda_device, name, mb_w, mb_h, seed, kw):
+    """K9 equals its plain version on the card in all 384 lanes of every
+    row, 3 launches, whatever dtypes, views and absent planes the case
+    hands it."""
+    case = random_edge_case(mb_w, mb_h, seed, cuda_device, **kw)
+    want = tdb.edge_params_packed_plain(mb_w, mb_h, *case)
+    before = tdb.edge_params_packed.launches
+    for _ in range(3):
+        got = tdb.edge_params_packed(mb_w, mb_h, *case)
+        assert got.dtype == torch.int32 and torch.equal(got, want)
+    assert tdb.edge_params_packed.launches == before + 3
+
+
+class _Ops(TorchDispatchMode):
+    """The non-view aten ops dispatched while the mode is on."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.ops += not func.is_view
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtypes", ["decoder", "encoder"])
+def test_deblock_frame_is_k9_and_k2(cuda_device, monkeypatch, dtypes):
+    """On CUDA tensors deblock_frame is one K9 and one K2 launch and a
+    handful of host ops: it calls neither _edge_params nor _pack_params
+    (sentinels in their place raise), and its planes equal those of the
+    plain edge parameters under K2."""
+    planes, _, _ = random_deblock_case(80, 45, 7, cuda_device)
+    edge = random_edge_case(80, 45, 7, cuda_device, dtypes=dtypes,
+                            **({"idc": 2} if dtypes == "encoder" else {}))
+    want = tdb.deblock_wavefront(80, 45, *planes,
+                                 tdb.edge_params_packed_plain(80, 45, *edge))
+
+    def sentinel(*args, **kw):
+        raise AssertionError("the plain edge parameters ran on CUDA")
+    monkeypatch.setattr(tdb, "_edge_params", sentinel)
+    monkeypatch.setattr(tdb, "_pack_params", sentinel)
+    tdb.deblock_frame(80, 45, *planes, *edge)    # the tables reach the card
+    before = (tdb.deblock_wavefront.launches,
+              tdb.edge_params_packed.launches)
+    with _Ops() as mode:
+        got = tdb.deblock_frame(80, 45, *planes, *edge)
+    assert (tdb.deblock_wavefront.launches,
+            tdb.edge_params_packed.launches) == (before[0] + 1,
+                                                 before[1] + 1)
+    assert mode.ops <= 10, mode.ops
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key,bad", [("mv", "float"), ("nnz", "shape"),
+                                     ("qp", None), ("alpha_off", 3)])
+def test_deblock_params_kernel_refuses_planes(cuda_device, key, bad):
+    """K9 reads integer planes of their shapes; a float plane, a wrong
+    shape, a missing plane that must be there or an int for a plane other
+    than deblock_idc raise before the launch."""
+    keys = [k for k, _ in tdb._K9_PLANES]
+    case = list(random_edge_case(3, 2, 0, cuda_device))
+    i = keys.index(key)
+    case[i] = {"float": lambda a: a.float(), "shape": lambda a: a[:, :8]}[
+        bad](case[i]) if isinstance(bad, str) else bad
+    before = tdb.edge_params_packed.launches
+    with pytest.raises(ValueError, match=key):
+        tdb.edge_params_packed(3, 2, *case)
+    assert tdb.edge_params_packed.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stream", ["synth720p.264", "runs720p.264"])
+def test_deblock_params_kernel_on_streams(cuda_device, stream):
+    """K9 equals the plain version on every deblocked frame of the
+    stream's decode, once per K2 launch, and the decode's CRCs hold."""
+    with open(os.path.join(DATA, stream), "rb") as fh:
+        data = fh.read()
+    gold = json.load(open(os.path.join(
+        DATA, stream.replace(".264", "_np_crc.json"))))
+    k2 = tdb.deblock_wavefront.launches
+    with HeldToPlain(tdb, "edge_params_packed",
+                     tdb.edge_params_packed_plain) as held:
+        crcs = [zlib.crc32(b"".join(a.cpu().numpy().tobytes() for a in yuv))
+                for yuv in dt.TorchDecoder(data, device=cuda_device).frames()]
+    assert crcs == gold[stream[:-4]]["crc32"]
+    assert held.calls == tdb.deblock_wavefront.launches - k2 > 0
+    assert held.bad == []
+
+
+@pytest.mark.cuda
+def test_encoder_deblock_is_k9_and_k2(cuda_device, monkeypatch):
+    """The encoder's in-loop filter on the card, on its fused and its
+    per-MB QP paths, never runs the plain edge parameters on CUDA tensors
+    (a sentinel in their place raises there), K9 equals its plain version
+    (run on CPU copies) on every call, and the encodes equal those of the
+    CPU."""
+    real = tdb._edge_params
+
+    def sentinel(mb_w, mb_h, cls, *args):
+        if cls.is_cuda:
+            raise AssertionError("the plain edge parameters ran on CUDA")
+        return real(mb_w, mb_h, cls, *args)
+
+    def plain_on_cpu(*args):
+        cpu = [a.cpu() if torch.is_tensor(a) else a for a in args]
+        return tdb.edge_params_packed_plain(*cpu).to(cuda_device)
+    frames = moving_frames(3, 96, 64)
+    want = {}
+    for kw in (dict(qp=30), dict(qp=30, aq=True)):
+        enc = et.TorchEncoder(96, 64, device="cpu", **kw)
+        want[str(kw)] = [enc.encode_frame(*f) for f in frames]
+    monkeypatch.setattr(tdb, "_edge_params", sentinel)
+    for kw in (dict(qp=30), dict(qp=30, aq=True)):
+        enc = et.TorchEncoder(96, 64, device=cuda_device, **kw)
+        with HeldToPlain(tdb, "edge_params_packed", plain_on_cpu) as held:
+            got = [enc.encode_frame(*f) for f in frames]
+        assert got == want[str(kw)]
+        assert held.calls >= 2 and held.bad == []
 
 
 @pytest.mark.cuda
@@ -767,7 +906,9 @@ def _residual_case(mb_w, mb_h, seed, kw, device):
 
 def test_residual_wrappers_take_plain_version_on_cpu():
     """K7's and K8's wrappers on CPU tensors return their plain versions'
-    results and launch nothing."""
+    results and launch nothing (the counts do not move, whatever card
+    tests ran before in the process)."""
+    before = (dt._residual_recon.launches, et.inter_residual.launches)
     case = _residual_case(9, 4, 0, {}, "cpu")
     got = dt._residual_recon(9, 4, *case)
     want = dt._residual_recon_plain(9, 4, *case)
@@ -778,7 +919,8 @@ def test_residual_wrappers_take_plain_version_on_cpu():
     want = et.inter_residual_plain(4, 3, *args)
     assert all(g.dtype == w.dtype and torch.equal(g, w)
                for g, w in zip(got, want))
-    assert dt._residual_recon.launches == et.inter_residual.launches == 0
+    assert (dt._residual_recon.launches,
+            et.inter_residual.launches) == before
 
 
 def test_residual_entries_refuse_cpu_tensors():

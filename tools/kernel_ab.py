@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Time a kernel of the port (K1 csrc/halfpel.cu, K2 csrc/deblock.cu, K3
 csrc/intra_dec.cu, K4 csrc/intra_enc.cu, K5 csrc/me_dense.cu, K6
-csrc/mc_bucket.cu, K7 csrc/residual_dec.cu or K8 csrc/residual_enc.cu)
-against other builds of it,
+csrc/mc_bucket.cu, K7 csrc/residual_dec.cu, K8 csrc/residual_enc.cu or K9
+csrc/deblock_params.cu) against other builds of it,
 or the port's kernel build against one nvcc over all sources, in turns,
 on one GPU (run from the repo root on a machine with an H100):
 
@@ -23,6 +23,7 @@ on one GPU (run from the repo root on a machine with an H100):
     python3 tools/kernel_ab.py k6 build/0ae75fb/mc_bucket.cu
     python3 tools/kernel_ab.py k7 build/other/residual_dec.cu
     python3 tools/kernel_ab.py k8 build/other/residual_enc.cu
+    python3 tools/kernel_ab.py k9 build/other/deblock_params.cu
     python3 tools/kernel_ab.py build
 
 Each extra source is built with nvcc like the port's own kernels and
@@ -96,6 +97,11 @@ kernel alone, a CUDA graph's replays of the bare entry over copies of
 the operands that leave L2 cold (chip_smoke.cold_calls), beside the
 bound. An extra source is built alone, so transform.cuh must lie beside
 it, and its entry must take the port's arguments.
+
+k9: `pip_deblock_params` on the deblocked frames of a synth720p decode
+(the decoder's planes, as the decode hands them to K9) and the 720p
+cases of cases.K9_CASES (the decoder's and the encoder's planes), timed
+as k7 and k8 (chip_smoke.k9_bytes_ops for the bound).
 
 build: the wall time of _build.build() (one nvcc per csrc/*.cu, all
 started together, then a link) against one nvcc over all the sources,
@@ -661,23 +667,48 @@ def ab_k6(libs, old_abi, dev):
             one(name, (*rings, pad, p, mb_w, mb_h))
 
 def ab_residual(kernel, libs, dev):
-    """K7 (`k7`) or K8 (`k8`) builds: each held to the plain version, then
+    """K7 (`k7`), K8 (`k8`) or K9 (`k9`) builds: each held to the plain
+    version, then
     timed alone in turns: a CUDA graph's replays of its bare C entry over
     copies of the operands that move more than 100 MB a turn, so that
     every launch finds its inputs out of L2 (chip_smoke.cold_calls,
     kernel_device_ms), beside the bound (chip_smoke.k7_bytes_ops,
     k8_bytes_ops). K7 on every frame of synth720p (on the rings its
     decode gives each) and on the 720p cases of cases.K7_CASES, K8 on the
-    720p cases of cases.K8_CASES. A build must take the port's entry's
+    720p cases of cases.K8_CASES, K9 on synth720p's deblocked frames and
+    the 720p cases of cases.K9_CASES. A build must take the port's entry's
     arguments."""
     from losslessh264_tpu_torch import decoder_torch as dt
     from losslessh264_tpu_torch import encoder_torch as et
-    from losslessh264_tpu_torch.cases import (K7_CASES, K8_CASES,
+    from losslessh264_tpu_torch.cases import (K7_CASES, K8_CASES, K9_CASES,
+                                              HeldToPlain,
                                               inter_residual_args,
+                                              random_edge_case,
                                               random_inter_residual_case,
                                               random_residual_case,
                                               residual_frames)
-    if kernel == "k7":
+    if kernel == "k9":
+        entry, operands, plain = ("pip_deblock_params", tdb.k9_operands,
+                                  tdb.edge_params_packed_plain)
+
+        def cases():
+            with open(os.path.join(ROOT, "tests", "data", "synth720p.264"),
+                      "rb") as fh:
+                data = fh.read()
+            with HeldToPlain(tdb, "edge_params_packed", plain,
+                             keep=25) as held:
+                for _ in dt.TorchDecoder(data, device=dev).frames():
+                    pass
+            for i, args in enumerate(held.kept):
+                yield (f"synth720p deblock {i}", args,
+                       cs.k9_bytes_ops(args[0], args[1], args[2:]))
+            for name, mb_w, mb_h, seed, kw in K9_CASES:
+                if mb_w == 80:
+                    args = (mb_w, mb_h, *random_edge_case(mb_w, mb_h, seed,
+                                                          dev, **kw))
+                    yield (name, args,
+                           cs.k9_bytes_ops(mb_w, mb_h, args[2:]))
+    elif kernel == "k7":
         entry, operands, plain = ("pip_residual_dec", dt.k7_operands,
                                   dt._residual_recon_plain)
 
@@ -712,6 +743,7 @@ def ab_residual(kernel, libs, dev):
     means = {lname: [] for lname in libs}
     for name, args, (nb, no) in cases():
         want = plain(*args)
+        want = (want,) if torch.is_tensor(want) else want
         for lname, lib in libs.items():
             ops, outs, _ = operands(*cs.clone_args(args))
             _build.check(getattr(lib, entry)(*ops, _build.stream(dev)),
@@ -766,8 +798,8 @@ def ab_build():
 def main():
     if len(sys.argv) < 2 or sys.argv[1] not in ("k1", "k2", "k3", "k4",
                                                 "k5", "k6", "k7", "k8",
-                                                "build"):
-        sys.exit("usage: kernel_ab.py k1|k2|k3|k4|k5|k6|k7|k8 [build.cu ...] "
+                                                "k9", "build"):
+        sys.exit("usage: kernel_ab.py k1|k2|...|k9 [build.cu ...] "
                  "[--parts] | build")
     if not torch.cuda.is_available():
         sys.exit("kernel_ab.py needs a CUDA device")
@@ -789,7 +821,7 @@ def main():
         return ab_intra(sys.argv[1], libs, dev)
     if sys.argv[1] == "k5":
         return ab_k5(libs, dev)
-    if sys.argv[1] in ("k7", "k8"):
+    if sys.argv[1] in ("k7", "k8", "k9"):
         return ab_residual(sys.argv[1], libs, dev)
     if sys.argv[1] == "k6":
         old_abi = {label(src) for src in srcs
