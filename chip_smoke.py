@@ -126,12 +126,14 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
  15. K7 and K8 against their plain versions on the card, exact: K7 on
      cases.K7_CASES (every class, cbp and MC route, PCM, 8x8 transforms,
      scaling matrices, qp 0 and 51, chroma QP offsets of +-12, levels at
-     the int16 extremes; 9x4 to 720p; 3 launches each) and on every frame
+     the int16 extremes, transform8 on every non-I16 MB of a 720p frame,
+     widths of 11 and 13 MBs; 4x3 to 720p; 3 launches each) and on every frame
      of a decode of synth720p and of runs720p (each call of the decode
      held to the plain version on its arguments, cases.HeldToPlain; the
      CRCs must hold); K8 on cases.K8_CASES (per-MB qp with 0 and 51, R 1
      and 2, rd_lam None and 144, chroma windows clamped on every side,
-     uint8 and int32 sources; 3 launches each) and on every P frame of
+     uint8 and int32 sources, 7x3 and 13x2 MBs; 3 launches each) and on
+     every P frame of
      the encodes of A-E and G (held the same way; the SHA-256 must hold).
      K9 is held the same way on every call of those decodes and encodes
      (phase 16). Their times: K7 per frame of synth720p (means over the P

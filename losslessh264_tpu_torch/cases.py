@@ -583,7 +583,9 @@ def _coefficients(rng, shape, extremes):
 # matrices on and off, per-MB qp over 0..51 and fixed qp 0 and 51, chroma
 # QP offsets of -12 and +12, coefficients at the int16 extremes, PCM MBs,
 # MBs whose 16 ref_slot cells mix valid and invalid ones; 720p frames on
-# every route.
+# every route, and one with transform8 on every MB but the I16 ones (K7's
+# 8x8 warps everywhere); widths of 11 and 13 MBs, which K7's runs of 8
+# MBs do not divide.
 K7_CASES = [
     ("9x4 bucketed, t8, scaling", 9, 4, 0, dict(cqp=(-12, 12))),
     ("9x4 legacy MC, t8, flat", 9, 4, 1, dict(mc="legacy", scaling=False)),
@@ -596,19 +598,23 @@ K7_CASES = [
     ("720p legacy MC, flat", 80, 45, 7, dict(mc="legacy", scaling=False,
                                              cqp=(-12, 12))),
     ("720p no MC", 80, 45, 8, dict(mc="none")),
+    ("11x3 bucketed", 11, 3, 9, dict()),
+    ("13x5 legacy MC, flat", 13, 5, 10, dict(mc="legacy", scaling=False)),
+    ("720p t8 on every MB but I16", 80, 45, 11, dict(t8_all=True)),
 ]
 
 
 def random_residual_case(mb_w, mb_h, seed, mc="bucketed", t8=True,
                          scaling=True, qp=None, cqp=None, pcm=True,
-                         extremes=4):
+                         extremes=4, t8_all=False):
     """(planes, ref_y, ref_u, ref_v) of one frame for _residual_and_inter
     (and decoder_jax.recon_pre): a numpy plane dict with the keys of
     TorchDecoder._prep_planes that they read, in the symbol layer's
     dtypes, and uint8 noise rings of 4 slots (pad 32). Every class 0-8
     (PCM among them unless pcm=False, which also drops the pcm plane),
     every cbp_luma 0-15 and cbp_chroma 0-2, transform8 on a random half
-    (t8=False: off everywhere and no luma8 plane), random scaling
+    (t8=False: off everywhere and no luma8 plane; t8_all=True: on every
+    MB that is not I16 and off on those), random scaling
     matrices (scaling=False: flat), per-MB qp over 0..51 with 0 and 51
     present (or the int qp everywhere), chroma QP offsets `cqp` (random
     in -12..12 by default), sparse levels with the int16 extremes on
@@ -637,7 +643,8 @@ def random_residual_case(mb_w, mb_h, seed, mc="bucketed", t8=True,
         "mb_class": cls.astype(np.uint8), "qp": qps.astype(np.uint8),
         "cbp_luma": cbp_luma.astype(np.uint8),
         "cbp_chroma": rng.randint(0, 3, n).astype(np.uint8),
-        "transform8": ((rng.rand(n) < 0.5) & t8).astype(np.uint8),
+        "transform8": (((rng.rand(n) < 0.5) | t8_all) & t8
+                       & ~(t8_all & (cls == 1))).astype(np.uint8),
         "luma_ac": _coefficients(rng, (n, 16, 4, 4), extremes),
         "luma_dc": _coefficients(rng, (n, 4, 4), extremes),
         "chroma_ac": _coefficients(rng, (n, 8, 4, 4), extremes),
@@ -689,7 +696,9 @@ def random_residual_case(mb_w, mb_h, seed, mc="bucketed", t8=True,
 
 # K8's cases: (name, mb_w, mb_h, seed, references R, qp: an int or "mb" for
 # a per-MB plane over 0..51 with 0 and 51 present, rd_lam). Clamped chroma
-# windows on every side (the corner MBs' MVs), int32 sources, 720p frames.
+# windows on every side (the corner MBs' MVs), int32 sources, 720p frames;
+# 7 and 13 MBs wide, frames whose MB count K8's CTAs of 8 MBs do not
+# divide.
 K8_CASES = [
     ("4x3 R 1 per-MB qp", 4, 3, 0, 1, "mb", None),
     ("4x3 R 2 per-MB qp rd_lam 144", 4, 3, 1, 2, "mb", 144),
@@ -698,11 +707,13 @@ K8_CASES = [
     ("9x4 R 2 qp 51 rd_lam 144", 9, 4, 4, 2, 51, 144),
     ("720p R 1", 80, 45, 5, 1, 28, None),
     ("720p R 2 per-MB qp rd_lam 144", 80, 45, 6, 2, "mb", 144),
+    ("7x3 R 1 per-MB qp", 7, 3, 7, 1, "mb", None),
+    ("13x2 R 2 qp 28 rd_lam 144", 13, 2, 8, 2, 28, 144),
 ]
 
 
 def random_inter_residual_case(mb_w, mb_h, seed, R, qp, rd_lam,
-                               device="cpu"):
+                               device="cpu", dc_shift=False):
     """The inputs of encode_inter_mbs and of its residual half
     (encoder_torch.inter_residual) for one frame, as a dict of tensors on
     `device`: noise source planes Y, U, V (uint8; int32 on odd seeds) and
@@ -718,7 +729,10 @@ def random_inter_residual_case(mb_w, mb_h, seed, R, qp, rd_lam,
     the MBs (luma and chroma) predicted exactly and a third to within 2;
     with the
     residual half's own inputs part, xoffC (a random reference per MB)
-    and refcatU / refcatV."""
+    and refcatU / refcatV. dc_shift=True adds 8..16 to the chroma of
+    every other exactly predicted MB (clipped at 255): a residual whose
+    only levels are chroma DC levels (at any qp), on which no_res
+    hinges."""
     from .ops.mc import mc_chroma_mbs
     from .ref_np import CHROMA_QP
     rng = np.random.RandomState(seed)
@@ -771,6 +785,13 @@ def random_inter_residual_case(mb_w, mb_h, seed, R, qp, rd_lam,
         src[k] = np.where(pick, np.clip(
             pc + np.kron((keep == 1).reshape(mb_h, mb_w), np.ones((8, 8)))
             * rng.randint(-2, 3, pc.shape), 0, 255), src[k])
+    if dc_shift:
+        exact = np.flatnonzero(keep == 0)[::2]
+        shift = np.zeros(n, np.int64)
+        shift[exact] = rng.randint(8, 17, len(exact))
+        for k in (1, 2):
+            src[k] = np.minimum(src[k] + np.kron(
+                shift.reshape(mb_h, mb_w), np.ones((8, 8), np.int64)), 255)
 
     def T(a, dt=np.int32):
         return torch.as_tensor(np.ascontiguousarray(a, dt), device=device)

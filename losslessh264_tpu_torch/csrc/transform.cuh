@@ -3,7 +3,7 @@
 // kernels: K7 (csrc/residual_dec.cu, the decode half) and K8
 // (csrc/residual_enc.cu, the encode half). One call computes one
 // coefficient or one 1-D transform of one block; the kernels hold a block
-// in registers.
+// in registers. Also the cp.async and barrier helpers of both kernels.
 //
 // JAX runs with 64-bit types off, so its int32 products, sums and left
 // shifts wrap (ops/transform.py, the module docstring), and coefficients
@@ -63,6 +63,43 @@ static __constant__ int32_t CHROMA_QP[52] = {
     18, 19, 20, 21, 22, 23, 24, 25, 26, 27, 28, 29, 29, 30, 31, 32, 32, 33,
     34, 34, 35, 35, 36, 36, 37, 37, 37, 38, 38, 38, 39, 39, 39, 39};
 
+// cp.async: a copy of N = 4, 8 or 16 bytes from device memory into shared
+// memory (both N-byte aligned) that lands by the cp_async_wait that
+// follows its group's cp_async_commit; 16 bytes bypass L1 (.cg)
+template <int N>
+__device__ __forceinline__ void cp_async(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  if (N == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s),
+                 "l"(gmem) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;" ::"r"(s),
+                 "l"(gmem), "n"(N) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// POS4[i] as a constant expression: the class of raster position i of a
+// 4x4 block, 0 where row and column are even, 1 where both are odd, 2
+// elsewhere; so an unrolled loop picks a scale held in registers with it
+__device__ __forceinline__ constexpr int pos4(int i) {
+  return ((i >> 2) ^ i) & 1 ? 2 : i & 1;
+}
+
+// a barrier of the n threads (a multiple of 32) of the warps that call it
+// with the same id (1..15; 0 is __syncthreads)
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+
 // the 4x4 zigzag (ref_np.ZZ4: the raster position of scan position i),
 // one nibble per position: a constant expression, so that an unrolled
 // loop indexes a block held in registers with it
@@ -76,13 +113,14 @@ __device__ __forceinline__ constexpr int zz4(int i) {
 
 // one coefficient of dequant4 (qshift 4) or dequant8 (qshift 6)
 // (ops/transform._dequant): c * (w * deq), then << (qp/6 - qshift), or
-// the rounded >> (qshift - qp/6) of _round_shift
+// the rounded >> (qshift - qp/6) of _round_shift; without a branch, as one
+// of the two shifts is 0
 __device__ __forceinline__ u32 dequant(u32 c, u32 w, u32 deq, int qdiv,
                                        int qshift) {
-  const u32 v = c * (w * deq);
-  if (qdiv >= qshift) return v << (qdiv - qshift);
-  const int s = qshift - qdiv;
-  return sra(v + (1u << (s - 1)), s);
+  const int shl = qdiv > qshift ? qdiv - qshift : 0;
+  const int shr = qshift > qdiv ? qshift - qdiv : 0;
+  const u32 rnd = shr ? 1u << (shr - 1) : 0u;
+  return sra(((c * (w * deq)) << shl) + rnd, shr);
 }
 
 // luma_dc_dequant of one Hadamard-transformed I16 DC term: scale = w00 *
@@ -126,7 +164,8 @@ __device__ __forceinline__ void idct4x4(u32 (&w)[16]) {
   for (int k = 0; k < 16; ++k) w[k] = sra(w[k] + 32u, 6);
 }
 
-// the 8-point core of idct8x8 (spec 8.5.12.2) over a[0], a[s], ... a[7s]
+// the 8-point core of idct8x8 (spec 8.5.12.2) over a[0], a[s], ... a[7s];
+// idct8x8 is this over the rows, then the columns, then (v + 32) >> 6
 __device__ __forceinline__ void inv8(u32* a, int s) {
   const u32 a0 = a[0], a1 = a[s], a2 = a[2 * s], a3 = a[3 * s];
   const u32 a4 = a[4 * s], a5 = a[5 * s], a6 = a[6 * s], a7 = a[7 * s];
@@ -149,16 +188,6 @@ __device__ __forceinline__ void inv8(u32* a, int s) {
   a[5 * s] = f4 - f3;
   a[6 * s] = f2 - f5;
   a[7 * s] = f0 - f7;
-}
-
-// idct8x8 of a raster 8x8 block: rows, then columns, then (v + 32) >> 6
-__device__ __forceinline__ void idct8x8(u32 (&w)[64]) {
-#pragma unroll
-  for (int i = 0; i < 8; ++i) inv8(w + 8 * i, 1);
-#pragma unroll
-  for (int j = 0; j < 8; ++j) inv8(w + j, 8);
-#pragma unroll
-  for (int k = 0; k < 64; ++k) w[k] = sra(w[k] + 32u, 6);
 }
 
 // ---------------------------------------------------------------------
@@ -194,25 +223,27 @@ __device__ __forceinline__ u32 apply_sign(u32 w, u32 z) {
 }
 
 // one level of quant4_pm for an inter block (rounding offset base // 6) at
-// raster position pos: (|w| * MF + f) >> qbits, and with rd_lam >= 0 its
-// trellis-lite rounding (ops/transform.quant4_pm: a level-1 coefficient
-// goes to 0 when its remainder s256 = (u << 8) >> qbits falls below
-// ((rd_lam * dr256 >> 8) - 256) // 2, the floored // an arithmetic >> 1)
-__device__ __forceinline__ u32 quant_inter(u32 w, int pos, int qp,
+// raster position pos, mf = MF4[qp % 6][pos4(pos)] and qbits = 15 + qp / 6:
+// (|w| * MF + f) >> qbits, and with rd_lam >= 0 its trellis-lite rounding
+// (ops/transform.quant4_pm: a level-1 coefficient goes to 0 when its
+// remainder s256 = (u << 8) >> qbits falls below ((rd_lam * dr256 >> 8) -
+// 256) // 2, the floored // an arithmetic >> 1)
+//
+// Without a branch: only a level of 1 can drop. For any other level dr256
+// is 0, so the threshold is -128, while s256 >= -256 / 6 (u >= -f).
+__device__ __forceinline__ u32 quant_inter(u32 w, int pos, u32 mf, int qbits,
                                            int rd_lam) {
-  const int qbits = 15 + qp / 6;
   const u32 f = (1u << qbits) / 6u;
-  const u32 t = abs32(w) * static_cast<u32>(MF4[qp % 6][POS4[pos]]);
-  u32 z = sra(t + f, qbits);
-  if (rd_lam >= 0) {
-    const u32 u = t - (z << qbits);
-    const int32_t s256 = s32(sra(u << 8, qbits));
-    const u32 dr256 = z == 1u ? 768u + static_cast<u32>(pos) * 48u : 0u;
-    const int32_t thr256 =
-        s32(sra(sra(static_cast<u32>(rd_lam) * dr256, 8) - 256u, 1));
-    if (s32(z) >= 1 && s256 < thr256) z -= 1u;
-  }
-  return apply_sign(w, z);
+  const u32 t = abs32(w) * mf;
+  const u32 z = sra(t + f, qbits);
+  const u32 u = t - (z << qbits);
+  const int32_t s256 = s32(sra(u << 8, qbits));
+  const int32_t thr1 = s32(sra(
+      sra(static_cast<u32>(rd_lam) * (768u + static_cast<u32>(pos) * 48u), 8)
+          - 256u,
+      1));
+  const bool drop = rd_lam >= 0 && z == 1u && s256 < thr1;
+  return apply_sign(w, drop ? 0u : z);
 }
 
 // quant_dc2 of one 2x2-transformed chroma DC term: (|y| * MF00 + 2 f)

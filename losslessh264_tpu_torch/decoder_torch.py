@@ -281,16 +281,18 @@ K7_PLANES = (("mb_class", torch.uint8, ()), ("qp", torch.uint8, ()),
              ("ref_slot", torch.int32, (16,)), ("pcm", torch.uint8, (384,)))
 
 
-def k7_operands(mb_w, mb_h, p, pred_y, pred_u, pred_v):
+def k7_operands(mb_w, mb_h, p, pred_y, pred_u, pred_v, host=False):
     """K7's operands on CUDA tensors, checked: the plane dict's buffers in
     the symbol layer's dtypes (K7_PLANES; a null pointer for an absent
     luma8 or pcm), the eight weight matrices (int32), use_scaling and the
     two chroma QP offsets, the prediction planes (int32, or null without
-    prediction) and the fresh outputs. Returns (the args of
-    pip_residual_dec before the stream, (Yw, Uw, Vw, res_y, res_u, res_v),
-    the tensors the args point into)."""
+    prediction) and the fresh outputs; a buffer that does not start on 16
+    bytes (the kernel moves 16-byte chunks) is copied first. Returns (the
+    args of pip_residual_dec before the stream, (Yw, Uw, Vw, res_y, res_u,
+    res_v), the tensors the args point into). host=True takes CPU tensors,
+    for the kernel's CPU emulation (tools/cuda_emu.py)."""
     dev = p["luma_ac"].device
-    if dev.type != "cuda":
+    if dev.type != "cuda" and not host:
         raise ValueError(f"residual kernel takes CUDA tensors, got {dev}")
     n = mb_w * mb_h
     H, W = mb_h * 16, mb_w * 16
@@ -303,6 +305,8 @@ def k7_operands(mb_w, mb_h, p, pred_y, pred_u, pred_v):
                              f"{t.dtype} on {t.device}, the kernel takes "
                              f"{shape} {dtype} on {dev}")
         t = t.contiguous()
+        if t.data_ptr() % 16:
+            t = t.clone()
         keep.append(t)
         return P(t.data_ptr())
 

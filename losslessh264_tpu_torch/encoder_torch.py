@@ -601,16 +601,21 @@ inter_residual.launches = 0
 
 
 def k8_operands(mb_w, mb_h, Y, U, V, pred_q, mvqx, mvqy, best_sad, part,
-                refcatU, refcatV, xoffC, qp, qpc, rd_lam):
+                refcatU, refcatV, xoffC, qp, qpc, rd_lam, host=False):
     """K8's operands on CUDA tensors, checked: the source planes (uint8 or
     int32, unit column stride, U and V with one row stride), the int32
     per-quadrant and per-MB vectors, the uint8 concatenated chroma
-    references (contiguous, one shape), rd_lam (None: -1) and the fresh
-    outputs. Returns (the args of pip_residual_enc before the stream, the
-    outputs in inter_residual's order, the tensors the args point
-    into)."""
+    references (contiguous, one shape, a width of a multiple of 4), rd_lam
+    (None: -1) and the fresh outputs. The kernel stages the source rows
+    in chunks of 4 bytes or more, pred_q and the MVs in 16, and reads the
+    references by aligned words: a plane whose start or row stride is not
+    a multiple of 4 bytes, or a pred_q, MV vector or reference that does
+    not start on 16 bytes, is copied first. Returns (the args of
+    pip_residual_enc before the stream, the outputs in inter_residual's
+    order, the tensors the args point into). host=True takes CPU tensors,
+    for the kernel's CPU emulation (tools/cuda_emu.py)."""
     dev = Y.device
-    if dev.type != "cuda":
+    if dev.type != "cuda" and not host:
         raise ValueError(f"inter residual kernel takes CUDA tensors, got "
                          f"{dev}")
     n = mb_w * mb_h
@@ -626,10 +631,15 @@ def k8_operands(mb_w, mb_h, Y, U, V, pred_q, mvqx, mvqy, best_sad, part,
                          f"{[(tuple(a.shape), a.dtype) for a in srcs]}, "
                          f"the kernel takes uint8 or int32 planes of "
                          f"{mb_w}x{mb_h} MBs on {dev}")
-    if Y.stride(1) != 1:
-        srcs[0] = Y.contiguous()
-    if U.stride(1) != 1 or V.stride(1) != 1 or U.stride(0) != V.stride(0):
-        srcs[1:] = [U.contiguous(), V.contiguous()]
+    def unfit(a):
+        return (a.stride(1) != 1 or a.stride(0) * a.element_size() % 4
+                or a.data_ptr() % 4)
+
+    if unfit(Y):
+        srcs[0] = Y.clone(memory_format=torch.contiguous_format)
+    if unfit(U) or unfit(V) or U.stride(0) != V.stride(0):
+        srcs[1:] = [a.clone(memory_format=torch.contiguous_format)
+                    for a in (U, V)]
     vecs = []
     for a, shape in ((pred_q, (4 * n, 8, 8)), (mvqx, (4 * n,)),
                      (mvqy, (4 * n,)), (best_sad, (n,)), (part, (n,)),
@@ -639,12 +649,16 @@ def k8_operands(mb_w, mb_h, Y, U, V, pred_q, mvqx, mvqy, best_sad, part,
                              f"{tuple(a.shape)} on {a.device}, the kernel "
                              f"takes {shape} on {dev}")
         vecs.append(a.to(i32).contiguous())
+    vecs[:3] = [a.clone() if a.data_ptr() % 16 else a for a in vecs[:3]]
     refs = [refcatU, refcatV]
     if any(r.device != dev or r.dtype != torch.uint8 or r.dim() != 2
            or not r.is_contiguous() or r.shape != refcatU.shape
-           for r in refs) or refcatU.shape[0] != H // 2 + PAD:
+           for r in refs) or refcatU.shape[0] != H // 2 + PAD or \
+            refcatU.shape[1] % 4:
         raise ValueError("inter residual kernel takes contiguous uint8 "
-                         f"[{H // 2 + PAD}, Wc] chroma references")
+                         f"[{H // 2 + PAD}, Wc] chroma references, Wc a "
+                         "multiple of 4")
+    refs = [r.clone() if r.data_ptr() % 16 else r for r in refs]
     if rd_lam is not None and not 0 <= int(rd_lam) < 2 ** 31:
         raise ValueError(f"inter residual kernel: rd_lam {rd_lam}")
     outs = (torch.empty(n, dtype=torch.bool, device=dev),

@@ -936,7 +936,8 @@ def test_residual_cases(name, mb_w, mb_h, seed, kw):
     """random_residual_case's frames hold what K7's cases name: every
     class (PCM unless dropped) with its planes, the cbp_luma patterns and
     every cbp_chroma 0-2, MBs with a mix of valid and invalid ref_slot cells,
-    levels at the int16 extremes, and the MC route of the case."""
+    levels at the int16 extremes, the MC route of the case, and with
+    t8_all transform8 on every MB that is not I16."""
     p, *_ = random_residual_case(mb_w, mb_h, seed, **kw)
     pcm = kw.get("pcm", True)
     assert set(p["mb_class"].tolist()) == set(range(9 if pcm else 8))
@@ -947,6 +948,10 @@ def test_residual_cases(name, mb_w, mb_h, seed, kw):
     assert set(p["cbp_chroma"].tolist()) == {0, 1, 2}
     assert (np.abs(p["luma_ac"].astype(np.int32)) >= 32767).any()
     valid = (p["ref_slot"] >= 0).sum(1)
+    if kw.get("t8_all"):
+        # transform8 on every MB but the I16 ones, off on those
+        np.testing.assert_array_equal(p["transform8"] != 0,
+                                      p["mb_class"] != 1)
     mc = kw.get("mc", "bucketed")
     assert bool(p["mc_any"]) == (mc != "none")
     assert bool(p["mc_fast"]) == (mc == "bucketed")
@@ -972,6 +977,19 @@ def test_inter_residual_cases(name, mb_w, mb_h, seed, R, qp, rd_lam):
     assert (iy < 0).any() and (iy > H2 - 5).any()
     if qp == "mb":
         assert {0, 51} <= set(c["qp"].tolist())
+
+
+def test_inter_residual_dc_shift_case():
+    """random_inter_residual_case(dc_shift=True) holds MBs whose only
+    levels are chroma DC levels (no_res false by them alone), beside MBs
+    without any level."""
+    args = inter_residual_args(random_inter_residual_case(
+        9, 4, 9, 2, "mb", 144, dc_shift=True))
+    out = et.inter_residual_plain(9, 4, *args)
+    qac, cdc, cac, no_res = out[3], out[4], out[5], out[9]
+    dc_only = ((qac == 0).all(2).all(1) & (cac == 0).all(3).all(2).all(1)
+               & (cdc != 0).any(2).any(1))
+    assert dc_only.sum() >= 2 and no_res.any()
 
 
 @pytest.mark.cuda
@@ -1005,6 +1023,20 @@ def test_residual_enc_kernel_on_card(cuda_device, name, mb_w, mb_h, seed, R,
         for g, w in zip(got, want):
             assert g.dtype == w.dtype and torch.equal(g, w)
     assert et.inter_residual.launches == before + 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mb_w,mb_h,seed,R", [(9, 4, 9, 2), (80, 45, 10, 1)])
+def test_residual_enc_kernel_dc_levels_alone(cuda_device, mb_w, mb_h, seed,
+                                             R):
+    """K8 equals its plain version where an MB's only levels are chroma DC
+    levels, so that its no_res hinges on them (dc_shift)."""
+    args = inter_residual_args(random_inter_residual_case(
+        mb_w, mb_h, seed, R, "mb", 144, cuda_device, dc_shift=True))
+    want = et.inter_residual_plain(mb_w, mb_h, *args)
+    got = et.inter_residual(mb_w, mb_h, *args)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
 
 
 @pytest.mark.cuda

@@ -21,8 +21,11 @@ on one GPU (run from the repo root on a machine with an H100):
         show 0ae75fb:losslessh264_tpu_torch/csrc/$f > build/0ae75fb/$f; done
     python3 tools/kernel_ab.py k5 build/0ae75fb/me_dense.cu --parts
     python3 tools/kernel_ab.py k6 build/0ae75fb/mc_bucket.cu
-    python3 tools/kernel_ab.py k7 build/other/residual_dec.cu
-    python3 tools/kernel_ab.py k8 build/other/residual_enc.cu
+    mkdir -p build/a86476d && for f in residual_dec.cu residual_enc.cu \\
+        transform.cuh; do git show \\
+        a86476d:losslessh264_tpu_torch/csrc/$f > build/a86476d/$f; done
+    python3 tools/kernel_ab.py k7 build/a86476d/residual_dec.cu --parts
+    python3 tools/kernel_ab.py k8 build/a86476d/residual_enc.cu --parts
     python3 tools/kernel_ab.py k9 build/other/deblock_params.cu
     python3 tools/kernel_ab.py build
 
@@ -92,11 +95,17 @@ events around 10 back-to-back calls, in turns.
 
 k7, k8: `pip_residual_dec` on every frame of synth720p (the rings its
 decode gives each frame) and the 720p cases of cases.K7_CASES, or
-`pip_residual_enc` on the 720p cases of cases.K8_CASES; each round the
+`pip_residual_enc` on the P frames of encode A (golden A's encoder on
+synth720p's frames 0-3) and the 720p cases of cases.K8_CASES; each round the
 kernel alone, a CUDA graph's replays of the bare entry over copies of
 the operands that leave L2 cold (chip_smoke.cold_calls), beside the
 bound. An extra source is built alone, so transform.cuh must lie beside
-it, and its entry must take the port's arguments.
+it, and its entry must take the port's arguments. Each build's registers,
+shared memory, stack and spills are printed first (cuobjdump
+-res-usage). --parts adds builds of the port's own K7 or K8 with one part
+taken out (RESIDUAL_PARTS below, under build/parts/): a store-only build,
+the floor the card gives for the outputs, and one without the transforms;
+they are not exact (reported, and timed all the same).
 
 k9: `pip_deblock_params` on the deblocked frames of a synth720p decode
 (the decoder's planes, as the decode hands them to K9) and the 720p
@@ -139,9 +148,13 @@ def label(src):
                         os.path.basename(src))
 
 
-def build(src):
-    out = os.path.join(_build.BUILD_DIR, "ab_" + label(src).replace(
+def build_path(src):
+    return os.path.join(_build.BUILD_DIR, "ab_" + label(src).replace(
         os.sep, "_").replace(".cu", ".so"))
+
+
+def build(src):
+    out = build_path(src)
     os.makedirs(_build.BUILD_DIR, exist_ok=True)
     subprocess.run([_build._nvcc()] + _build.NVCC_FLAGS
                    + ["-Xptxas", "-v", "-o", out, src], check=True)
@@ -343,6 +356,82 @@ K5_PARTS = {
         [("for (int t0 = 0; t0 < span + 7; t0 += 8) {",
           "for (int t0 = 0; t0 < 0; t0 += 8) {")]],
 }
+
+
+# K7 / K8 builds with one part taken out (--parts), written under
+# build/parts/ beside a copy of transform.cuh. Each edit is (old, new,
+# times): `old` must occur `times` times.
+#   k7_stores       no levels, PCM samples or prediction staged and no
+#                   transforms: the per-MB bytes and ref_slot rows, then the
+#                   stores of whatever shared memory holds (the floor the
+#                   card gives for these outputs)
+#   k7_notransform  everything staged and stored, no transforms
+#   k8_stores       nothing staged and no lanes: the stores of whatever
+#                   shared memory holds (the floor the card gives for these
+#                   outputs)
+#   k8_nolanes      everything staged and stored, the per-MB vectors and
+#                   windows read, no lane's arithmetic
+#   k8_noluma       as k8_nolanes for the luma lanes only
+#   k8_nochroma     as k8_nolanes for the chroma lanes only
+#   k8_notransform  the forward and inverse 4x4 transforms taken out
+NO_TASKS = ("for (int t = warp; t < n8 + t4 + (nmb + 3) / 4; t += WARPS) {",
+            "for (int t = warp; t < 0; t += WARPS) {", 1)
+NO_LANES = [("luma_lane(a, sm, v, j, k, j < nmb);", ";", 1),
+            ("chroma_lane(a, sm, v, j, c, k, j < nmb);", ";", 1)]
+RESIDUAL_PARTS = {
+    "k7_stores": ("residual_dec.cu", [
+        ("stage_levels(a, sm, m0, nmb, tid);", ";", 1),
+        ("stage_pred(a, sm, mby, mbx0, nmb, tid);", ";", 1), NO_TASKS]),
+    "k7_notransform": ("residual_dec.cu", [NO_TASKS]),
+    "k8_stores": ("residual_enc.cu", NO_LANES + [
+        (re.compile(r"    stage_rows\(sm\.src_y.*?(    tx::cp_async_commit)",
+                    re.S), r"\1", 1),
+        (re.compile(r"    stage_rows\(sm\.src_c\[0\].*?"
+                    r"(    tx::cp_async_commit)", re.S), r"\1", 1)]),
+    "k8_nolanes": ("residual_enc.cu", NO_LANES),
+    "k8_noluma": ("residual_enc.cu", NO_LANES[:1]),
+    "k8_nochroma": ("residual_enc.cu", NO_LANES[1:]),
+    "k8_notransform": ("residual_enc.cu", [
+        ("tx::fdct4x4(w);", ";", 2), ("tx::idct4x4(w);", ";", 2)]),
+}
+
+
+def write_residual_parts(kernel):
+    """Write the RESIDUAL_PARTS builds of K7 or K8, each in a directory of
+    its own beside a copy of transform.cuh; returns their paths."""
+    paths = []
+    for name, (src, edits) in RESIDUAL_PARTS.items():
+        if not name.startswith(kernel + "_"):
+            continue
+        text = open(os.path.join(CSRC, src)).read()
+        for old, new, times in edits:
+            if isinstance(old, str):
+                hits = text.count(old)
+                text = text.replace(old, new)
+            else:
+                text, hits = old.subn(new, text)
+            if hits != times:
+                raise SystemExit(f"{name}: {old!r} occurs {hits} times, not "
+                                 f"{times}")
+        out = os.path.join(_build.BUILD_DIR, os.pardir, "parts", name)
+        os.makedirs(out, exist_ok=True)
+        shutil.copy(os.path.join(CSRC, "transform.cuh"), out)
+        path = os.path.join(out, src)
+        with open(path, "w") as fh:
+            fh.write(text)
+        paths.append(os.path.normpath(path))
+    return paths
+
+
+def resources(so, kernel):
+    """The registers, shared memory, stack and local memory (spills) of
+    the kernel `kernel` (a function name's part) in the library `so`, as
+    cuobjdump -res-usage reports them."""
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    out = subprocess.run([cuobjdump, "-res-usage", so], capture_output=True,
+                         text=True).stdout.splitlines()
+    return [" ".join(out[i + 1].split()) for i, line in enumerate(out[:-1])
+            if line.strip().startswith("Function") and kernel in line]
 
 
 def apply_edits(text, edits):
@@ -675,13 +764,15 @@ def ab_residual(kernel, libs, dev):
     kernel_device_ms), beside the bound (chip_smoke.k7_bytes_ops,
     k8_bytes_ops). K7 on every frame of synth720p (on the rings its
     decode gives each) and on the 720p cases of cases.K7_CASES, K8 on the
-    720p cases of cases.K8_CASES, K9 on synth720p's deblocked frames and
+    P frames of encode A (synth720p's frames 1-3, the calls of the golden
+    configuration's encode) and the 720p cases of cases.K8_CASES, K9 on
+    synth720p's deblocked frames and
     the 720p cases of cases.K9_CASES. A build must take the port's entry's
     arguments."""
     from losslessh264_tpu_torch import decoder_torch as dt
     from losslessh264_tpu_torch import encoder_torch as et
     from losslessh264_tpu_torch.cases import (K7_CASES, K8_CASES, K9_CASES,
-                                              HeldToPlain,
+                                              HeldToPlain, golden_encoder,
                                               inter_residual_args,
                                               random_edge_case,
                                               random_inter_residual_case,
@@ -733,6 +824,24 @@ def ab_residual(kernel, libs, dev):
                                   et.inter_residual_plain)
 
         def cases():
+            # the P frames of encode A (the calls of its encode of
+            # synth720p's first 4 frames), then the 720p random cases
+            import json
+            with open(os.path.join(ROOT, "tests", "data", "synth720p.264"),
+                      "rb") as fh:
+                data = fh.read()
+            gold = json.load(open(cs.ENC_GOLDEN))
+            src = [tuple(np.ascontiguousarray(p.cpu().numpy()) for p in yuv)
+                   for _, yuv in zip(range(4), dt.TorchDecoder(
+                       data, device=dev).frames())]
+            enc = golden_encoder(gold["A"], gold["source"]["width"],
+                                 gold["source"]["height"], dev)
+            with HeldToPlain(et, "inter_residual", plain, keep=3) as held:
+                for f in src:
+                    enc.encode_frame(*f)
+            for i, args in enumerate(held.kept):
+                yield (f"encode A P frame {i + 1}", args,
+                       cs.k8_bytes_ops(args[0], args[1], args[2:]))
             for name, mb_w, mb_h, seed, R, qp, rd_lam in K8_CASES:
                 if mb_w == 80:
                     args = inter_residual_args(random_inter_residual_case(
@@ -740,8 +849,11 @@ def ab_residual(kernel, libs, dev):
                     yield (name, (mb_w, mb_h, *args),
                            cs.k8_bytes_ops(mb_w, mb_h, args))
 
-    means = {lname: [] for lname in libs}
+    # the cases' groups: a stream's or an encode's frames, the random cases
+    means, groups = {lname: [] for lname in libs}, []
     for name, args, (nb, no) in cases():
+        groups.append(name.split(" frame")[0] if " frame " in name
+                      else "random cases")
         want = plain(*args)
         want = (want,) if torch.is_tensor(want) else want
         for lname, lib in libs.items():
@@ -768,6 +880,10 @@ def ab_residual(kernel, libs, dev):
     for lname, ms in means.items():
         print(f"{kernel} {lname}: mean of {len(ms)} medians {np.mean(ms):.5f}"
               f" ms", flush=True)
+        for group in sorted(set(groups)):
+            sel = [t for t, g in zip(ms, groups) if g == group]
+            print(f"{kernel} {lname}: {group}, mean of {len(sel)} medians "
+                  f"{np.mean(sel):.5f} ms", flush=True)
 
 
 def ab_build():
@@ -810,13 +926,21 @@ def main():
     libs = {"current": _build.lib()}
     srcs = [a for a in sys.argv[2:] if a != "--parts"]
     if "--parts" in sys.argv[2:]:
-        if sys.argv[1] not in ("k3", "k4", "k5"):
-            sys.exit("--parts is for k3, k4 and k5")
+        if sys.argv[1] not in ("k3", "k4", "k5", "k7", "k8"):
+            sys.exit("--parts is for k3, k4, k5, k7 and k8")
         srcs += (write_k5_parts([os.path.join(CSRC, "me_dense.cu")] + srcs)
-                 if sys.argv[1] == "k5" else write_parts(sys.argv[1]))
+                 if sys.argv[1] == "k5"
+                 else write_residual_parts(sys.argv[1])
+                 if sys.argv[1] in ("k7", "k8") else write_parts(sys.argv[1]))
     for src in srcs:
         libs[label(src)] = build(src)
     print(cs.card_line(), flush=True)
+    if sys.argv[1] in ("k7", "k8"):
+        fn = {"k7": "residual_dec", "k8": "residual_enc"}[sys.argv[1]]
+        for name, so in [("current", _build.LIB_PATH)] + [
+                (label(src), build_path(src)) for src in srcs]:
+            for line in resources(so, fn):
+                print(f"{sys.argv[1]} {name} resources: {line}", flush=True)
     if sys.argv[1] in ("k3", "k4"):
         return ab_intra(sys.argv[1], libs, dev)
     if sys.argv[1] == "k5":
