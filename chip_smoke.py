@@ -23,9 +23,9 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
      goldens (tests/data/synth720p_np_crc.json), K9 and K2 must launch
      exactly once per frame that is deblocked, K3 once per frame with intra
      MBs (frames 0, 10 and 20), K6 once per P frame on the bucketed MC
-     path and K1 once per slot such a frame reads (a second, stage-timed
-     decode gives each frame's MC route), K7 once per frame, K4, K5 and
-     K8 never.
+     path and K1 once per slot such a frame reads (a second decode, under
+     a sync=True recording of the port's tracer, counts the MC routes its
+     plans took), K7 once per frame, K4, K5 and K8 never.
   6. encode: TorchEncoder(device="cuda") at 1280x720 on the first frames
      of phase 5's decode, in the configurations of
      tests/data/synth720p_enc_golden.json and its sibling
@@ -84,9 +84,11 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
      its route, K2 and K9 must launch once per deblocked frame, K1 and K6
      as the
      MC plans imply, K3 once per route with an intra pass (the batch of
-     4 once: 4 in all) and K7 once per frame. A stage-timed decode
-     prints each frame's intra ms on its route (K3) beside the plain
-     full-table pass on the same planes (and requires the two equal).
+     4 once: 4 in all) and K7 once per frame. A recorded decode (the
+     tracer, sync=True) prints each frame's intra ms on its route (K3)
+     beside the plain full-table pass on the same planes, which a third
+     decode runs on every intra pass's inputs (and requires the two
+     equal).
  12. encode runs: configuration G (tests/data/synth720p_enc_golden_g.json,
      A's settings on frames 0-6) through TorchEncoder.encode_frames(batch=
      3): an IDR and two runs of 3 P frames, each run's entropy written on
@@ -156,10 +158,10 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
      bounds, its plain version and the conv2d yardstick; K2 against its
      plain version at 720p (CUDA events; the wrapper on packed rows); the
      per-stage breakdown of every
-     decoded frame from phase 5's stage-timed decode (residual + inter
-     split into the inter prediction, mc_ms, and the residual
-     reconstruction, residual_recon_ms: K7's wrapper; deblock split into
-     edge parameters, edge_params_ms: K9's wrapper, K2 and crop);
+     decoded frame from phase 5's recorded decode (DECODE_STAGE_SPANS:
+     the inter prediction, mc_ms, the residual reconstruction,
+     residual_recon_ms: K7's wrapper; deblock split into edge parameters,
+     edge_params_ms: K9's wrapper, K2 and crop);
      then torch.profiler windows (decode: P frames 1-3, intra frame 10;
      encode A: P frames 1-3) with the device busy share. A profiler
      session slows the host's launches after it, so the windows come
@@ -286,15 +288,8 @@ KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9")
 
 def wrappers():
     """The wrappers whose `launches` count K1-K9, in KERNELS order."""
-    from losslessh264_tpu_torch import decoder_torch as dt
-    from losslessh264_tpu_torch import encoder_torch as et
-    from losslessh264_tpu_torch.ops import deblock as tdb
-    from losslessh264_tpu_torch.ops import intra as tintra
-    from losslessh264_tpu_torch.ops import mc as tmc
-    from losslessh264_tpu_torch.ops import me as tme
-    return (tmc.halfpel_planes, tdb.deblock_wavefront, tintra.intra_recon,
-            et.intra_wavefront, tme.dense_full_search, tmc.mc_bucketed,
-            dt._residual_recon, et.inter_residual, tdb.edge_params_packed)
+    from losslessh264_tpu_torch import trace
+    return trace.launch_wrappers()
 
 
 def reset_launches():
@@ -493,73 +488,44 @@ def k2_bytes(mb_w, mb_h):
     return 2 * 4 * pixels + 4 * mb_w * mb_h * lanes
 
 
-def stage_decode(data, device):
-    """One decode of the stream with a synchronised timer around every
-    stage of TorchDecoder._decode_one (its _residual_and_inter split into
-    the inter prediction, _inter_pred, and the residual reconstruction,
-    the K7 wrapper; deblock split into the K9 wrapper, edge_params_ms,
-    the K2 wrapper and the crop); returns per-frame rows, each with the
-    frame's MC route (`bucketed`: mc_bucketed, one K6 launch) and the K1
-    launches that route implies (one per active slot)."""
+# a decoded frame's stage columns and the tracer's spans that fill them
+# (their self times in a sync=True recording, per frame)
+DECODE_STAGE_SPANS = {
+    "host_ms": ("dec.symbols", "dec.symbols.parse", "dec.symbols.alloc",
+                "dec.symbols.export", "dec.frame", "dec.plan",
+                "dec.plan.refs", "dec.plan.slots", "dec.plan.intra",
+                "dec.plan.avail", "dec.plan.nnz", "dec.plan.mc",
+                "dec.plan.scaling", "dec.plan.deblock", "dec.upload"),
+    "mc_ms": ("dec.inter",),
+    "residual_recon_ms": ("dec.residual",),
+    "intra_ms": ("dec.intra",),
+    "edge_params_ms": ("dec.deblock.params",),
+    "k2_ms": ("dec.deblock.filter",),
+    "crop_ms": ("dec.deblock", "dec.deblock.crop"),
+    "store_ms": ("dec.store",),
+}
+
+
+def recorded_decode(data, device):
+    """One TorchDecoder decode of the stream under a sync=True recording
+    of the port's tracer (losslessh264_tpu_torch/trace.py: each span
+    starts and ends with a synchronize, so a stage holds its own device
+    work). Returns (per decoded frame a row of DECODE_STAGE_SPANS'
+    columns, `deblocked` whether K2 ran; the recording). A batch of
+    all-intra frames has its shared stages on its first frame's row."""
     from losslessh264_tpu_torch import decoder_torch as dt
-    from losslessh264_tpu_torch.ops import deblock as tdb
-    dec = dt.TorchDecoder(data, device=device)
-    rows = []
-
-    def now():
-        torch.cuda.synchronize()
-        return time.perf_counter()
-
-    it = iter(dec.sym)
-    while True:
-        t0 = now()
-        try:
-            f = next(it)
-        except StopIteration:
-            return rows
-        mb_w, mb_h = f["mb_w"], f["mb_h"]
-        dec._prep_refs(mb_w, mb_h)
-        planes_np, _, has_intra, _ = dec._prep_planes(f)
-        p = dt.planes_to_torch(planes_np, dec.device)
-        t1 = now()
-        pred = dt._inter_pred(mb_w, mb_h, p, dec.ref_y, dec.ref_u, dec.ref_v)
-        t1a = now()
-        Yw, Uw, Vw, ry, ru, rv = dt._residual_recon(mb_w, mb_h, p, *(
-            pred or (None,) * 3))
-        t2 = now()
-        if has_intra:
-            Yw, Uw, Vw = dt._intra_scan(mb_w, mb_h, Yw, Uw, Vw, ry, ru, rv,
-                                        p, dt.diagonals(mb_w, mb_h))
-        t3 = now()
-        deblocked = dec._needs_deblock(f, planes_np["nnz"])
-        if deblocked:   # decoder_torch._deblock_crop, stage by stage
-            params = tdb.edge_params_packed(
-                mb_w, mb_h, p["mb_class"], p["qp"], p["nnz"], p["mv"],
-                p["ref_idx"], p["slice_id"], p["deblock_idc"],
-                p["alpha_off"], p["beta_off"], p["transform8"],
-                p["chroma_qp_offset"])
-            t3a = now()
-            Yw, Uw, Vw = tdb.deblock_wavefront(mb_w, mb_h, Yw, Uw, Vw,
-                                               params)
-            t3b = now()
-        else:
-            t3a = t3b = t3
-        Y, U, V = dt._crop(mb_w, mb_h, Yw, Uw, Vw)
-        t4 = now()
-        dec._finish_frame(f, Y, U, V, False)
-        t5 = now()
-        bucketed = bool(planes_np["mc_any"] and planes_np["mc_fast"])
-        rows.append(dict(
-            frame=len(rows), n_intra=int(sum(
-                (f["mb_class"] == c).sum() for c in (0, 1, 2))),
-            mc_fast=bool(planes_np["mc_fast"]), bucketed=bucketed,
-            k1=bucketed * (1 + (int(planes_np["mc_nslots"]) > 1)),
-            deblocked=bool(deblocked),
-            host_ms=(t1 - t0) * 1e3, mc_ms=(t1a - t1) * 1e3,
-            residual_recon_ms=(t2 - t1a) * 1e3,
-            intra_ms=(t3 - t2) * 1e3, edge_params_ms=(t3a - t3) * 1e3,
-            k2_ms=(t3b - t3a) * 1e3, crop_ms=(t4 - t3b) * 1e3,
-            store_ms=(t5 - t4) * 1e3))
+    from losslessh264_tpu_torch import trace
+    with trace.recording(sync=True) as rec:
+        dec = dt.TorchDecoder(data, device=device)
+        for _ in dec.frames():
+            pass
+    # the frame ids in decode order; the last read found the stream's end
+    per_frame = list(rec.by_frame().values())[:len(dec.routes)]
+    rows = [dict(frame=i, deblocked="dec.deblock.filter" in ms,
+                 **{col: sum(ms.get(n, 0.0) for n in names)
+                    for col, names in DECODE_STAGE_SPANS.items()})
+            for i, ms in enumerate(per_frame)]
+    return rows, rec
 
 
 def expected_launches(runs):
@@ -963,83 +929,74 @@ def runs_routes(gold):
          3: ("full", n_diags)}[r["kind"]] for r in gold["intra"][lead:]]
 
 
-def runs_stage_decode(data, routes, dev):
-    """A second decode of runs720p, by hand along TorchDecoder's routes:
-    the intra pass of every frame on its route (K3: one launch over the
-    leading all-intra frames together, one per P frame with intra MBs)
-    timed (synchronised) beside the plain compact-carry pass over the
-    full table on the same planes (one frame at a time), which it must
-    equal. Returns per-frame rows and the K1 and K6 launches that the
-    frames' MC plans imply (K6 once per bucketed P frame, K1 once per
-    bucketed P frame or twice when it reads two ring slots)."""
+def runs_intra_rows(data, routes, dev):
+    """Each frame of runs720p with its intra ms on its route, from a
+    sync=True recording of a TorchDecoder decode (the batch's one pass
+    split over its frames; the K3 launch over the leading all-intra
+    frames together, one per P frame with intra MBs), beside the plain
+    compact-carry pass over the full table on the same planes (one frame
+    at a time), which a second decode runs on the inputs of every intra
+    pass, ahead of the route's, and which the route's result must
+    equal. Returns the rows and the K1 and K6 launches that the frames'
+    MC plans imply (K6 once per bucketed P frame, K1 once per ring slot
+    such a frame reads)."""
     from losslessh264_tpu_torch import decoder_torch as dt
 
     def now():
         torch.cuda.synchronize()
         return time.perf_counter()
 
-    dec = dt.TorchDecoder(data, device=dev)
-    fs = list(dec.sym)
+    _, rec = recorded_decode(data, dev)
+    plain_ms = []   # per frame with an intra pass, in decode order
+    saved = {k: getattr(dt, k) for k in ("_intra_scan",
+                                         "_intra_scan_sparse")}
+
+    def held(scan):
+        def run(mb_w, mb_h, Yw, Uw, Vw, ry, ru, rv, p, diags):
+            full = dt.diagonals(mb_w, mb_h)
+            batch = Yw.dim() == 3
+            work = [(Yw, Uw, Vw, ry, ru, rv)]
+            ps = [p]
+            if batch:
+                work = list(zip(Yw, Uw, Vw, ry, ru, rv))
+                ps = [{k: v[i] for k, v in p.items()}
+                      for i in range(len(work))]
+            t0 = now()
+            singles = [dt._intra_scan_plain(
+                mb_w, mb_h, *(a.clone() for a in w), q, full)
+                for w, q in zip(work, ps)]
+            plain_ms.extend([(now() - t0) * 1e3 / len(work)] * len(work))
+            routed = scan(mb_w, mb_h, Yw, Uw, Vw, ry, ru, rv, p, diags)
+            for i, single in enumerate(singles):
+                got = [a[i] for a in routed] if batch else routed
+                if not all(torch.equal(a, b) for a, b in zip(got, single)):
+                    raise SystemExit(
+                        f"runs720p: K3 on the {scan.__name__} route "
+                        f"differs from the plain pass (pass "
+                        f"{len(plain_ms) - len(work) + i})")
+            return routed
+        return run
+
+    for name, fn in saved.items():
+        setattr(dt, name, held(fn))
+    try:
+        for _ in dt.TorchDecoder(data, device=dev).frames():
+            pass
+    finally:
+        for name, fn in saved.items():
+            setattr(dt, name, fn)
+    per_frame = list(rec.by_frame().values())[:len(routes)]
     lead = routes.count(routes[0]) if routes[0][0] == "batch" else 0
-    mb_w, mb_h = fs[0]["mb_w"], fs[0]["mb_h"]
-    diags = dt.diagonals(mb_w, mb_h)
-    dec._prep_refs(mb_w, mb_h)
-    rows, k1, k6 = [], 0, 0
-    preps, works, slots = [], [], []
-    for f in fs[:lead]:
-        planes_np = dec._prep_planes(f)[0]
-        preps.append(dt.planes_to_torch(planes_np, dec.device))
-        works.append(dt._residual_and_inter(mb_w, mb_h, preps[-1],
-                                            dec.ref_y, dec.ref_u, dec.ref_v))
-        slots.append(dec._assign_slot(f))
-    if lead:
-        t0 = now()
-        singles = [dt._intra_scan_plain(mb_w, mb_h, *w, p, diags)
-                   for w, p in zip(works, preps)]
-        t1 = now()
-        pb = {k: torch.stack([p[k] for p in preps]) for k in dt.INTRA_KEYS}
-        batched = dt._intra_scan(mb_w, mb_h,
-                                 *(torch.stack(a) for a in zip(*works)),
-                                 pb, diags)
-        t2 = now()
-        for k in range(lead):
-            if not all(torch.equal(b[k], s) for b, s in
-                       zip(batched, singles[k])):
-                raise SystemExit(f"runs720p frame {k}: K3 over the batch "
-                                 "differs from the frame's plain pass")
-            rows.append(dict(frame=k, route=routes[k],
-                             intra_ms=(t2 - t1) * 1e3 / lead,
-                             plain_ms=(t1 - t0) * 1e3 / lead))
-        out = [dt._deblock_crop(mb_w, mb_h, *pl, p)
-               for pl, p in zip(singles, preps)]
-        dt._store_refs_k(dec.ref_y, dec.ref_u, dec.ref_v,
-                         *(torch.stack(a) for a in zip(*out)), slots)
-    for i, f in enumerate(fs[lead:], lead):
-        planes_np, sel, has_intra, full = dec._prep_planes(f)
-        p = dt.planes_to_torch(planes_np, dec.device)
-        if planes_np["mc_any"] and planes_np["mc_fast"]:
-            k1 += 1 + (int(planes_np["mc_nslots"]) > 1)
-            k6 += 1
-        work = dt._residual_and_inter(mb_w, mb_h, p, dec.ref_y, dec.ref_u,
-                                      dec.ref_v)
-        planes, t_route, t_plain = work[:3], 0.0, 0.0
-        if has_intra:
-            t0 = now()
-            planes = dt._intra_scan_plain(mb_w, mb_h, *work, p, diags)
-            t_plain = (now() - t0) * 1e3
-            scan = dt._intra_scan if full else dt._intra_scan_sparse
-            t0 = now()
-            routed = scan(mb_w, mb_h, *work, p, sel)
-            t_route = (now() - t0) * 1e3
-            if not all(torch.equal(a, b) for a, b in zip(routed, planes)):
-                raise SystemExit(f"runs720p frame {i}: K3 on the "
-                                 f"{routes[i][0]} route differs from the "
-                                 "plain pass")
-        rows.append(dict(frame=i, route=routes[i], intra_ms=t_route,
-                         plain_ms=t_plain))
-        dec._finish_frame(f, *dt._deblock_crop(mb_w, mb_h, *planes, p),
-                          False)
-    return rows, k1, k6
+    rows, passes = [], iter(plain_ms)
+    for i, (ms, route) in enumerate(zip(per_frame, routes)):
+        # the batch's spans carry its first frame's id
+        intra = (per_frame[0]["dec.intra"] / lead if i < lead
+                 else ms.get("dec.intra", 0.0))
+        plain = next(passes) if route[0] != "none" else 0.0
+        rows.append(dict(frame=i, route=route, intra_ms=intra,
+                         plain_ms=plain))
+    return (rows, rec.counters.get("dec.mc_slots", 0),
+            rec.counters.get("dec.mc_bucketed", 0))
 
 
 def runs_decode_phase(dev, card):
@@ -1050,9 +1007,9 @@ def runs_decode_phase(dev, card):
     populated ones, the full table). Every frame's CRC32 must equal
     NpDecoder's, each frame must take its route, K2 must launch once per
     deblocked frame, K1 and K6 as the frames' MC plans imply and K3 once
-    per route that has an intra pass (the batch once). Then a stage-timed
+    per route that has an intra pass (the batch once). Then a recorded
     decode prints each frame's intra ms on its route (K3) beside the
-    plain full-table pass on the same planes."""
+    plain full-table pass on the same planes (runs_intra_rows)."""
     from losslessh264_tpu_torch import decoder_torch as dt
     from losslessh264_tpu_torch import native
     data = open(RUNS_STREAM, "rb").read()
@@ -1080,7 +1037,7 @@ def runs_decode_phase(dev, card):
                          f"NpDecoder's at frames {bad}")
     if dec.routes != routes:
         raise SystemExit(f"runs720p routes {dec.routes}, expected {routes}")
-    rows, k1, k6 = runs_stage_decode(data, routes, dev)
+    rows, k1, k6 = runs_intra_rows(data, routes, dev)
     want = (k1, deblocked, k3, 0, 0, k6, len(frames), 0, deblocked)
     if got != want or k6 == 0:
         raise SystemExit(f"runs720p: K1-K9 launched {got}, the frames imply "
@@ -2383,11 +2340,13 @@ def main():
     dec_launches = launches_now()
     (k1_launches, k2_launches, k3_launches, _, _, k6_launches, k7_launches,
      _, k9_launches) = dec_launches
-    # a second decode, stage by stage (synchronised), which also gives
-    # each frame's MC route: the K1 and K6 launches the first one implies
-    stage_rows = stage_decode(data, dev)
-    bucketed = sum(r["bucketed"] for r in stage_rows)
-    k1_implied = sum(r["k1"] for r in stage_rows)
+    # a second decode under a sync=True recording: each frame's stages,
+    # and the MC routes the plans took, which imply the first one's K1
+    # and K6 launches (K6 once per bucketed P frame, K1 once per ring
+    # slot such a frame reads)
+    stage_rows, rec = recorded_decode(data, dev)
+    bucketed = rec.counters.get("dec.mc_bucketed", 0)
+    k1_implied = rec.counters.get("dec.mc_slots", 0)
     if len(frames) != len(golden):
         raise SystemExit(f"decoded {len(frames)} frames, expected "
                          f"{len(golden)}")

@@ -32,6 +32,7 @@ import torch
 from . import _build
 from . import native
 from . import ref_np
+from . import trace
 from .ops import deblock as tdb
 from .ops import intra as tintra
 from .ops import mc as tmc
@@ -66,6 +67,11 @@ def planes_to_torch(planes_np, device):
             out[k] = v.item() if hasattr(v, "item") else v
         else:
             out[k] = torch.from_numpy(np.ascontiguousarray(v)).to(device)
+    if trace.on():
+        up = [t for v in out.values() if isinstance(v, (list, torch.Tensor))
+              for t in (v if isinstance(v, list) else [v])]
+        trace.count("dec.h2d_copies", len(up))
+        trace.count_bytes("dec.h2d_bytes", *up)
     return out
 
 
@@ -235,6 +241,8 @@ def _inter_pred(mb_w, mb_h, p, ref_y, ref_u, ref_v):
     if "mc_bucket" in p and not p["mc_any"]:
         return None
     if "mc_bucket" in p and p["mc_fast"]:
+        trace.count("dec.mc_bucketed")
+        trace.count("dec.mc_slots", int(p["mc_nslots"]))
         return tmc.mc_bucketed(ref_y, ref_u, ref_v, PAD, p, mb_w, mb_h)
     ty, tu, tv = _mc_legacy_cells(mb_w, mb_h, p, ref_y, ref_u, ref_v)
     return (_tiles_to_plane(ty, mb_w, mb_h, 16),
@@ -666,11 +674,15 @@ def _deblock_crop(mb_w, mb_h, Yw, Uw, Vw, p):
     """Deblocking wavefront (K2 on CUDA), then crop to uint8 planes.
     bS compares raw ref indices (reference MB_BS_MV semantics), not
     resolved pictures — see decsupport.h FramePlanes::ref_idx."""
-    Yw, Uw, Vw = tdb.deblock_frame(
-        mb_w, mb_h, Yw, Uw, Vw, p["mb_class"], p["qp"], p["nnz"], p["mv"],
-        p["ref_idx"], p["slice_id"], p["deblock_idc"], p["alpha_off"],
-        p["beta_off"], p["transform8"], p["chroma_qp_offset"])
-    return _crop(mb_w, mb_h, Yw, Uw, Vw)
+    with trace.span("dec.deblock.params"):
+        params = tdb.edge_params(
+            mb_w, mb_h, p["mb_class"], p["qp"], p["nnz"], p["mv"],
+            p["ref_idx"], p["slice_id"], p["deblock_idc"], p["alpha_off"],
+            p["beta_off"], p["transform8"], p["chroma_qp_offset"])
+    with trace.span("dec.deblock.filter"):
+        Yw, Uw, Vw = tdb.deblock_planes(mb_w, mb_h, Yw, Uw, Vw, params)
+    with trace.span("dec.deblock.crop"):
+        return _crop(mb_w, mb_h, Yw, Uw, Vw)
 
 
 def _edge_pad(x, pad):
@@ -705,18 +717,22 @@ def recon_intra_batch(mb_w, mb_h, planes_b, ref_y, ref_u, ref_v, diags,
     over the B frames on CUDA, the compact-carry wavefront over the full
     table on the CPU), then the deblock per frame (K2, one launch each)
     and the crop. Returns the [B, H, W] / [B, H/2, W/2] uint8 planes."""
-    work = [_residual_and_inter(mb_w, mb_h, p, ref_y, ref_u, ref_v)
-            for p in planes_b]
-    Yw, Uw, Vw, ry, ru, rv = (torch.stack(a) for a in zip(*work))
-    pb = {k: torch.stack([p[k] for p in planes_b]) for k in INTRA_KEYS}
-    Yw, Uw, Vw = _intra_scan(mb_w, mb_h, Yw, Uw, Vw, ry, ru, rv, pb, diags)
+    with trace.span("dec.residual"):
+        work = [_residual_and_inter(mb_w, mb_h, p, ref_y, ref_u, ref_v)
+                for p in planes_b]
+    with trace.span("dec.intra"):
+        Yw, Uw, Vw, ry, ru, rv = (torch.stack(a) for a in zip(*work))
+        pb = {k: torch.stack([p[k] for p in planes_b]) for k in INTRA_KEYS}
+        Yw, Uw, Vw = _intra_scan(mb_w, mb_h, Yw, Uw, Vw, ry, ru, rv, pb,
+                                 diags)
     out = []
-    for k, (p, db) in enumerate(zip(planes_b, deblocks)):
-        if db:
-            out.append(_deblock_crop(mb_w, mb_h, Yw[k], Uw[k], Vw[k], p))
-        else:
-            out.append(_crop(mb_w, mb_h, Yw[k], Uw[k], Vw[k]))
-    return tuple(torch.stack(a) for a in zip(*out))
+    with trace.span("dec.deblock"):
+        for k, (p, db) in enumerate(zip(planes_b, deblocks)):
+            if db:
+                out.append(_deblock_crop(mb_w, mb_h, Yw[k], Uw[k], Vw[k], p))
+            else:
+                out.append(_crop(mb_w, mb_h, Yw[k], Uw[k], Vw[k]))
+        return tuple(torch.stack(a) for a in zip(*out))
 
 
 def _store_refs_k(ref_y, ref_u, ref_v, Yk, Uk, Vk, slots):
@@ -756,7 +772,8 @@ class TorchDecoder:
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("TorchDecoder: device 'cuda' requested but "
                                "torch.cuda.is_available() is False")
-        self.sym = native.SymbolDecoder(data)
+        with trace.span("dec.open"):
+            self.sym = native.SymbolDecoder(data)
         self.slot_of = {}   # output_idx -> ring slot
         self.ref_y = None
         self.ref_u = None
@@ -827,7 +844,10 @@ class TorchDecoder:
         buf = []   # pending all-intra run (one geometry, undamaged)
         while True:
             try:
-                f = next(it)
+                fid = trace.new_frame()
+                with trace.span("dec.symbols", frame=fid):
+                    f = next(it)
+                f["trace_frame"] = fid
             except StopIteration:
                 yield from self._flush_run(buf)
                 return
@@ -842,6 +862,7 @@ class TorchDecoder:
                 if prev is None or self._frozen:
                     return
                 cp = PAD // 2
+                trace.count("dec.frames")
                 yield (self.ref_y[prev][PAD:-PAD, PAD:-PAD],
                        self.ref_u[prev][cp:-cp, cp:-cp],
                        self.ref_v[prev][cp:-cp, cp:-cp])
@@ -886,45 +907,73 @@ class TorchDecoder:
         in decode order), one recon_intra_batch, one _store_refs_k, then
         the frames in order under freeze-output."""
         mb_w, mb_h = fs[0]["mb_w"], fs[0]["mb_h"]
-        self._prep_refs(mb_w, mb_h)
-        preps, deblocks, slots = [], [], []
-        for f in fs:
-            planes_np = self._prep_planes(f)[0]
-            preps.append(planes_to_torch(planes_np, self.device))
-            deblocks.append(self._needs_deblock(f, planes_np["nnz"]))
-            slots.append(self._assign_slot(f))
-        Yb, Ub, Vb = recon_intra_batch(mb_w, mb_h, preps, self.ref_y,
-                                       self.ref_u, self.ref_v,
-                                       diagonals(mb_w, mb_h), deblocks)
-        _store_refs_k(self.ref_y, self.ref_u, self.ref_v, Yb, Ub, Vb, slots)
+        with trace.span("dec.frame", frame=fs[0]["trace_frame"]):
+            with trace.span("dec.plan"), trace.span("dec.plan.refs"):
+                self._prep_refs(mb_w, mb_h)
+            preps, deblocks, slots = [], [], []
+            for f in fs:
+                with trace.span("dec.plan", frame=f["trace_frame"]):
+                    planes_np = self._prep_planes(f)[0]
+                    with trace.span("dec.plan.deblock"):
+                        deblocks.append(self._needs_deblock(
+                            f, planes_np["nnz"]))
+                    with trace.span("dec.plan.slots"):
+                        slots.append(self._assign_slot(f))
+                with trace.span("dec.upload", frame=f["trace_frame"]):
+                    preps.append(planes_to_torch(planes_np, self.device))
+            Yb, Ub, Vb = recon_intra_batch(mb_w, mb_h, preps, self.ref_y,
+                                           self.ref_u, self.ref_v,
+                                           diagonals(mb_w, mb_h), deblocks)
+            with trace.span("dec.store"):
+                _store_refs_k(self.ref_y, self.ref_u, self.ref_v, Yb, Ub, Vb,
+                              slots)
         self.routes += [("batch", len(fs))] * len(fs)
         for k, f in enumerate(fs):
             self.crop_px = f.get("crop_px", (0, 0, 0, 0))
             if self._advance_output(f, damaged=False):
+                trace.count("dec.frames")
                 yield Yb[k], Ub[k], Vb[k]
 
     def _decode_one(self, f):
+        with trace.span("dec.frame", frame=f.get("trace_frame")):
+            out = self._decode_frame(f)
+        if out is not None:
+            trace.count("dec.frames")
+            yield out
+
+    def _decode_frame(self, f):
+        """One frame through every stage: the frame to yield, or None."""
         self.crop_px = f.get("crop_px", (0, 0, 0, 0))
         mb_w, mb_h = f["mb_w"], f["mb_h"]
-        self._prep_refs(mb_w, mb_h)
-        planes_np, diags, has_intra, full_intra = self._prep_planes(f)
-        p = planes_to_torch(planes_np, self.device)
-        Yw, Uw, Vw, ry, ru, rv = _residual_and_inter(
-            mb_w, mb_h, p, self.ref_y, self.ref_u, self.ref_v)
-        if has_intra:
-            # the full table -> compact carry; a subset of the diagonals
-            # -> plane carrying (skipped diagonals would starve the
-            # compact buffers)
-            scan = _intra_scan if full_intra else _intra_scan_sparse
-            Yw, Uw, Vw = scan(mb_w, mb_h, Yw, Uw, Vw, ry, ru, rv, p, diags)
-            self.routes.append(("full" if full_intra else "sparse",
-                                len(diags)))
-        else:
-            self.routes.append(("none", 0))
-        if self._needs_deblock(f, planes_np["nnz"]):
-            Y, U, V = _deblock_crop(mb_w, mb_h, Yw, Uw, Vw, p)
-        else:   # every edge has bS 0: the filter is an identity
-            Y, U, V = _crop(mb_w, mb_h, Yw, Uw, Vw)
+        with trace.span("dec.plan"):
+            with trace.span("dec.plan.refs"):
+                self._prep_refs(mb_w, mb_h)
+            planes_np, diags, has_intra, full_intra = self._prep_planes(f)
+        with trace.span("dec.upload"):
+            p = planes_to_torch(planes_np, self.device)
+        with trace.span("dec.inter"):
+            pred = _inter_pred(mb_w, mb_h, p, self.ref_y, self.ref_u,
+                               self.ref_v)
+        with trace.span("dec.residual"):
+            Yw, Uw, Vw, ry, ru, rv = _residual_recon(
+                mb_w, mb_h, p, *(pred or (None,) * 3))
+        with trace.span("dec.intra"):
+            if has_intra:
+                # the full table -> compact carry; a subset of the
+                # diagonals -> plane carrying (skipped diagonals would
+                # starve the compact buffers)
+                scan = _intra_scan if full_intra else _intra_scan_sparse
+                Yw, Uw, Vw = scan(mb_w, mb_h, Yw, Uw, Vw, ry, ru, rv, p,
+                                  diags)
+                self.routes.append(("full" if full_intra else "sparse",
+                                    len(diags)))
+            else:
+                self.routes.append(("none", 0))
+        with trace.span("dec.deblock"):
+            if self._needs_deblock(f, planes_np["nnz"]):
+                Y, U, V = _deblock_crop(mb_w, mb_h, Yw, Uw, Vw, p)
+            else:   # every edge has bS 0: the filter is an identity
+                Y, U, V = _crop(mb_w, mb_h, Yw, Uw, Vw)
         damaged = (f.get("lost_slices", 0) > 0
                    or not bool(f["decoded"].all()))
         if damaged and not self._ec:
@@ -934,15 +983,17 @@ class TorchDecoder:
                    int((f["decoded"] == 0).sum())))
         if damaged:
             # rare path: the shared reference-policy concealment on host
-            self.concealed += 1
-            prev = self._fetch_output(self.out_idx - 1, mb_w, mb_h)
-            yuv = tuple(a.cpu().numpy() for a in (Y, U, V))
-            Y, U, V = (torch.from_numpy(np.ascontiguousarray(a))
-                       .to(self.device) for a in ref_np.conceal_undecoded(
-                           f, yuv, prev, self.out_idx - 1, self._ec_mode))
-        out = self._finish_frame(f, Y, U, V, damaged)
-        if out is not None:
-            yield out
+            with trace.span("dec.conceal"):
+                self.concealed += 1
+                prev = self._fetch_output(self.out_idx - 1, mb_w, mb_h)
+                yuv = tuple(a.cpu().numpy() for a in (Y, U, V))
+                Y, U, V = (torch.from_numpy(np.ascontiguousarray(a))
+                           .to(self.device)
+                           for a in ref_np.conceal_undecoded(
+                               f, yuv, prev, self.out_idx - 1,
+                               self._ec_mode))
+        with trace.span("dec.store"):
+            return self._finish_frame(f, Y, U, V, damaged)
 
     def _assign_slot(self, f):
         """Pick (and record) the ring slot for the frame about to be
@@ -991,16 +1042,25 @@ class TorchDecoder:
         the symbol layer's dtypes), diags the intra pass's table
         (_intra_diags; None without intra MBs)."""
         mb_w, mb_h = f["mb_w"], f["mb_h"]
-        # remap output-idx refs to ring slots
-        rf = f["ref_frame"].astype(np.int32)
-        slot_map = np.full(max(self.out_idx + 1, 1), -1, np.int32)
-        for oi, sl in self.slot_of.items():
-            slot_map[oi] = sl
-        ref_slot = np.where(
-            rf >= 0, slot_map[np.clip(rf, 0, len(slot_map) - 1)], -1) \
-            .astype(np.int32)
-        diags, full_intra = self._intra_diags(
-            mb_w, mb_h, np.isin(f["mb_class"], [0, 1, 2]))
+        with trace.span("dec.plan.slots"):
+            # remap output-idx refs to ring slots
+            rf = f["ref_frame"].astype(np.int32)
+            slot_map = np.full(max(self.out_idx + 1, 1), -1, np.int32)
+            for oi, sl in self.slot_of.items():
+                slot_map[oi] = sl
+            ref_slot = np.where(
+                rf >= 0, slot_map[np.clip(rf, 0, len(slot_map) - 1)], -1) \
+                .astype(np.int32)
+        with trace.span("dec.plan.intra"):
+            diags, full_intra = self._intra_diags(
+                mb_w, mb_h, np.isin(f["mb_class"], [0, 1, 2]))
+        with trace.span("dec.plan.avail"):
+            avail = self._avail_plane(f)
+        with trace.span("dec.plan.scaling"):
+            w4 = [ref_np.weights4(f["scaling4"][i]) for i in range(6)]
+            w8 = [ref_np.weights8(f["scaling8"][i]) for i in range(2)]
+        with trace.span("dec.plan.nnz"):
+            nnz = self._nnz_plane(f)
         planes = {
             "mb_class": f["mb_class"],
             "qp": f["qp"],
@@ -1021,14 +1081,14 @@ class TorchDecoder:
             "deblock_idc": f["deblock_idc"],
             "alpha_off": f["alpha_off"],
             "beta_off": f["beta_off"],
-            "avail": self._avail_plane(f),
+            "avail": avail,
             "use_scaling": np.bool_(bool(f["use_scaling"])),
             "chroma_qp_offset": np.int32(f["chroma_qp_offset"]),
             "second_chroma_qp_offset":
                 np.int32(f["second_chroma_qp_offset"]),
-            "w4": [ref_np.weights4(f["scaling4"][i]) for i in range(6)],
-            "w8": [ref_np.weights8(f["scaling8"][i]) for i in range(2)],
-            "nnz": self._nnz_plane(f),
+            "w4": w4,
+            "w8": w8,
+            "nnz": nnz,
         }
         # planes the frame does not use are omitted (transform-8x8, PCM,
         # weighted prediction), as JaxDecoder omits them
@@ -1036,22 +1096,23 @@ class TorchDecoder:
             planes["luma8"] = f["luma8"]
         if (f["mb_class"] == 8).any():
             planes["pcm"] = f["pcm"]
-        wp = f["wp_luma"]
-        has_wp = ((wp[:, :, 2] >= 0).any()
-                  or (f["wp_cb"][:, :, 2] >= 0).any())
-        if has_wp:
-            planes["wp_luma"] = wp
-            planes["wp_cb"] = f["wp_cb"]
-            planes["wp_cr"] = f["wp_cr"]
-            planes["wp_cmask"] = f["wp_cmask"]
-        # bucketed dense-shift MC plan: frames the caps or WP exclude take
-        # the general per-cell path via mc_fast=False
-        plan = tmc.mc_fast_plan(mb_w, mb_h, ref_slot,
-                                f["mv"].astype(np.int32), PAD)
-        if has_wp:
-            plan["mc_fast"] = np.bool_(False)
-        plan["mc_any"] = np.bool_(bool((ref_slot >= 0).any()))
-        planes.update(plan)
+        with trace.span("dec.plan.mc"):
+            wp = f["wp_luma"]
+            has_wp = ((wp[:, :, 2] >= 0).any()
+                      or (f["wp_cb"][:, :, 2] >= 0).any())
+            if has_wp:
+                planes["wp_luma"] = wp
+                planes["wp_cb"] = f["wp_cb"]
+                planes["wp_cr"] = f["wp_cr"]
+                planes["wp_cmask"] = f["wp_cmask"]
+            # bucketed dense-shift MC plan: frames the caps or WP exclude
+            # take the general per-cell path via mc_fast=False
+            plan = tmc.mc_fast_plan(mb_w, mb_h, ref_slot,
+                                    f["mv"].astype(np.int32), PAD)
+            if has_wp:
+                plan["mc_fast"] = np.bool_(False)
+            plan["mc_any"] = np.bool_(bool((ref_slot >= 0).any()))
+            planes.update(plan)
         return planes, diags, diags is not None, full_intra
 
     def _fetch_output(self, out_idx, mb_w, mb_h):

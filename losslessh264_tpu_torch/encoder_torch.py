@@ -51,6 +51,7 @@ from . import _build
 from . import encoder_native
 from . import processing
 from . import ratectl
+from . import trace
 from .decoder_torch import (BLK, PAD, WPAD, _I4_TR_KIND, _edge_pad,
                             _plane_to_tiles, _tiles_to_plane)
 from .ops import deblock as tdb
@@ -489,92 +490,95 @@ def encode_inter_mbs(mb_w, mb_h, radius, Y, U, V, refY_s, refU_s, refV_s,
     subpel_k1, residual). Returns (mvx,
     mvy, use_intra, part, ref_sel, mv8, mvq, luma_ac zigzag, chroma_dc,
     chroma_ac, tile_y, tile_u, tile_v, no_res), as encoder_jax does."""
-    n = mb_w * mb_h
-    dev = Y.device
-    i32 = torch.int32
-    R = refY_s.shape[0]
-    WpY = refY_s.shape[2]
-    WpC = refU_s.shape[2]
-    lam = on(LAMBDA, dev)[qp.long()]
-    srcY_t = _plane_to_tiles(Y.to(i32), mb_w, mb_h, 16)
-    mbi = torch.arange(n, device=dev)
-    mby0 = (mbi // mb_w) * 16
-    mbx0 = (mbi % mb_w) * 16
+    with trace.span("enc.search"):
+        n = mb_w * mb_h
+        dev = Y.device
+        i32 = torch.int32
+        R = refY_s.shape[0]
+        WpY = refY_s.shape[2]
+        WpC = refU_s.shape[2]
+        lam = on(LAMBDA, dev)[qp.long()]
+        srcY_t = _plane_to_tiles(Y.to(i32), mb_w, mb_h, 16)
+        mbi = torch.arange(n, device=dev)
+        mby0 = (mbi // mb_w) * 16
+        mbx0 = (mbi % mb_w) * 16
 
-    refcatY = torch.cat(list(refY_s), 1)
-    refcatU = torch.cat(list(refU_s), 1)
-    refcatV = torch.cat(list(refV_s), 1)
+        refcatY = torch.cat(list(refY_s), 1)
+        refcatU = torch.cat(list(refU_s), 1)
+        refcatV = torch.cat(list(refV_s), 1)
 
-    # integer-pel search per reference at the full radius, every
-    # partition shape at once
-    Hf, Wf = Y.shape
-    sdy = int(scroll_dy)
-    if abs(sdy) > PAD - 4 - radius - 1:
-        raise ValueError(f"scroll_dy {sdy}: the search window leaves the "
-                         f"{PAD}-pixel reference padding")
-    o = PAD - radius
-    dres = [tme.dense_full_search(Y.to(i32),
-                                  refY_s[k, o + sdy:o + sdy + Hf + 2 * radius,
-                                         o:o + Wf + 2 * radius], radius)
-            for k in range(R)]
-    d16, dh, dv, d8 = dres[0]
-    ref_sel = torch.zeros(n, dtype=i32, device=dev)
-    if R == 2:
-        take1 = (dres[1][0][2] + lam) < d16[2]  # te(ref_idx) bit bias
+        # integer-pel search per reference at the full radius, every
+        # partition shape at once
+        Hf, Wf = Y.shape
+        sdy = int(scroll_dy)
+        if abs(sdy) > PAD - 4 - radius - 1:
+            raise ValueError(f"scroll_dy {sdy}: the search window leaves the "
+                             f"{PAD}-pixel reference padding")
+        o = PAD - radius
+        y_end, x_end = o + sdy + Hf + 2 * radius, o + Wf + 2 * radius
+        dres = [tme.dense_full_search(Y.to(i32),
+                                      refY_s[k, o + sdy:y_end, o:x_end],
+                                      radius)
+                for k in range(R)]
+        d16, dh, dv, d8 = dres[0]
+        ref_sel = torch.zeros(n, dtype=i32, device=dev)
+        if R == 2:
+            take1 = (dres[1][0][2] + lam) < d16[2]  # te(ref_idx) bit bias
 
-        def _sel(a, b, t):
-            return tuple(torch.where(t, y, x) for x, y in zip(a, b))
+            def _sel(a, b, t):
+                return tuple(torch.where(t, y, x) for x, y in zip(a, b))
 
-        d16 = _sel(d16, dres[1][0], take1)
-        dh = _sel(dh, dres[1][1], take1.repeat_interleave(2))
-        dv = _sel(dv, dres[1][2], take1.repeat_interleave(2))
-        d8 = _sel(d8, dres[1][3], take1.repeat_interleave(4))
-        ref_sel = take1.to(i32)
-    xoffL = ref_sel * WpY
-    xoffC = ref_sel * WpC
-    stage("dense_search")
+            d16 = _sel(d16, dres[1][0], take1)
+            dh = _sel(dh, dres[1][1], take1.repeat_interleave(2))
+            dv = _sel(dv, dres[1][2], take1.repeat_interleave(2))
+            d8 = _sel(d8, dres[1][3], take1.repeat_interleave(4))
+            ref_sel = take1.to(i32)
+        xoffL = ref_sel * WpY
+        xoffC = ref_sel * WpC
+        stage("dense_search")
 
-    # partition decision on the integer-pel SADs + lambda * side bits
-    cost = torch.stack([
-        d16[2] + lam * 4,                                # 0: P16x16
-        dh[2].reshape(n, 2).sum(1, dtype=i32) + lam * 11,  # 1: P16x8
-        dv[2].reshape(n, 2).sum(1, dtype=i32) + lam * 11,  # 2: P8x16
-        d8[2].reshape(n, 4).sum(1, dtype=i32) + lam * 20,  # 3: P8x8
-    ], 1)
-    part = torch.argmin(cost, 1).to(i32)
+        # partition decision on the integer-pel SADs + lambda * side bits
+        cost = torch.stack([
+            d16[2] + lam * 4,                                # 0: P16x16
+            dh[2].reshape(n, 2).sum(1, dtype=i32) + lam * 11,  # 1: P16x8
+            dv[2].reshape(n, 2).sum(1, dtype=i32) + lam * 11,  # 2: P8x16
+            d8[2].reshape(n, 4).sum(1, dtype=i32) + lam * 20,  # 3: P8x8
+        ], 1)
+        part = torch.argmin(cost, 1).to(i32)
 
-    # the chosen partition's integer MV per 8x8 quadrant
-    quad = torch.arange(4, device=dev)
-    pn = part[:, None]
+        # the chosen partition's integer MV per 8x8 quadrant
+        quad = torch.arange(4, device=dev)
+        pn = part[:, None]
 
-    def _qsel(a16, ah, av, a8):
-        a = torch.where(pn == 1, ah.reshape(n, 2)[:, quad // 2],
-                        a16[:, None].expand(n, 4))
-        a = torch.where(pn == 2, av.reshape(n, 2)[:, quad % 2], a)
-        return torch.where(pn == 3, a8.reshape(n, 4), a)
+        def _qsel(a16, ah, av, a8):
+            a = torch.where(pn == 1, ah.reshape(n, 2)[:, quad // 2],
+                            a16[:, None].expand(n, 4))
+            a = torch.where(pn == 2, av.reshape(n, 2)[:, quad % 2], a)
+            return torch.where(pn == 3, a8.reshape(n, 4), a)
 
-    ivy_q = _qsel(d16[0], dh[0], dv[0], d8[0]).reshape(n * 4) + sdy
-    ivx_q = _qsel(d16[1], dh[1], dv[1], d8[1]).reshape(n * 4)
+        ivy_q = _qsel(d16[0], dh[0], dv[0], d8[0]).reshape(n * 4) + sdy
+        ivx_q = _qsel(d16[1], dh[1], dv[1], d8[1]).reshape(n * 4)
 
-    by8 = (mby0[:, None] + (quad // 2)[None, :] * 8).reshape(-1)   # [4n]
-    bx8 = (mbx0[:, None] + (quad % 2)[None, :] * 8).reshape(-1)
-    src8 = srcY_t.reshape(n, 2, 8, 2, 8).permute(0, 1, 3, 2, 4) \
-        .reshape(n * 4, 8, 8)
-    xo4 = xoffL.repeat_interleave(4)
+        by8 = (mby0[:, None] + (quad // 2)[None, :] * 8).reshape(-1)   # [4n]
+        bx8 = (mbx0[:, None] + (quad % 2)[None, :] * 8).reshape(-1)
+        src8 = srcY_t.reshape(n, 2, 8, 2, 8).permute(0, 1, 3, 2, 4) \
+            .reshape(n * 4, 8, 8)
+        xo4 = xoffL.repeat_interleave(4)
 
-    # K1: half-pel planes of the concatenated reference (uint8, pitched),
-    # then the joint quarter-pel refinement of the chosen partition
-    planes = tmc._halfpel_planes_u8(refcatY)
-    mvqx, mvqy, best_sad, pred_q = tme.subpel_quad(
-        planes, PAD, by8, bx8 + xo4, ivx_q * 4, ivy_q * 4, src8, part)
-    stage("subpel_k1")
+        # K1: half-pel planes of the concatenated reference (uint8, pitched),
+        # then the joint quarter-pel refinement of the chosen partition
+        planes = tmc._halfpel_planes_u8(refcatY)
+        mvqx, mvqy, best_sad, pred_q = tme.subpel_quad(
+            planes, PAD, by8, bx8 + xo4, ivx_q * 4, ivy_q * 4, src8, part)
+        stage("subpel_k1")
 
-    mvq = torch.stack([mvqx, mvqy], 1).reshape(n, 4, 2)
-    (use_intra, part, mv8, qac_zz, cdc, cac, tile_y, tile_u, tile_v,
-     no_res) = inter_residual(mb_w, mb_h, Y, U, V, pred_q, mvqx, mvqy,
-                              best_sad, part, refcatU, refcatV, xoffC, qp,
-                              qpc, rd_lam)
-    stage("residual")
+    with trace.span("enc.residual"):
+        mvq = torch.stack([mvqx, mvqy], 1).reshape(n, 4, 2)
+        (use_intra, part, mv8, qac_zz, cdc, cac, tile_y, tile_u, tile_v,
+         no_res) = inter_residual(mb_w, mb_h, Y, U, V, pred_q, mvqx, mvqy,
+                                  best_sad, part, refcatU, refcatV, xoffC, qp,
+                                  qpc, rd_lam)
+        stage("residual")
     return (mvq[:, 0, 0], mvq[:, 0, 1], use_intra, part, ref_sel, mv8, mvq,
             qac_zz, cdc, cac, tile_y, tile_u, tile_v, no_res)
 
@@ -857,23 +861,25 @@ def _p_analyze(mb_w, mb_h, radius, buf, refY, refU, refV, qp, qpc,
     fetches, plus the deblock prep planes."""
     n = mb_w * mb_h
     Y, U, V = _split_src(mb_h, mb_w, buf)
-    refY_s, refU_s, refV_s = _pad_refs(refY, refU, refV)
+    with trace.span("enc.pad_refs"):
+        refY_s, refU_s, refV_s = _pad_refs(refY, refU, refV)
     (mvx, mvy, use_intra, part, ref_sel, mv8, mvq, qac_zz, cdc, cac,
      tile_y, tile_u, tile_v, no_res) = encode_inter_mbs(
         mb_w, mb_h, radius, Y, U, V, refY_s, refU_s, refV_s, qp, qpc,
         scroll_dy, rd_lam, stage)
-    meta = _meta_rows(mvx, mvy, use_intra, no_res, part, mv8, ref_sel)
-    packed = torch.cat([meta, qac_zz.reshape(n, 256).to(torch.int16),
-                        cdc.reshape(n, 8).to(torch.int16),
-                        cac.reshape(n, 128).to(torch.int16)], 1)
-    # deblock prep (the host's later P_Skip / I4 class refinements do not
-    # change boundary strengths: skip stays inter with the same MV/nnz,
-    # I4 stays intra)
-    cls_d = torch.where(use_intra, 1, 3 + part).to(torch.int32)
-    nnz_d = (qac_zz != 0).any(-1)
-    mvc = mvq[:, on(_CELL_PART8, Y.device), :]  # quadrant MV -> 4x4 cells
-    mvc = torch.where(use_intra[:, None, None], 0, mvc)
-    refc = ref_sel[:, None].expand(n, 16)
+    with trace.span("enc.pack"):
+        meta = _meta_rows(mvx, mvy, use_intra, no_res, part, mv8, ref_sel)
+        packed = torch.cat([meta, qac_zz.reshape(n, 256).to(torch.int16),
+                            cdc.reshape(n, 8).to(torch.int16),
+                            cac.reshape(n, 128).to(torch.int16)], 1)
+        # deblock prep (the host's later P_Skip / I4 class refinements do
+        # not change boundary strengths: skip stays inter with the same
+        # MV/nnz, I4 stays intra)
+        cls_d = torch.where(use_intra, 1, 3 + part).to(torch.int32)
+        nnz_d = (qac_zz != 0).any(-1)
+        mvc = mvq[:, on(_CELL_PART8, Y.device), :]  # quadrant MV -> cells
+        mvc = torch.where(use_intra[:, None, None], 0, mvc)
+        refc = ref_sel[:, None].expand(n, 16)
     return (packed, tile_y, tile_u, tile_v, Y, U, V, use_intra, cls_d,
             nnz_d, mvc, refc)
 
@@ -941,6 +947,7 @@ def _to_host(t):
     """(a host copy of t, None) on the CPU; on CUDA (a pinned host tensor
     that a non-blocking copy fills, the CUDA event that marks the copy
     done), so the device's stream runs on while the copy is in flight."""
+    trace.count_bytes("enc.d2h_bytes", t)
     if t.device.type != "cuda":
         return t, None
     host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
@@ -975,50 +982,34 @@ def _p_batch(mb_w, mb_h, radius, idc, bufs, refY, refU, refV, qp, qpc,
          nnz_d, mvc, refc) = _p_analyze(mb_w, mb_h, radius, buf,
                                         *(p[None] for p in rec), qp, qpc,
                                         rd_lam=rd_lam)
-        use_intra = use_intra_d.cpu().numpy()
-        # the inter MBs' symbol rows (the constants _encode_p writes)
-        syms = _sym_rows(zero.expand(n, 16), packed[:, META_W:270],
-                         packed[:, 270:278], packed[:, 278:406],
-                         zero.expand(n), zero.expand(n), (zero + 1).expand(n),
-                         (zero + 2).expand(n, 16))
+        with trace.span("enc.mask_fetch"):
+            use_intra = use_intra_d.cpu().numpy()
+            trace.count_bytes("enc.d2h_bytes", use_intra)
+        with trace.span("enc.pack"):
+            # the inter MBs' symbol rows (the constants _encode_p writes)
+            syms = _sym_rows(zero.expand(n, 16), packed[:, META_W:270],
+                             packed[:, 270:278], packed[:, 278:406],
+                             zero.expand(n), zero.expand(n),
+                             (zero + 1).expand(n), (zero + 2).expand(n, 16))
         if use_intra.any():
-            rows, *rec = _p_intra_fixup(
-                mb_w, mb_h, idc, Yd, Ud, Vd, tile_y, tile_u, tile_v,
-                use_intra, use_intra_d, cls_d, nnz_d, mvc, refc, qp, qpc, qp,
-                slice_id, row_slice)
-            syms[torch.as_tensor(np.flatnonzero(use_intra), device=dev)] = \
-                rows
+            with trace.span("enc.intra_fixup"):
+                rows, *rec = _p_intra_fixup(
+                    mb_w, mb_h, idc, Yd, Ud, Vd, tile_y, tile_u, tile_v,
+                    use_intra, use_intra_d, cls_d, nnz_d, mvc, refc, qp, qpc,
+                    qp, slice_id, row_slice)
+                syms[torch.as_tensor(np.flatnonzero(use_intra),
+                                     device=dev)] = rows
         else:
-            rec = _p_finish(mb_w, mb_h, idc, tile_y, tile_u, tile_v, cls_d,
-                            nnz_d, mvc, refc, qp, slice_id)
-        out.append((*_to_host(torch.cat([packed[:, :META_W], syms], 1)),
-                    int(use_intra.sum())))
+            with trace.span("enc.finish"):
+                rec = _p_finish(mb_w, mb_h, idc, tile_y, tile_u, tile_v,
+                                cls_d, nnz_d, mvc, refc, qp, slice_id)
+        with trace.span("enc.to_host"):
+            out.append((*_to_host(torch.cat([packed[:, :META_W], syms], 1)),
+                        int(use_intra.sum())))
     return out, tuple(rec)
 
 
-class StageTimer:
-    """Wall milliseconds per encoder stage, summed over frames. Each stage
-    ends with a torch.cuda.synchronize() on CUDA, so a stage holds its own
-    device work; timing is off (and costs nothing) unless an encoder's
-    `stages` is set to one of these."""
-
-    def __init__(self, device):
-        self.device = torch.device(device)
-        self.ms = {}
-        self._t = None
-
-    def _now(self):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        return time.perf_counter()
-
-    def start(self):
-        self._t = self._now()
-
-    def __call__(self, name):
-        t = self._now()
-        self.ms[name] = self.ms.get(name, 0.0) + (t - self._t) * 1e3
-        self._t = t
+StageTimer = trace.StageTimer   # the tracer's marker mode
 
 
 # ---------------------------------------------------------------------------
@@ -1299,7 +1290,9 @@ class TorchEncoder:
         numpy planes, or built on the device from tensors (the simulcast
         layers' planes), with the same edge padding."""
         if not isinstance(Y, torch.Tensor):
-            return torch.from_numpy(self._host_buf(Y, U, V)).to(self.device)
+            host = self._host_buf(Y, U, V)
+            trace.count_bytes("enc.h2d_bytes", host)
+            return torch.from_numpy(host).to(self.device)
         H, W = self.mb_h * 16, self.mb_w * 16
         dev = self.device
 
@@ -1363,25 +1356,31 @@ class TorchEncoder:
         if self._per_mb_qp:
             return self._encode_i_aq(buf)
         self.encodes.append(("I", "fused", self._cur_is_ref, n))
-        qp_d, qpc_d = self._qp_maps()
-        rows_d, recY, recU, recV = _i_frame(
-            self.mb_w, self.mb_h, self.deblock_idc, buf, qp_d, qpc_d, qp_d,
-            self._slice_id, self._row_slice_np, self._stage)
+        with trace.span("enc.qp_maps"):
+            qp_d, qpc_d = self._qp_maps()
+        with trace.span("enc.idr"):
+            rows_d, recY, recU, recV = _i_frame(
+                self.mb_w, self.mb_h, self.deblock_idc, buf, qp_d, qpc_d,
+                qp_d, self._slice_id, self._row_slice_np, self._stage)
         self.ref = (recY, recU, recV)
-        rows = rows_d.cpu().numpy()      # the frame's one symbol fetch
-        self._stage("fetch")
-        (ldc, lac, cdc, cac, i16m, cm, cls, m4) = _unpack(rows)
+        with trace.span("enc.to_host"):
+            rows = rows_d.cpu().numpy()      # the frame's one symbol fetch
+            trace.count_bytes("enc.d2h_bytes", rows)
+            self._stage("fetch")
+            (ldc, lac, cdc, cac, i16m, cm, cls, m4) = _unpack(rows)
         mb_class = np.where(cls == 0, 0, 1).astype(np.uint8)
         mv = np.zeros((n, 2), np.int16)
         # n_refs on an IDR only sizes the SPS DPB (max_num_ref_frames)
-        return self._write(1, mb_class, mv, i16m, cm, ldc, lac, cdc, cac,
-                           i4_modes=m4, n_refs=self.refs)
+        with trace.span("enc.write"):
+            return self._write(1, mb_class, mv, i16m, cm, ldc, lac, cdc,
+                               cac, i4_modes=m4, n_refs=self.refs)
 
     def _encode_p(self, buf):
         if self._per_mb_qp:
             return self._encode_p_aq(buf)
         n = self.mb_w * self.mb_h
-        qp_d, qpc_d = self._qp_maps()
+        with trace.span("enc.qp_maps"):
+            qp_d, qpc_d = self._qp_maps()
         if self.refs == 2 and self._ref2 is not None:
             n_refs = 2
             stack = [torch.stack([a, b]) for a, b in zip(self.ref,
@@ -1393,43 +1392,51 @@ class TorchEncoder:
          nnz_d, mvc_d, refc_d) = _p_analyze(
             self.mb_w, self.mb_h, self.ME_RADIUS, buf, *stack, qp_d, qpc_d,
             self._scroll_dy, self.trellis_lam, self._stage)
-        packed = packed_d.cpu().numpy()  # the frame's one symbol fetch
-        meta = packed[:, :META_W]
-        use_intra = meta[:, 2] != 0
-        lac = packed[:, 14:270].reshape(n, 16, 16).copy()
-        cdc = packed[:, 270:278].reshape(n, 2, 4).copy()
-        cac = packed[:, 278:406].reshape(n, 8, 16).copy()
-        ldc = np.zeros((n, 16), np.int16)
-        i16m = np.zeros(n, np.int16)
-        cm = np.zeros(n, np.int16)
-        cls = np.ones(n, np.int16)
-        m4 = np.full((n, 16), 2, np.int16)
-        self._stage("fetch")     # the fetch and its unpacking on the host
+        with trace.span("enc.to_host"):
+            packed = packed_d.cpu().numpy()  # the frame's one symbol fetch
+            trace.count_bytes("enc.d2h_bytes", packed)
+            meta = packed[:, :META_W]
+            use_intra = meta[:, 2] != 0
+            lac = packed[:, 14:270].reshape(n, 16, 16).copy()
+            cdc = packed[:, 270:278].reshape(n, 2, 4).copy()
+            cac = packed[:, 278:406].reshape(n, 8, 16).copy()
+            ldc = np.zeros((n, 16), np.int16)
+            i16m = np.zeros(n, np.int16)
+            cm = np.zeros(n, np.int16)
+            cls = np.ones(n, np.int16)
+            m4 = np.full((n, 16), 2, np.int16)
+            self._stage("fetch")   # the fetch and its unpacking on the host
         self.encodes.append(("P", "fused", self._cur_is_ref,
                              int(use_intra.sum())))
         rec = None
         if use_intra.any():
-            rows_d, *rec = _p_intra_fixup(
-                self.mb_w, self.mb_h, self.deblock_idc, Yd, Ud, Vd, tile_y,
-                tile_u, tile_v, use_intra, use_intra_d, cls_d, nnz_d, mvc_d,
-                refc_d, qp_d, qpc_d, qp_d, self._slice_id,
-                self._row_slice_np, self._stage)
-            # the intra MBs' symbols: a second, small fetch
-            idx = np.flatnonzero(use_intra)
-            (ldc[idx], lac[idx], cdc[idx], cac[idx], i16m[idx], cm[idx],
-             cls[idx], m4[idx]) = _unpack(rows_d.cpu().numpy())
-            self._stage("fetch")
+            with trace.span("enc.intra_fixup"):
+                rows_d, *rec = _p_intra_fixup(
+                    self.mb_w, self.mb_h, self.deblock_idc, Yd, Ud, Vd,
+                    tile_y, tile_u, tile_v, use_intra, use_intra_d, cls_d,
+                    nnz_d, mvc_d, refc_d, qp_d, qpc_d, qp_d, self._slice_id,
+                    self._row_slice_np, self._stage)
+            with trace.span("enc.to_host"):
+                # the intra MBs' symbols: a second, small fetch
+                idx = np.flatnonzero(use_intra)
+                rows = rows_d.cpu().numpy()
+                trace.count_bytes("enc.d2h_bytes", rows)
+                (ldc[idx], lac[idx], cdc[idx], cac[idx], i16m[idx], cm[idx],
+                 cls[idx], m4[idx]) = _unpack(rows)
+                self._stage("fetch")
         elif self._cur_is_ref:
             # a non-reference frame (T1) never becomes a reference: no
             # recon and no deblock for it
-            rec = _p_finish(self.mb_w, self.mb_h, self.deblock_idc, tile_y,
-                            tile_u, tile_v, cls_d, nnz_d, mvc_d, refc_d,
-                            qp_d, self._slice_id, self._stage)
+            with trace.span("enc.finish"):
+                rec = _p_finish(self.mb_w, self.mb_h, self.deblock_idc,
+                                tile_y, tile_u, tile_v, cls_d, nnz_d, mvc_d,
+                                refc_d, qp_d, self._slice_id, self._stage)
         if self._cur_is_ref:
             self._ref2 = self.ref if self.refs == 2 else None
             self.ref = tuple(rec)
-        return self._write_p(meta, ldc, lac, cdc, cac, i16m, cm, cls, m4,
-                             n_refs)
+        with trace.span("enc.write"):
+            return self._write_p(meta, ldc, lac, cdc, cac, i16m, cm, cls,
+                                 m4, n_refs)
 
     def _write_p(self, meta, ldc, lac, cdc, cac, i16m, cm, cls, m4, n_refs):
         """The host tail of a P frame of the fused path, from its meta
@@ -1464,24 +1471,32 @@ class TorchEncoder:
         n = self.mb_w * self.mb_h
         self.encodes.append(("I", "aq", self._cur_is_ref, n))
         Yd, Ud, Vd = _split_src(self.mb_h, self.mb_w, buf)
-        qp_d, qpc_d = self._qp_maps(Yd)
-        zt16 = torch.zeros((n, 16, 16), dtype=torch.int32, device=self.device)
-        zt8 = torch.zeros((n, 8, 8), dtype=torch.int32, device=self.device)
-        (i16_mode, intra_cls, i4_modes, chroma_mode, ldc, lac, cdc, cac,
-         recY, recU, recV) = intra_wavefront(
-            self.mb_w, self.mb_h, Yd, Ud, Vd, zt16, zt8, zt8,
-            np.ones(n, bool), qp_d, qpc_d, self._row_slice_np)
-        self._stage("intra")
+        with trace.span("enc.qp_maps"):
+            qp_d, qpc_d = self._qp_maps(Yd)
+        with trace.span("enc.idr"):
+            zt16 = torch.zeros((n, 16, 16), dtype=torch.int32,
+                               device=self.device)
+            zt8 = torch.zeros((n, 8, 8), dtype=torch.int32,
+                              device=self.device)
+            (i16_mode, intra_cls, i4_modes, chroma_mode, ldc, lac, cdc, cac,
+             recY, recU, recV) = intra_wavefront(
+                self.mb_w, self.mb_h, Yd, Ud, Vd, zt16, zt8, zt8,
+                np.ones(n, bool), qp_d, qpc_d, self._row_slice_np)
+            self._stage("intra")
         self.ref = (recY, recU, recV)
-        rows = _sym_rows(ldc, lac, cdc, cac, i16_mode, chroma_mode,
-                         intra_cls, i4_modes).cpu().numpy()
-        self._stage("fetch")
-        (ldc, lac, cdc, cac, i16m, cm, cls, m4) = _unpack(rows)
+        with trace.span("enc.to_host"):
+            rows = _sym_rows(ldc, lac, cdc, cac, i16_mode, chroma_mode,
+                             intra_cls, i4_modes).cpu().numpy()
+            trace.count_bytes("enc.d2h_bytes", rows)
+            self._stage("fetch")
+            (ldc, lac, cdc, cac, i16m, cm, cls, m4) = _unpack(rows)
         mb_class = np.where(cls == 0, 0, 1).astype(np.uint8)
         mv = np.zeros((n, 2), np.int16)
-        data = self._write(1, mb_class, mv, i16m, cm, ldc, lac, cdc, cac,
-                           i4_modes=m4, mb_qp=self._qp_plane)
-        self._apply_deblock(mb_class, lac, mv)
+        with trace.span("enc.write"):
+            data = self._write(1, mb_class, mv, i16m, cm, ldc, lac, cdc, cac,
+                               i4_modes=m4, mb_qp=self._qp_plane)
+        with trace.span("enc.finish"):
+            self._apply_deblock(mb_class, lac, mv)
         return data
 
     def _encode_p_aq(self, buf):
@@ -1492,15 +1507,19 @@ class TorchEncoder:
         the previous reference (ROADMAP §3)."""
         n = self.mb_w * self.mb_h
         Yd, Ud, Vd = _split_src(self.mb_h, self.mb_w, buf)
-        refY_s, refU_s, refV_s = _pad_refs(*(p[None] for p in self.ref))
-        qp_d, qpc_d = self._qp_maps(Yd)
+        with trace.span("enc.pad_refs"):
+            refY_s, refU_s, refV_s = _pad_refs(*(p[None] for p in self.ref))
+        with trace.span("enc.qp_maps"):
+            qp_d, qpc_d = self._qp_maps(Yd)
         (mvx, mvy, use_intra_d, part_d, ref_sel_d, mv8_d, mvq_d, qac_zz,
          cdc_d, cac_d, tile_y, tile_u, tile_v, no_res_d) = encode_inter_mbs(
             self.mb_w, self.mb_h, self.ME_RADIUS, Yd, Ud, Vd, refY_s, refU_s,
             refV_s, qp_d, qpc_d, self._scroll_dy, self.trellis_lam,
             self._stage)
-        meta = _meta_rows(mvx, mvy, use_intra_d, no_res_d, part_d, mv8_d,
-                          ref_sel_d).cpu().numpy()
+        with trace.span("enc.mask_fetch"):
+            meta = _meta_rows(mvx, mvy, use_intra_d, no_res_d, part_d,
+                              mv8_d, ref_sel_d).cpu().numpy()
+            trace.count_bytes("enc.d2h_bytes", meta)
         use_intra = meta[:, 2] != 0
         no_res = meta[:, 3] != 0
         part = meta[:, 4]
@@ -1515,12 +1534,14 @@ class TorchEncoder:
         zero = torch.zeros((), dtype=torch.int32, device=self.device)
         if use_intra.any():
             m = (~use_intra_d)[:, None, None]
-            (i16_mode, intra_cls, i4_modes, chroma_mode, ldc_i, lac_i,
-             cdc_i, cac_i, recY, recU, recV) = intra_wavefront(
-                self.mb_w, self.mb_h, Yd, Ud, Vd, torch.where(m, tile_y, 0),
-                torch.where(m, tile_u, 0), torch.where(m, tile_v, 0),
-                use_intra, qp_d, qpc_d, self._row_slice_np)
-            self._stage("intra")
+            with trace.span("enc.intra_fixup"):
+                (i16_mode, intra_cls, i4_modes, chroma_mode, ldc_i, lac_i,
+                 cdc_i, cac_i, recY, recU, recV) = intra_wavefront(
+                    self.mb_w, self.mb_h, Yd, Ud, Vd,
+                    torch.where(m, tile_y, 0), torch.where(m, tile_u, 0),
+                    torch.where(m, tile_v, 0), use_intra, qp_d, qpc_d,
+                    self._row_slice_np)
+                self._stage("intra")
             sel = use_intra_d[:, None, None]
             rows_d = _sym_rows(
                 torch.where(use_intra_d[:, None], ldc_i, zero),
@@ -1534,9 +1555,11 @@ class TorchEncoder:
                 torch.zeros((n, 16), dtype=torch.int32, device=self.device),
                 qac_zz, cdc_d, cac_d, zero.expand(n), zero.expand(n),
                 (zero + 1).expand(n), (zero + 2).expand(n, 16))
-        rows = rows_d.cpu().numpy()
-        self._stage("fetch")
-        (ldc, lac, cdc, cac, i16m, cm, cls, m4) = _unpack(rows)
+        with trace.span("enc.to_host"):
+            rows = rows_d.cpu().numpy()
+            trace.count_bytes("enc.d2h_bytes", rows)
+            self._stage("fetch")
+            (ldc, lac, cdc, cac, i16m, cm, cls, m4) = _unpack(rows)
         # P_Skip: zero residual and the MV equals the skip predictor
         skip_pred, _ = self._mv_preds(mb_class, mv, mv8)
         is_skip = (no_res & ~use_intra & (part == 0)
@@ -1546,9 +1569,11 @@ class TorchEncoder:
         mb_class[use_intra & (cls == 0)] = 0  # I4x4 fallback MBs
         if self._cur_is_ref:
             self.ref = (recY, recU, recV)
-        data = self._write(0, mb_class, mv, i16m, cm, ldc, lac, cdc, cac,
-                           i4_modes=m4, mb_qp=self._qp_plane, mv8=mv8)
-        self._apply_deblock(mb_class, lac, mv, mv8)
+        with trace.span("enc.write"):
+            data = self._write(0, mb_class, mv, i16m, cm, ldc, lac, cdc, cac,
+                               i4_modes=m4, mb_qp=self._qp_plane, mv8=mv8)
+        with trace.span("enc.finish"):
+            self._apply_deblock(mb_class, lac, mv, mv8)
         return data
 
     def force_intra_frame(self):
@@ -1603,141 +1628,152 @@ class TorchEncoder:
         """Encode one frame (uint8 planes of the display size, numpy or
         torch); returns its Annex-B bytes, or b"" when the rate controller
         drops the frame (then no state advances)."""
-        if self.stages is not None:
-            self.stages.start()
-        self.encodes = []
-        is_idr = (self.ref is None or self.intra_only or self._force_idr
-                  or (self.gop and self.frame_idx % self.gop == 0))
-        if self.rc is not None:
+        with trace.span("enc.frame", frame=trace.new_frame()):
+            if self.stages is not None:
+                self.stages.start()
+            self.encodes = []
+            is_idr = (self.ref is None or self.intra_only or self._force_idr
+                      or (self.gop and self.frame_idx % self.gop == 0))
+            if self.rc is not None:
+                if is_idr:
+                    self.rc.tick(timestamp_ms)  # IDRs drain the buffer too
+                elif self.rc.should_skip(timestamp_ms):
+                    return b""
+            self._force_idr = False
+            layer = self._layer_setup(is_idr)
+            H = self.mb_h * 16
+            with trace.span("enc.upload"):
+                buf = self._upload(Y, U, V)
+                self._stage("upload")
+            cur_src = None
+            if (self.scene_cut or self.rc or self.aq or self.bgd
+                    or self.scroll_me):
+                # the analyses read the source before the denoise filter
+                cur_src = buf[:H].clone() if self.denoise else buf[:H]
+            if self.denoise:
+                self._denoise(buf)
+            prev = self._prev_src
+            scene_idc = ratectl.SCENE_IDC_NONE
+            if (self.scene_cut or self.rc is not None) and prev is not None:
+                score = float(processing.scene_change_score(cur_src, prev))
+                if score > processing.SCENE_CHANGE_RATIO_LARGE:
+                    scene_idc = ratectl.SCENE_IDC_LARGE
+                elif score > processing.SCENE_CHANGE_RATIO_MEDIUM:
+                    scene_idc = ratectl.SCENE_IDC_MEDIUM
+                self._stage("scene_cut")
+            if (self.scene_cut and not is_idr
+                    and scene_idc == ratectl.SCENE_IDC_LARGE):
+                is_idr = True
+            if self.rc is not None:
+                cx = (float(processing.frame_complexity(cur_src, prev))
+                      if prev is not None else
+                      float(torch.abs(cur_src.to(torch.int32) - 128).sum(
+                          dtype=torch.int32)))
+                self.qp = int(self.rc.frame_qp(cx, is_idr,
+                                               timestamp_ms=timestamp_ms,
+                                               scene_idc=scene_idc))
+                self.qp = max(10, min(self.qp, 51))
+                self.qpc = int(CHROMA_QP[self.qp])
+                self._stage("rc")
+            self._scroll_dy = 0
+            if self.scroll_me and not is_idr and prev is not None:
+                det, dy = processing.scroll_detect(cur_src, prev)
+                # clamp so the integer MVs stay inside the reference padding
+                # that the refinement reads (|mv_int| <= radius + |dy|)
+                lim = PAD - 4 - self.ME_RADIUS - 1
+                self._scroll_dy = int(np.clip(dy, -lim, lim)) if det else 0
+                self._stage("scroll")
             if is_idr:
-                self.rc.tick(timestamp_ms)  # IDRs drain the buffer too
-            elif self.rc.should_skip(timestamp_ms):
-                return b""
-        self._force_idr = False
-        layer = self._layer_setup(is_idr)
-        H = self.mb_h * 16
-        buf = self._upload(Y, U, V)
-        self._stage("upload")
-        cur_src = None
-        if (self.scene_cut or self.rc or self.aq or self.bgd
-                or self.scroll_me):
-            # the analyses read the source before the denoise filter
-            cur_src = buf[:H].clone() if self.denoise else buf[:H]
-        if self.denoise:
-            self._denoise(buf)
-        prev = self._prev_src
-        scene_idc = ratectl.SCENE_IDC_NONE
-        if (self.scene_cut or self.rc is not None) and prev is not None:
-            score = float(processing.scene_change_score(cur_src, prev))
-            if score > processing.SCENE_CHANGE_RATIO_LARGE:
-                scene_idc = ratectl.SCENE_IDC_LARGE
-            elif score > processing.SCENE_CHANGE_RATIO_MEDIUM:
-                scene_idc = ratectl.SCENE_IDC_MEDIUM
-            self._stage("scene_cut")
-        if (self.scene_cut and not is_idr
-                and scene_idc == ratectl.SCENE_IDC_LARGE):
-            is_idr = True
-        if self.rc is not None:
-            cx = (float(processing.frame_complexity(cur_src, prev))
-                  if prev is not None else
-                  float(torch.abs(cur_src.to(torch.int32) - 128).sum(
-                      dtype=torch.int32)))
-            self.qp = int(self.rc.frame_qp(cx, is_idr,
-                                           timestamp_ms=timestamp_ms,
-                                           scene_idc=scene_idc))
-            self.qp = max(10, min(self.qp, 51))
-            self.qpc = int(CHROMA_QP[self.qp])
-            self._stage("rc")
-        self._scroll_dy = 0
-        if self.scroll_me and not is_idr and prev is not None:
-            det, dy = processing.scroll_detect(cur_src, prev)
-            # clamp so the integer MVs stay inside the reference padding
-            # that the refinement reads (|mv_int| <= radius + |dy|)
-            lim = PAD - 4 - self.ME_RADIUS - 1
-            self._scroll_dy = int(np.clip(dy, -lim, lim)) if det else 0
-            self._stage("scroll")
-        if is_idr:
-            self._frame_num = 0
-            self._idr_id += 1
-            self._ref2 = None  # an IDR empties the DPB
-        if self._use_ltr_next and not is_idr:
-            # predict from the long-term reference; this frame's recon
-            # then re-seeds the short-term chain
-            self.ref = self._ltr_ref
-        encode = self._encode_i if is_idr else self._encode_p
-        if self.slice_max_bytes:
-            self._plan_dynamic_slices()
-            ref_before, ref2_before = self.ref, self._ref2
-            data = encode(buf)
-            if self._dyn_slice_violated() and self._plan_dynamic_slices():
-                # a slice passed the cap: re-plan from this frame's row
-                # costs and encode once more from the same references
-                # (both: with refs=2 the first encode rotated _ref2)
-                self.ref, self._ref2 = ref_before, ref2_before
-                timer, self.stages = self.stages, None
+                self._frame_num = 0
+                self._idr_id += 1
+                self._ref2 = None  # an IDR empties the DPB
+            if self._use_ltr_next and not is_idr:
+                # predict from the long-term reference; this frame's recon
+                # then re-seeds the short-term chain
+                self.ref = self._ltr_ref
+            encode = self._encode_i if is_idr else self._encode_p
+            if self.slice_max_bytes:
+                self._plan_dynamic_slices()
+                ref_before, ref2_before = self.ref, self._ref2
                 data = encode(buf)
-                self.stages = timer
-                self._stage("dyn_slice_reencode")
-        else:
-            data = encode(buf)
-        if self.temporal_layers >= 3:
-            if is_idr:
-                self._gop_pos = 0
-                self._dpb = [{"pos": 0, "fn": self._frame_num, "layer": 0,
-                              "recon": self.ref}]
-            elif self._cur_is_ref:
-                self._dpb.append({"pos": self._gop_pos,
-                                  "fn": self._frame_num, "layer": layer,
-                                  "recon": self.ref})
-            self._gop_pos += 1
-        self._use_ltr_next = False
-        if self.ltr and self._cur_is_ref and (is_idr or self._mark_ltr_next):
-            self._ltr_ref = self.ref  # this frame's recon is the LTR
-            self._mark_ltr_next = False
-        if self._cur_is_ref:  # 7.4.3: frame_num advances per ref frame
-            self._frame_num = (self._frame_num + 1) & 0xff
-        if self.rc is not None:
-            self.rc.update(8 * len(data))
-        self._prev_src = cur_src
-        self.frame_idx += 1
-        return data
+                if self._dyn_slice_violated() and self._plan_dynamic_slices():
+                    # a slice passed the cap: re-plan from this frame's row
+                    # costs and encode once more from the same references
+                    # (both: with refs=2 the first encode rotated _ref2)
+                    self.ref, self._ref2 = ref_before, ref2_before
+                    timer, self.stages = self.stages, None
+                    data = encode(buf)
+                    self.stages = timer
+                    self._stage("dyn_slice_reencode")
+            else:
+                data = encode(buf)
+            if self.temporal_layers >= 3:
+                if is_idr:
+                    self._gop_pos = 0
+                    self._dpb = [{"pos": 0, "fn": self._frame_num, "layer": 0,
+                                  "recon": self.ref}]
+                elif self._cur_is_ref:
+                    self._dpb.append({"pos": self._gop_pos,
+                                      "fn": self._frame_num, "layer": layer,
+                                      "recon": self.ref})
+                self._gop_pos += 1
+            self._use_ltr_next = False
+            if self.ltr and self._cur_is_ref and (is_idr
+                                                  or self._mark_ltr_next):
+                self._ltr_ref = self.ref  # this frame's recon is the LTR
+                self._mark_ltr_next = False
+            if self._cur_is_ref:  # 7.4.3: frame_num advances per ref frame
+                self._frame_num = (self._frame_num + 1) & 0xff
+            if self.rc is not None:
+                self.rc.update(8 * len(data))
+            self._prev_src = cur_src
+            self.frame_idx += 1
+            trace.count("enc.frames")
+            return data
 
-    def _write_p_packed(self, packed):
+    def _write_p_packed(self, packed, frame=None):
         """Host entropy tail of a run's P frame: `packed` is its
-        [n, META_W + 427] int16 rows (_p_batch)."""
-        return self._write_p(packed[:, :META_W], *_unpack(packed[:, META_W:]),
-                             n_refs=1)
+        [n, META_W + 427] int16 rows (_p_batch); `frame` its trace frame
+        id."""
+        with trace.span("enc.writer.unpack", frame=frame):
+            planes = _unpack(packed[:, META_W:])
+        with trace.span("enc.writer.write", frame=frame):
+            return self._write_p(packed[:, :META_W], *planes, n_refs=1)
 
     def _dispatch_p_run(self, frames):
         """Chain K consecutive P frames on the device (_p_batch); self.ref
         advances to the run's last recon. Returns the frames' rows for
         _drain_p_run, whose copies to the host may still be in flight."""
-        bufs = torch.stack([self._upload(*f) for f in frames])
+        with trace.span("enc.upload"):
+            bufs = torch.stack([self._upload(*f) for f in frames])
         if self.denoise:
             for buf in bufs:
                 self._denoise(buf)
-        qp_d, qpc_d = self._qp_maps()
+        with trace.span("enc.qp_maps"):
+            qp_d, qpc_d = self._qp_maps()
         rows, self.ref = _p_batch(
             self.mb_w, self.mb_h, self.ME_RADIUS, self.deblock_idc, bufs,
             *self.ref, qp_d, qpc_d, self._slice_id, self._row_slice_np,
             self.trellis_lam)
         return rows
 
-    def _drain_p_run(self, rows):
+    def _drain_p_run(self, rows, frame=None):
         """Host half of a dispatched run, on encode_frames' writer thread:
         per frame, wait for its rows, write its slices, then advance
         frame_idx and _frame_num (every frame of a run is a reference).
         The main thread touches none of the state this reads or writes
-        while a drain runs."""
+        while a drain runs. `frame`: the run's trace frame id."""
         out = []
         for packed, ready, _ in rows:
-            if ready is not None:
-                ready.synchronize()
+            with trace.span("enc.writer.rows_wait", frame=frame):
+                if ready is not None:
+                    ready.synchronize()
             t0 = time.perf_counter()
-            out.append(self._write_p_packed(packed.numpy()))
+            out.append(self._write_p_packed(packed.numpy(), frame))
             self.prof["entropy_ms"] += (time.perf_counter() - t0) * 1e3
             self._frame_num = (self._frame_num + 1) & 0xff
             self.frame_idx += 1
+            trace.count("enc.frames")
         self.prof["frames"] += len(rows)
         return out
 
@@ -1775,10 +1811,11 @@ class TorchEncoder:
 
         def drain(keep=0):
             while len(pending) > keep:
-                t0 = time.perf_counter()
-                out.extend(pending.pop(0).result())
-                self.prof["writer_wait_ms"] += (time.perf_counter()
-                                                - t0) * 1e3
+                with trace.span("enc.writer_wait"):
+                    t0 = time.perf_counter()
+                    out.extend(pending.pop(0).result())
+                    self.prof["writer_wait_ms"] += (time.perf_counter()
+                                                    - t0) * 1e3
 
         def one(f):
             drain()
@@ -1805,9 +1842,12 @@ class TorchEncoder:
                     for f in frames[i:i + k]:
                         one(f)
                 else:
-                    rows = self._dispatch_p_run(frames[i:i + k])
+                    run = trace.new_frame()
+                    with trace.span("enc.run", frame=run):
+                        rows = self._dispatch_p_run(frames[i:i + k])
                     log += [("P", "run", True, n) for _, _, n in rows]
-                    pending.append(writer.submit(self._drain_p_run, rows))
+                    pending.append(writer.submit(self._drain_p_run, rows,
+                                                 run))
                     drain(keep=1)
                 fidx += k
                 i += k

@@ -29,6 +29,8 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from . import trace
+
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NATIVE_DIR = os.path.join(_ROOT, "native")
 LIB_PATH = os.path.join(NATIVE_DIR, "libh264pip.so")
@@ -305,19 +307,30 @@ class SymbolDecoder:
         return self
 
     def __next__(self):
-        w = ctypes.c_int()
-        h = ctypes.c_int()
-        err = ctypes.create_string_buffer(512)
-        rc = self._lib.pip_sym_next(self._h, ctypes.byref(w), ctypes.byref(h),
-                                    err, len(err))
+        with trace.span("dec.symbols.parse"):
+            w = ctypes.c_int()
+            h = ctypes.c_int()
+            err = ctypes.create_string_buffer(512)
+            rc = self._lib.pip_sym_next(self._h, ctypes.byref(w),
+                                        ctypes.byref(h), err, len(err))
         if rc == 0:
             raise StopIteration
         if rc < 0:
             raise RuntimeError(f"pip_sym_next failed: {err.value.decode()}")
-        n = w.value * h.value
+        with trace.span("dec.symbols.alloc"):
+            f, meta, scaling, ref_list, dpb_live = self._planes(w.value,
+                                                                h.value)
+        with trace.span("dec.symbols.export"):
+            return self._export(f, meta, scaling, ref_list, dpb_live)
+
+    @staticmethod
+    def _planes(w, h):
+        """The fresh numpy planes pip_sym_planes fills for a w x h MB
+        frame: (the frame dict, meta, scaling, ref_list, dpb_live)."""
+        n = w * h
         f = {
-            "mb_w": w.value,
-            "mb_h": h.value,
+            "mb_w": w,
+            "mb_h": h,
             "mb_class": np.zeros(n, np.uint8),
             "qp": np.zeros(n, np.uint8),
             "cbp_luma": np.zeros(n, np.uint8),
@@ -357,7 +370,15 @@ class SymbolDecoder:
         scaling = np.zeros(96 + 384, np.uint8)
         ref_list = np.zeros(19, np.int32)
         dpb_live = np.zeros(18, np.int32)
+        if trace.on():
+            trace.count_bytes("dec.symbol_bytes", meta, scaling, ref_list,
+                              dpb_live, *(a for a in f.values()
+                                          if isinstance(a, np.ndarray)))
+        return f, meta, scaling, ref_list, dpb_live
 
+    def _export(self, f, meta, scaling, ref_list, dpb_live):
+        """Copy the parsed frame's symbols into its planes and finish the
+        frame dict."""
         def ptr(a):
             return a.ctypes.data_as(ctypes.c_void_p)
 
