@@ -1,13 +1,16 @@
-"""Build and load the port's CUDA kernels (csrc/*.cu) at first use.
+"""Build and load the port's compiled code at first use: the CUDA
+kernels (csrc/*.cu) and the decoder's host plan (csrc/*.cpp).
 
-The sources are compiled by nvcc into one shared library with a plain C
+The kernels are compiled by nvcc into one shared library with a plain C
 interface, build/kernels/libpip_kernels.so under the checkout, and
 loaded with ctypes. Each C entry point takes device pointers, sizes and
 the CUDA stream, launches on that stream, and returns
-cudaGetLastError(); `check` raises when that is not 0. The library is
-rebuilt only when a source or a header (csrc/*.cuh) is newer than it.
-Nothing here runs at import: the CPU tests import every module on a
-machine without nvcc.
+cudaGetLastError(); `check` raises when that is not 0. The host sources
+are plain C++ that g++ compiles into build/host/libpip_plan.so, apart
+from the kernels, so that a machine without nvcc (the CPU tests') builds
+and runs them. Each library is rebuilt only when one of its sources (for
+the kernels, a header csrc/*.cuh too) is newer than it. Nothing here runs
+at import: the CPU tests import every module on a machine without nvcc.
 """
 from __future__ import annotations
 
@@ -18,16 +21,20 @@ import shutil
 import subprocess
 import threading
 
+import numpy as np
 import torch
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 _SRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 LIB_PATH = os.path.join(BUILD_DIR, "libpip_kernels.so")
+HOST_BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "host")
+HOST_LIB_PATH = os.path.join(HOST_BUILD_DIR, "libpip_plan.so")
 COMPILE_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                  "-O3", "-Xcompiler", "-fPIC"]
 # one source (or the objects) straight to a shared library
 NVCC_FLAGS = COMPILE_FLAGS + ["-shared"]
+GXX_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -74,8 +81,20 @@ _SIGNATURES = {
     "pip_residual_enc": [_P] * 3 + [_I] * 3 + [_P] * 10 + [_I] * 3
     + [_P] * 10 + [_I, _I, _P],
 }
+# the host plan's C entry points (all return int, 0 or 1 for bad sizes)
+_HOST_SIGNATURES = {
+    # (mb_class, transform8, cbp_luma [n] uint8, luma_ac [n, 16, 4, 4],
+    #  luma8 [n, 4, 8, 8] int16, n, out [n, 16] int64)
+    "pip_plan_nnz": [_P] * 5 + [_I, _P],
+    # (ref_slot [n, 16] int32, mv [n, 16, 2] int16, mb_w, mb_h, pad,
+    #  MC_CAP, MC_SLOT_CAP, MC_FIX_CAP, MC_MV_MAX, QTAB [16, 6] int32;
+    #  out: uniq [MC_CAP, 16], slots [MC_SLOT_CAP] int32, bucket [n, 16]
+    #  uint8, fix [MC_FIX_CAP], info [4] int32)
+    "pip_plan_mc": [_P, _P] + [_I] * 7 + [_P] * 6,
+}
 
 _lib = None
+_host_lib = None
 _lib_lock = threading.Lock()
 _count_lock = threading.Lock()
 
@@ -92,6 +111,10 @@ def sources():
     return sorted(glob.glob(os.path.join(_SRC_DIR, "*.cu")))
 
 
+def host_sources():
+    return sorted(glob.glob(os.path.join(_SRC_DIR, "*.cpp")))
+
+
 def _nvcc():
     cands = [shutil.which("nvcc")]
     for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
@@ -103,12 +126,20 @@ def _nvcc():
     raise RuntimeError("nvcc not found (PATH, $CUDA_HOME, /usr/local/cuda)")
 
 
-def needs_build():
-    if not os.path.exists(LIB_PATH):
+def _stale(path, srcs):
+    if not os.path.exists(path):
         return True
-    t = os.path.getmtime(LIB_PATH)
-    headers = glob.glob(os.path.join(_SRC_DIR, "*.cuh"))
-    return any(os.path.getmtime(s) > t for s in sources() + headers)
+    t = os.path.getmtime(path)
+    return any(os.path.getmtime(s) > t for s in srcs)
+
+
+def needs_build():
+    return _stale(LIB_PATH, sources()
+                  + glob.glob(os.path.join(_SRC_DIR, "*.cuh")))
+
+
+def needs_host_build():
+    return _stale(HOST_LIB_PATH, host_sources())
 
 
 def build():
@@ -148,6 +179,30 @@ def build():
     return "".join(out for _, out, _ in outs) + res.stdout + res.stderr
 
 
+def build_host():
+    """Compile csrc/*.cpp with g++ into HOST_LIB_PATH (through a file of
+    this process's own, so that processes building at once do not
+    collide); returns g++'s output."""
+    os.makedirs(HOST_BUILD_DIR, exist_ok=True)
+    tmp = f"{HOST_LIB_PATH}.{os.getpid()}.tmp"
+    cmd = ["g++"] + GXX_FLAGS + ["-o", tmp] + host_sources()
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError("g++ failed:\n" + " ".join(cmd) + "\n"
+                           + res.stdout + res.stderr)
+    os.replace(tmp, HOST_LIB_PATH)
+    return res.stdout + res.stderr
+
+
+def _load(path, signatures):
+    so = ctypes.CDLL(path)
+    for name, args in signatures.items():
+        fn = getattr(so, name)
+        fn.argtypes = args
+        fn.restype = ctypes.c_int
+    return so
+
+
 def lib():
     """The loaded kernel library, built first if a source changed. The
     first call builds under a lock, so threads that launch at once share
@@ -159,13 +214,36 @@ def lib():
         if _lib is None:
             if needs_build():
                 build()
-            so = ctypes.CDLL(LIB_PATH)
-            for name, args in _SIGNATURES.items():
-                fn = getattr(so, name)
-                fn.argtypes = args
-                fn.restype = ctypes.c_int
-            _lib = so
+            _lib = _load(LIB_PATH, _SIGNATURES)
     return _lib
+
+
+def host_lib():
+    """The loaded host-plan library, built first if a source changed,
+    under the same lock and rule as lib()."""
+    global _host_lib
+    if _host_lib is not None:
+        return _host_lib
+    with _lib_lock:
+        if _host_lib is None:
+            if needs_host_build():
+                build_host()
+            _host_lib = _load(HOST_LIB_PATH, _HOST_SIGNATURES)
+    return _host_lib
+
+
+def host_array(a, dtype, shape, what):
+    """The address of numpy array `a` for a host entry point, as a
+    c_void_p; raises ValueError unless `a` has exactly `dtype` and
+    `shape` and is C-contiguous (nothing is copied or converted)."""
+    if not isinstance(a, np.ndarray) or a.dtype != dtype \
+            or a.shape != tuple(shape) or not a.flags.c_contiguous:
+        got = (f"{a.dtype} {a.shape}, C-contiguous "
+               f"{a.flags.c_contiguous}" if isinstance(a, np.ndarray)
+               else type(a).__name__)
+        raise ValueError(f"{what}: takes a C-contiguous {np.dtype(dtype)} "
+                         f"array of shape {tuple(shape)}, got {got}")
+    return ctypes.c_void_p(a.ctypes.data)
 
 
 def stream(device):

@@ -75,6 +75,27 @@ def planes_to_torch(planes_np, device):
     return out
 
 
+def nnz_plane(f):
+    """TorchDecoder._nnz_plane (the [n, 16] int64 plane) in compiled host
+    code (csrc/plan_host.cpp, pip_plan_nnz). Reads the symbol layer's
+    arrays in place: uint8 mb_class, transform8, cbp_luma [n], int16
+    luma_ac [n, 16, 4, 4] and luma8 [n, 4, 8, 8]; another dtype, shape or
+    layout raises."""
+    n = f["mb_w"] * f["mb_h"]
+    ha = _build.host_array
+    out = np.empty((n, 16), np.int64)
+    rc = _build.host_lib().pip_plan_nnz(
+        ha(f["mb_class"], np.uint8, (n,), "nnz mb_class"),
+        ha(f["transform8"], np.uint8, (n,), "nnz transform8"),
+        ha(f["cbp_luma"], np.uint8, (n,), "nnz cbp_luma"),
+        ha(f["luma_ac"], np.int16, (n, 16, 4, 4), "nnz luma_ac"),
+        ha(f["luma8"], np.int16, (n, 4, 8, 8), "nnz luma8"), n,
+        ctypes.c_void_p(out.ctypes.data))
+    if rc != 0:
+        raise ValueError(f"nnz plane: {n} MBs refused")
+    return out
+
+
 def ring_to_torch(ring_np, device):
     """A numpy reference ring [R, Hp, Wp] uint8 as a device tensor."""
     return torch.from_numpy(np.ascontiguousarray(ring_np, np.uint8)) \
@@ -1060,7 +1081,7 @@ class TorchDecoder:
             w4 = [ref_np.weights4(f["scaling4"][i]) for i in range(6)]
             w8 = [ref_np.weights8(f["scaling8"][i]) for i in range(2)]
         with trace.span("dec.plan.nnz"):
-            nnz = self._nnz_plane(f)
+            nnz = nnz_plane(f)
         planes = {
             "mb_class": f["mb_class"],
             "qp": f["qp"],
@@ -1107,12 +1128,14 @@ class TorchDecoder:
                 planes["wp_cmask"] = f["wp_cmask"]
             # bucketed dense-shift MC plan: frames the caps or WP exclude
             # take the general per-cell path via mc_fast=False
-            plan = tmc.mc_fast_plan(mb_w, mb_h, ref_slot,
-                                    f["mv"].astype(np.int32), PAD)
+            plan, spilled = tmc.mc_plan(mb_w, mb_h, ref_slot, f["mv"], PAD)
             if has_wp:
                 plan["mc_fast"] = np.bool_(False)
             plan["mc_any"] = np.bool_(bool((ref_slot >= 0).any()))
             planes.update(plan)
+        trace.count("dec.plan_compiled")
+        if spilled:
+            trace.count("dec.mc_spilled")
         return planes, diags, diags is not None, full_intra
 
     def _fetch_output(self, out_idx, mb_w, mb_h):
@@ -1174,6 +1197,7 @@ class TorchDecoder:
 
     @staticmethod
     def _nnz_plane(f):
+        """The plain version of nnz_plane, which the decode calls."""
         n = f["mb_w"] * f["mb_h"]
         cls = f["mb_class"]
         t8 = (f["transform8"] != 0) & (cls != 1)

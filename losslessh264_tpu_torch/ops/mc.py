@@ -272,7 +272,8 @@ def _halfpel_planes_u8(ref_pad):
 # plane. Cells the dense path cannot serve exactly get a per-cell
 # fix-up gather (on the card inside K6's one launch). The plan
 # (mc_fast_plan) is host numpy, copied verbatim from
-# losslessh264_tpu/ops/mc.py, whose module imports jax.
+# losslessh264_tpu/ops/mc.py, whose module imports jax; the decoder
+# computes it in compiled host code (mc_plan, csrc/plan_host.cpp).
 # ---------------------------------------------------------------------------
 # quarter-pel case tables: k = (mvy&3)*4 + (mvx&3) selects two plane
 # samples whose rounded average is the predicted value (planes G=0, b=1,
@@ -409,6 +410,38 @@ def mc_fast_plan(mb_w, mb_h, ref_slot, mv, pad):
         mc_bucket=bucket.reshape(n, 16),
         mc_fix=mc_fix)
     return plan
+
+
+def mc_plan(mb_w, mb_h, ref_slot, mv, pad):
+    """mc_fast_plan in compiled host code (csrc/plan_host.cpp,
+    pip_plan_mc): (the plan, with mc_fast_plan's keys, dtypes and shapes;
+    whether the frame's distinct fast triples exceeded MC_CAP). ref_slot
+    [n, 16] int32 and mv [n, 16, 2] int16, the decoder's planes, are read
+    in place: another dtype, shape or layout raises. The plan equals
+    mc_fast_plan's byte for byte, but where numpy's cut at MC_CAP has a
+    tie: the C source breaks it by key, which may keep other triples of
+    equal count, with the same counts and the same predicted pixels."""
+    n = mb_w * mb_h
+    ha = _build.host_array
+    uniq = np.empty((MC_CAP, 16), np.int32)
+    slots = np.empty((MC_SLOT_CAP,), np.int32)
+    bucket = np.empty((n, 16), np.uint8)
+    fix = np.empty((MC_FIX_CAP,), np.int32)
+    info = np.empty(4, np.int32)
+    rc = _build.host_lib().pip_plan_mc(
+        ha(ref_slot, np.int32, (n, 16), "mc plan ref_slot"),
+        ha(mv, np.int16, (n, 16, 2), "mc plan mv"), mb_w, mb_h, pad,
+        MC_CAP, MC_SLOT_CAP, MC_FIX_CAP, MC_MV_MAX,
+        ha(QTAB, np.int32, (16, 6), "QTAB"),
+        *(ctypes.c_void_p(a.ctypes.data)
+          for a in (uniq, slots, bucket, fix, info)))
+    if rc != 0:
+        raise ValueError(f"mc plan: {mb_w}x{mb_h} MBs, caps {MC_CAP} "
+                         f"{MC_SLOT_CAP} {MC_FIX_CAP} refused")
+    return {"mc_fast": np.bool_(info[0]), "mc_nuniq": np.int32(info[1]),
+            "mc_uniq": uniq, "mc_slots": slots,
+            "mc_nslots": np.int32(info[2]), "mc_bucket": bucket,
+            "mc_fix": fix}, bool(info[3])
 
 
 def _drop_scatter(plane, idx, vals):

@@ -44,6 +44,7 @@ SPANS = {
 }
 COUNTERS = {"dec.frames", "dec.h2d_bytes", "dec.h2d_copies",
             "dec.symbol_bytes", "dec.mc_bucketed", "dec.mc_slots",
+            "dec.plan_compiled", "dec.mc_spilled",
             "enc.frames", "enc.h2d_bytes", "enc.d2h_bytes"}
 # the leaf spans of every frame of an undamaged decode outside a batch
 DECODE_LEAVES = {"dec.symbols.parse", "dec.symbols.alloc",
@@ -216,6 +217,32 @@ def test_decode_spans_and_counters(monkeypatch, tiny):
     # the main thread's spans do not overlap: their self times add up to
     # at most the recording's wall time
     assert sum(rec.self_ms().values()) <= rec.wall_ms
+
+
+def test_plan_counters_on_runs720p(monkeypatch):
+    """A recorded decode of runs720p (its 4 IDRs as a batch, 8 P frames)
+    counts dec.plan_compiled once per planned frame and dec.mc_spilled
+    once per frame on which the numpy plan spills (more than MC_CAP
+    distinct fast triples), judged on the same planes."""
+    from losslessh264_tpu_torch.ops import mc as tmc
+    from test_torch_plan_host import numpy_spills
+    seen = []
+    plan = tmc.mc_plan
+
+    def keep(mb_w, mb_h, ref_slot, mv, pad):
+        seen.append((mb_w, mb_h, ref_slot.copy(), mv.copy(), pad))
+        return plan(mb_w, mb_h, ref_slot, mv, pad)
+    monkeypatch.setattr(tmc, "mc_plan", keep)
+    path = os.path.join(os.path.dirname(__file__), "data", "runs720p.264")
+    with open(path, "rb") as fh:
+        data = fh.read()
+    with trace.recording() as rec:
+        n = len(list(dt.TorchDecoder(data, device="cpu").frames()))
+    calls = rec.calls()
+    assert n == len(seen) == 12
+    assert rec.counters["dec.plan_compiled"] == calls["dec.plan.mc"] == n
+    spills = sum(numpy_spills(*a) for a in seen)
+    assert rec.counters["dec.mc_spilled"] == spills == 8
 
 
 def test_intra_batch_is_one_frame_span():
