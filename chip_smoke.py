@@ -23,9 +23,10 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
      goldens (tests/data/synth720p_np_crc.json), K9 and K2 must launch
      exactly once per frame that is deblocked, K3 once per frame with intra
      MBs (frames 0, 10 and 20), K6 once per P frame on the bucketed MC
-     path and K1 once per slot such a frame reads (a second decode, under
-     a sync=True recording of the port's tracer, counts the MC routes its
-     plans took), K7 once per frame, K4, K5 and K8 never.
+     path and K1 once per slot such a frame reads, K11 once per P frame on
+     the per-cell MC route (a second decode, under a sync=True recording
+     of the port's tracer, counts the MC routes its plans took), K7 once
+     per frame, K4, K5 and K8 never.
   6. encode: TorchEncoder(device="cuda") at 1280x720 on the first frames
      of phase 5's decode, in the configurations of
      tests/data/synth720p_enc_golden.json and its sibling
@@ -48,7 +49,7 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
      second P frame two) and K8 once per P encode, as JaxEncoder's
      control flow implies (no K2 for a fused-path non-reference P frame
      without intra MBs; a size-capped slice's re-encode counts again),
-     K3, K6 and K7 never.
+     K3, K6, K7 and K11 never.
      A first pass gives encode fps, a second the per-stage wall times of
      every frame (encoder_torch.StageTimer).
   7. older encoder: losslessh264_tpu_torch.encoder.Encoder(1280, 720,
@@ -63,9 +64,8 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
      50 frames) through parallel.decode_yuv_gop_parallel with 2 workers
      (a TorchDecoder and a CUDA stream each), then through one sequential
      TorchDecoder; every frame's CRC32 must equal the golden,
-     twice over, and each decode must launch K1-K9 twice as often as
-     phase 5's decode (K1 44, K2 50, K3 6, K6 44, K7 50, K9 50). Prints both
-     fps.
+     twice over, and each decode must launch K1-K9 and K11 twice as
+     often as phase 5's decode. Prints both fps.
   9. CLI: `python -m losslessh264_tpu_torch walk_analog.264 x.pip
      --shards 4` (must equal native.compress_sharded and decompress to
      the input) and `roundtrip ... --shards 4` (must print bit-exact), as
@@ -73,22 +73,21 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
  10. graft: graft_entry.dryrun_multichip(2) on the card, two gloo ranks
      at 80x45 MBs; each rank's recY, mvx and bits must equal the step in
      this process, the all-reduced total their sum, and each rank must
-     launch K1, K2, K5, K8 and K9 once (K3, K4, K6 and K7 never, in this
-     process's runs).
+     launch K1, K2, K5, K8 and K9 once (K3, K4, K6, K7 and K11 never, in
+     this process's runs).
  11. runs decode: tests/data/runs720p.264 (tools/gen_run_streams.py)
      with TorchDecoder on the card: four IDRs as one all-intra batch
      (recon_intra_batch), then P frames whose intra MBs populate 0, 1, 8
      and 42 of the 168 diagonals (no intra pass, the sparse pass over the
      populated ones, the full table). Every frame's CRC32 must equal
      NpDecoder's (tests/data/runs720p_np_crc.json), each frame must take
-     its route, K2 and K9 must launch once per deblocked frame, K1 and K6
-     as the
-     MC plans imply, K3 once per route with an intra pass (the batch of
-     4 once: 4 in all) and K7 once per frame. A recorded decode (the
-     tracer, sync=True) prints each frame's intra ms on its route (K3)
-     beside the plain full-table pass on the same planes, which a third
-     decode runs on every intra pass's inputs (and requires the two
-     equal).
+     its route, K2 and K9 must launch once per deblocked frame, K1, K6
+     and K11 as the MC plans imply, K3 once per route with an intra pass
+     (the batch of 4 once: 4 in all) and K7 once per frame. A recorded
+     decode (the tracer, sync=True) prints each frame's intra ms on its
+     route (K3) beside the plain full-table pass on the same planes, which
+     a third decode runs on every intra pass's inputs (and requires the
+     two equal).
  12. encode runs: configuration G (tests/data/synth720p_enc_golden_g.json,
      A's settings on frames 0-6) through TorchEncoder.encode_frames(batch=
      3): an IDR and two runs of 3 P frames, each run's entropy written on
@@ -124,7 +123,14 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
      synth720p and runs720p (logging each frame's fix-up cells), refusing
      a window off the planes. Their times: K5 at 720p radius 16 on the
      synth720p pair, K6 per bucketed P frame of synth720p: wrapper, kernel
-     alone, plain version, bound.
+     alone, plain version, bound. Beside them K11 (cells_phase) on
+     cases.K11_CASES (every MV phase, clipped MVs, every ring slot, WP with
+     a partial chroma mask; 3 launches each; the JAX package's CRCs of
+     tests/data/k11_jax_crc.json) and every per-cell P frame of runs720p
+     and of the walk stand-in's frames 0-23 and 200-299, each GOP decoded
+     alone; its time per per-cell P frame of the walk stand-in's frames
+     0-23: wrapper, kernel alone, the torch chain it replaces (its plain
+     version), bound.
  15. K7 and K8 against their plain versions on the card, exact: K7 on
      cases.K7_CASES (every class, cbp and MC route, PCM, 8x8 transforms,
      scaling matrices, qp 0 and 51, chroma QP offsets of +-12, levels at
@@ -170,13 +176,15 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
 The line before the last is the kernel report
 {"kernels": [{"name", "route", "source", "replaces", "launches",
 "launches_per_decode", "launches_per_encode", "max_abs_err", "ms",
-"plain_ms", "bound_ms", "bound_by", "library_ms"}, ...]} for K1-K9,
-preceded by the card line; `launches` counts phases 5-12, and
+"plain_ms", "bound_ms", "bound_by", "library_ms"}, ...]} for K1-K9 and
+K11, preceded by the card line; `launches` counts phases 5-12 (the main
+paths' own runs, each path's counts set to 0 just before it), and
 `launches_per_decode`,
 `_per_encode`, `_per_older_encode`, `_per_gop_parallel_decode`,
 `_per_graft_ranks`, `_per_runs_decode` and `_per_encode_runs` each path's
 own count (K1 and K2 print `launches_per_decode` and `_per_encode` and
-the other paths; K3-K8 every path, `launches_per_decode` included). For
+the other paths; K3-K9 and K11 every path, `launches_per_decode`
+included). For
 K1:
 `ms`, `kernel_ms`, `bound_ms` and `bound_by` are its int32 entry's at
 720p, and `ms_uint8_entry`, `kernel_ms_uint8_entry` and
@@ -259,6 +267,8 @@ ENC_GOLDEN_F = os.path.join(ROOT, "tests", "data",
 ENC_GOLDEN_G = os.path.join(ROOT, "tests", "data",
                             "synth720p_enc_golden_g.json")
 RUNS_STREAM = os.path.join(ROOT, "tests", "data", "runs720p.264")
+WALK_STREAM = os.path.join(ROOT, "bench_port", "data",
+                           "walk_analog_1331.264")
 RUNS_GOLDEN = os.path.join(ROOT, "tests", "data", "runs720p_np_crc.json")
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 INT32_OPS_PER_S = 33.5e12     # see the module docstring
@@ -283,11 +293,12 @@ def log(*a):
     print(*a, flush=True)
 
 
-KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9")
+KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9", "K11")
 
 
 def wrappers():
-    """The wrappers whose `launches` count K1-K9, in KERNELS order."""
+    """The wrappers whose `launches` count K1-K9 and K11, in KERNELS
+    order."""
     from losslessh264_tpu_torch import trace
     return trace.launch_wrappers()
 
@@ -298,7 +309,7 @@ def reset_launches():
 
 
 def launches_now():
-    """(K1, ..., K9) launches since the last reset_launches()."""
+    """(K1, ..., K9, K11) launches since the last reset_launches()."""
     return tuple(w.launches for w in wrappers())
 
 
@@ -529,7 +540,7 @@ def recorded_decode(data, device):
 
 
 def expected_launches(runs):
-    """(K1, ..., K9) launches that JaxEncoder's control flow implies for
+    """(K1, ..., K9, K11) launches that JaxEncoder's control flow implies for
     the encodes `runs` ((deblock_idc, kind, path, is_ref, intra MBs,
     references searched) each, from TorchEncoder.encodes and
     refs_searched): K1 once per P encode; K2 once per encode that
@@ -539,14 +550,14 @@ def expected_launches(runs):
     IDR, and each P frame with intra-fallback MBs); K5 once per reference
     a P encode searches; K6 and K7 never (an encoder decodes nothing); K8
     once per P encode, beside K1 in encode_inter_mbs; K9 wherever K2
-    launches, just before it."""
+    launches, just before it; K11 never (an encoder decodes nothing)."""
     k1 = sum(kind == "P" for _, kind, _, _, _, _ in runs)
     k2 = sum(idc != 1 and bool(path == "aq" or kind == "I" or is_ref
                                or n_intra)
              for idc, kind, path, is_ref, n_intra, _ in runs)
     k4 = sum(kind == "I" or n_intra > 0 for _, kind, _, _, n_intra, _ in runs)
     k5 = sum(refs for _, kind, _, _, _, refs in runs if kind == "P")
-    return k1, k2, 0, k4, k5, 0, 0, k1, k2
+    return k1, k2, 0, k4, k5, 0, 0, k1, k2, 0
 
 
 def refs_searched(enc, path, had_ref2):
@@ -561,7 +572,7 @@ def encode_phase(frames, dev, card):
     """Phase 6: configurations A and B of the encode golden, and C, D and
     E of its sibling, on the card. `frames` are phase 5's decoded frames
     (host tensors), which that phase held to the NpDecoder CRCs the
-    golden's source frames also match. Returns the K1-K9 launches of the
+    golden's source frames also match. Returns the K1-K11 launches of the
     encode pass, the number of frames encoded, and C's per-MB qp plane of
     its IDR (phase 13 holds K4 to its plain version on it)."""
     import hashlib
@@ -679,7 +690,7 @@ def encode_phase(frames, dev, card):
             f"{[r[1:] for r in runs]}; launches {launch_str(got)}, implied "
             f"{launch_str(want)}")
         if got != want or want[0] == 0 or want[4] == 0:
-            raise SystemExit(f"encode {name}: K1-K9 launched {got}, the "
+            raise SystemExit(f"encode {name}: K1-K11 launched {got}, the "
                              f"encodes imply {want}")
         for k, v in zip(KERNELS, got):
             launches[k] += v
@@ -747,7 +758,7 @@ def older_encode_phase(frames, dev, card):
                              f"{g['bytes']} {g['sha256'][:16]} "
                              f"{g['recon_crc32']}")
     if got != (0,) * len(KERNELS):
-        raise SystemExit(f"older encoder: K1-K9 launched {got}; the "
+        raise SystemExit(f"older encoder: K1-K11 launched {got}; the "
                          "integer-pel, unfiltered path (its window search "
                          "is not the dense one) launches none")
     split = {k: round(v, 3) for k, v in enc.times.items()}
@@ -781,7 +792,7 @@ def gop_parallel_phase(data, golden, dec_launches, dev, card):
     TorchDecoder: one pair keeps the smoke short (PERF.md has four runs
     in turns).
     Every frame's CRC32 must equal the NpDecoder golden, twice over, and
-    each decode must launch K1-K9 twice as often as phase 5's."""
+    each decode must launch K1-K9 and K11 twice as often as phase 5's."""
     from losslessh264_tpu_torch import decoder_torch as dt
     from losslessh264_tpu_torch import native
     from losslessh264_tpu_torch.parallel import decode_yuv_gop_parallel
@@ -816,7 +827,7 @@ def gop_parallel_phase(data, golden, dec_launches, dev, card):
             raise SystemExit(f"{name} decode of synth720p x2: {len(got)} "
                              f"frames, frame {bad} differs from the golden")
         if counts != want:
-            raise SystemExit(f"{name} decode of synth720p x2 launched K1-K9 "
+            raise SystemExit(f"{name} decode of synth720p x2 launched "
                              f"{counts}, expected {want}")
         if name == "parallel":
             launches = counts
@@ -903,17 +914,17 @@ def graft_phase(dev, card, mb_w=80, mb_h=45):
     # the step's warm time in this process
     args = ge.frame_args(mb_w, mb_h, 2, 0, dev)
     step = cuda_ms(lambda: ge.per_frame(mb_w, mb_h, *args), 5, warmup=1)
-    k3, k4, k6, k7 = (launches_now()[i] for i in (2, 3, 5, 6))
-    if (k3, k4, k6, k7) != (0, 0, 0, 0):
-        raise SystemExit(f"graft: the step launched K3/K4/K6/K7 "
-                         f"{(k3, k4, k6, k7)}")
+    k3, k4, k6, k7, k11 = (launches_now()[i] for i in (2, 3, 5, 6, 9))
+    if (k3, k4, k6, k7, k11) != (0, 0, 0, 0, 0):
+        raise SystemExit(f"graft: the step launched K3/K4/K6/K7/K11 "
+                         f"{(k3, k4, k6, k7, k11)}")
     log(f"graft dryrun: 2 ranks, total bits {sum(bits)} == the all-reduce; "
         f"{wall:.3f} s with process start; warm step {step:.3f} ms per rank "
         f"frame (CUDA events) on {card}")
     return {"K1": sum(r[5] for r in ranks), "K2": sum(r[6] for r in ranks),
             "K3": k3, "K4": k4, "K5": sum(r[7] for r in ranks), "K6": k6,
             "K7": k7, "K8": sum(r[8] for r in ranks),
-            "K9": sum(r[9] for r in ranks)}
+            "K9": sum(r[9] for r in ranks), "K11": k11}
 
 
 def runs_routes(gold):
@@ -937,9 +948,10 @@ def runs_intra_rows(data, routes, dev):
     compact-carry pass over the full table on the same planes (one frame
     at a time), which a second decode runs on the inputs of every intra
     pass, ahead of the route's, and which the route's result must
-    equal. Returns the rows and the K1 and K6 launches that the frames'
-    MC plans imply (K6 once per bucketed P frame, K1 once per ring slot
-    such a frame reads)."""
+    equal. Returns the rows and the K1, K6 and K11 launches that the
+    frames' MC plans imply (K6 once per bucketed P frame, K1 once per ring
+    slot such a frame reads, K11 once per P frame on the per-cell
+    route)."""
     from losslessh264_tpu_torch import decoder_torch as dt
 
     def now():
@@ -996,7 +1008,8 @@ def runs_intra_rows(data, routes, dev):
         rows.append(dict(frame=i, route=route, intra_ms=intra,
                          plain_ms=plain))
     return (rows, rec.counters.get("dec.mc_slots", 0),
-            rec.counters.get("dec.mc_bucketed", 0))
+            rec.counters.get("dec.mc_bucketed", 0),
+            rec.counters.get("dec.mc_cells", 0))
 
 
 def runs_decode_phase(dev, card):
@@ -1006,8 +1019,8 @@ def runs_decode_phase(dev, card):
     diagonal, 1, 8 or 42 of the 168 (no pass, the sparse pass over the
     populated ones, the full table). Every frame's CRC32 must equal
     NpDecoder's, each frame must take its route, K2 must launch once per
-    deblocked frame, K1 and K6 as the frames' MC plans imply and K3 once
-    per route that has an intra pass (the batch once). Then a recorded
+    deblocked frame, K1, K6 and K11 as the frames' MC plans imply and K3
+    once per route that has an intra pass (the batch once). Then a recorded
     decode prints each frame's intra ms on its route (K3) beside the
     plain full-table pass on the same planes (runs_intra_rows)."""
     from losslessh264_tpu_torch import decoder_torch as dt
@@ -1037,10 +1050,10 @@ def runs_decode_phase(dev, card):
                          f"NpDecoder's at frames {bad}")
     if dec.routes != routes:
         raise SystemExit(f"runs720p routes {dec.routes}, expected {routes}")
-    rows, k1, k6 = runs_intra_rows(data, routes, dev)
-    want = (k1, deblocked, k3, 0, 0, k6, len(frames), 0, deblocked)
-    if got != want or k6 == 0:
-        raise SystemExit(f"runs720p: K1-K9 launched {got}, the frames imply "
+    rows, k1, k6, k11 = runs_intra_rows(data, routes, dev)
+    want = (k1, deblocked, k3, 0, 0, k6, len(frames), 0, deblocked, k11)
+    if got != want or k6 == 0 or k11 == 0:
+        raise SystemExit(f"runs720p: K1-K11 launched {got}, the frames imply "
                          f"{want}")
     log(f"runs decode: {len(frames)} frames of runs720p match the NpDecoder "
         f"CRCs; {wall:.3f} s = {len(frames) / wall:.3f} fps on {card}; "
@@ -1114,7 +1127,7 @@ def encode_runs_phase(frames, dev, card):
                          "from the golden")
     if [r[2] for r in runs] != ["fused"] + ["run"] * 6 or got != want:
         raise SystemExit(f"encode G: encodes {[r[1:] for r in runs]}, "
-                         f"K1-K9 launched {got}, implied {want}")
+                         f"K1-K11 launched {got}, implied {want}")
     log(f"encode G {cfg['kwargs']} batch {cfg['batch']}: {len(out)} frames "
         f"{W}x{H} match the JAX golden (SHA-256, the recon after the runs; "
         f"frames 0-3 golden A's); {wall:.3f} s = {len(out) / wall:.4f} fps "
@@ -1753,6 +1766,134 @@ def search_mc_phase(data, frames, dev, card):
     return k5, k6
 
 
+def bench_harness():
+    """Make bench_port/harness (the benchmark's GOP clips and work counts)
+    importable as `harness`."""
+    bench = os.path.join(ROOT, "bench_port")
+    if bench not in sys.path:
+        sys.path.insert(0, bench)
+
+
+def k11_bytes_ops(ref_y, ref_u, pad, p, mb_w, mb_h):
+    """(bytes, operations) K11 must take for the frame's plane dict `p`:
+    the benchmark's count (bench_port/harness/workcounts_cells.py: every
+    cell's ref_slot, each inter cell's MV and the ring samples its
+    quarter-pel and eighth-pel cases read, each sample once, its WP
+    triples, and the three int32 planes written once)."""
+    bench_harness()
+    from harness import workcounts_cells
+    return workcounts_cells.k11_bytes_ops(tuple(ref_y.shape),
+                                          tuple(ref_u.shape), pad, p, mb_w,
+                                          mb_h)
+
+
+def cells_phase(dev, card):
+    """Phase 14, K11 (csrc/mc_cells.cu) beside K6: against its plain
+    version (cases.k11_plain) on the card, torch.equal on every output:
+    cases.K11_CASES (3 launches each: every MV phase, clipped MVs, every
+    ring slot, WP with a partial chroma mask, 640x352 and 720p; each
+    case's planes also hold the JAX package's CRC,
+    tests/data/k11_jax_crc.json), and every per-cell P frame of runs720p,
+    of the walk stand-in's (bench_port/data/walk_analog_1331.264) first
+    24 frames and of its GOP at frame 200 (the scene cut at 280), each
+    GOP decoded alone (harness/gops.py; the rings their decode gives
+    them). Then its times per per-cell P frame of the walk stand-in's
+    first 24 frames (mean): `ms` the wrapper (CUDA events around
+    back-to-back calls), `kernel_ms` the bare C entry (a CUDA graph's
+    replays), `plain_ms` the torch chain it replaces (_mc_legacy_cells
+    and _tiles_to_plane, the route's plain path), beside the bound.
+    Returns the K11 row of the kernel report."""
+    from losslessh264_tpu_torch import _build
+    from losslessh264_tpu_torch import decoder_torch as dt
+    from losslessh264_tpu_torch.cases import (K11_CASES, cells_mc_frames,
+                                              k11_plain, random_cells_case)
+    from losslessh264_tpu_torch.ops import mc as tmc
+    bench_harness()
+    from harness import gops, streams
+    lib = _build.lib()
+    with open(os.path.join(ROOT, "tests", "data", "k11_jax_crc.json")) as fh:
+        jax_crc = json.load(fh)["crc32"]
+    err = 0
+    for name, mb_w, mb_h, seed, kw in K11_CASES:
+        *rings, pad, p = random_cells_case(mb_w, mb_h, seed, device=dev,
+                                           **kw)
+        want = k11_plain(*rings, pad, p, mb_w, mb_h)
+        for _ in range(3):
+            got = tmc.mc_cells(*rings, pad, p, mb_w, mb_h)
+            err = max(err, same(got, want, f"K11 {name}"))
+        crc = zlib.crc32(b"".join(g.cpu().numpy().tobytes() for g in got))
+        if crc != jax_crc[name]:
+            raise SystemExit(f"K11 {name}: CRC {crc}, the JAX package's "
+                             f"{jax_crc[name]}")
+        log(f"K11 mc_cells == plain and the JAX package's CRC: {name}, 3 "
+            f"launches")
+
+    def route_frames(blob):
+        for i, mb_w, mb_h, p, *rings in cells_mc_frames(blob, dev):
+            yield i, (*rings, dt.PAD, p, mb_w, mb_h)
+
+    with open(RUNS_STREAM, "rb") as fh:
+        runs_data = fh.read()
+    with open(WALK_STREAM, "rb") as fh:
+        walk_data = fh.read()
+    offsets = streams.access_unit_offsets(walk_data)
+    walk = gops.gop_clip(walk_data, 0, 24, offsets)
+    for stream, blob in (("runs720p", runs_data), ("walk 0-23", walk),
+                         ("walk 200-299",
+                          gops.gop_clip(walk_data, 200, 300, offsets))):
+        seen = []
+        for i, args in route_frames(blob):
+            err = max(err, same(tmc.mc_cells(*args), k11_plain(*args),
+                                f"K11 {stream} frame {i}"))
+            seen.append(i)
+        if not seen:
+            raise SystemExit(f"K11: no frame of {stream} took the per-cell "
+                             "route")
+        log(f"K11 mc_cells == plain: every per-cell P frame of {stream} "
+            f"({len(seen)} frames)")
+
+    # ---- times ----
+    rows = []
+    for i, args in route_frames(walk):
+        rings, pad, p, mb_w, mb_h = args[:3], *args[3:]
+        ops_args, preds, keep = tmc.k11_operands(*args)
+
+        def k11_call(ops_args=ops_args, keep=(keep, preds)):
+            _build.check(lib.pip_mc_cells(*ops_args, _build.stream(dev)),
+                         "per-cell MC")
+
+        def chain(rings=rings, p=p, mb_w=mb_w, mb_h=mb_h):
+            tiles = dt._mc_legacy_cells(mb_w, mb_h, p, *rings)
+            return [dt._tiles_to_plane(t, mb_w, mb_h, s)
+                    for t, s in zip(tiles, (16, 8, 8))]
+        nb, no = k11_bytes_ops(rings[0], rings[1], pad, p, mb_w, mb_h)
+        row = {"frame": i,
+               "inter_cells": int((p["ref_slot"] >= 0).sum()),
+               "ms": cuda_ms(lambda: tmc.mc_cells(*args), 10),
+               "kernel_ms": kernel_device_ms([k11_call]),
+               "plain_ms": cuda_ms(chain, 5, warmup=1),
+               "bytes": nb, "operations": no}
+        row["bound_ms"], row["bound_by"] = bound_ms(nb, no)
+        rows.append(row)
+    k11 = {k: sum(r[k] for r in rows) / len(rows)
+           for k in ("ms", "kernel_ms", "plain_ms", "bytes", "operations",
+                     "bound_ms", "inter_cells")}
+    k11["bound_by"] = rows[0]["bound_by"]
+    k11["bound_share"] = k11["bound_ms"] / k11["kernel_ms"]
+    k11["frames"] = len(rows)
+    k11["per_frame"] = [{k: (round(v, 5) if isinstance(v, float) else v)
+                         for k, v in r.items()} for r in rows]
+    k11["max_abs_err"] = err
+    log(f"time K11 mc_cells, mean of {len(rows)} per-cell P frames of "
+        f"the walk stand-in (640x352, {k11['inter_cells']:.0f} inter "
+        f"cells): wrapper {k11['ms']:.4f} ms; kernel alone "
+        f"{k11['kernel_ms']:.5f} ms; bound {k11['bound_ms']:.5f} ms by "
+        f"{k11['bound_by']} ({k11['bytes']:.0f} bytes), share "
+        f"{k11['bound_share']:.3f}; the torch chain it replaces "
+        f"{k11['plain_ms']:.3f} ms on {card}")
+    return k11
+
+
 # integer operations per output sample (estimates from the kernels' code,
 # for the bound): K7 ~16 (a sample's dequant, its share of the inverse
 # transform's butterflies, the rounding shift, the add of the prediction
@@ -2339,13 +2480,14 @@ def main():
     decode_s = time.perf_counter() - t0
     dec_launches = launches_now()
     (k1_launches, k2_launches, k3_launches, _, _, k6_launches, k7_launches,
-     _, k9_launches) = dec_launches
+     _, k9_launches, _) = dec_launches
     # a second decode under a sync=True recording: each frame's stages,
-    # and the MC routes the plans took, which imply the first one's K1
-    # and K6 launches (K6 once per bucketed P frame, K1 once per ring
-    # slot such a frame reads)
+    # and the MC routes the plans took, which imply the first one's K1,
+    # K6 and K11 launches (K6 once per bucketed P frame, K1 once per ring
+    # slot such a frame reads, K11 once per P frame on the per-cell route)
     stage_rows, rec = recorded_decode(data, dev)
     bucketed = rec.counters.get("dec.mc_bucketed", 0)
+    per_cell = rec.counters.get("dec.mc_cells", 0)
     k1_implied = rec.counters.get("dec.mc_slots", 0)
     if len(frames) != len(golden):
         raise SystemExit(f"decoded {len(frames)} frames, expected "
@@ -2363,16 +2505,16 @@ def main():
         f"(incl. host symbol decode) on {card}")
     log(f"launches during decode: {launch_str(dec_launches)} for "
         f"{deblocked} deblocked frames, {intra_frames} frames with intra "
-        f"MBs and {bucketed} bucketed P frames (K1 {k1_implied} implied); "
-        f"routes {dec.routes}")
+        f"MBs, {bucketed} bucketed P frames (K1 {k1_implied} implied) and "
+        f"{per_cell} per-cell P frames; routes {dec.routes}")
     if min(k1_launches, k2_launches, k3_launches, k6_launches,
            k7_launches, k9_launches) <= 0:
         raise SystemExit("a kernel of the decode path was never launched")
     # K7 once per frame, K9 before every K2
     want = (k1_implied, deblocked, intra_frames, 0, 0, bucketed, len(frames),
-            0, deblocked)
-    if dec_launches != want:
-        raise SystemExit(f"K1-K9 launched {dec_launches} times, the frames "
+            0, deblocked, per_cell)
+    if dec_launches != want or per_cell == 0:
+        raise SystemExit(f"K1-K11 launched {dec_launches} times, the frames "
                          f"imply {want}")
 
     # ---- 6. encode on the card ----
@@ -2399,6 +2541,7 @@ def main():
 
     # ---- 14. K5 and K6 against their plain versions, and their times ----
     k5, k6 = search_mc_phase(data, frames, dev, card)
+    k11 = cells_phase(dev, card)
 
     # ---- 15. K7 and K8 against their plain versions, and their times; K9
     # held to its plain version on the same decodes and encodes ----
@@ -2553,6 +2696,17 @@ def main():
               ("edge_params_packed",
                "losslessh264_tpu_torch/csrc/deblock_params.cu",
                "losslessh264_tpu/ops/deblock.py:160", "K9", k9))),
+        {"name": "mc_cells", "route": "cuda",
+         "source": "losslessh264_tpu_torch/csrc/mc_cells.cu",
+         "replaces": "losslessh264_tpu/decoder_jax.py:168",
+         "launches": sum(v["K11"] for v in all_paths.values()),
+         **{f"launches_per_{k}": v["K11"] for k, v in all_paths.items()},
+         "max_abs_err": k11["max_abs_err"],
+         "library_ms": None,
+         **{k: k11[k] for k in ("ms", "kernel_ms", "plain_ms",
+                                "bound_ms", "bound_by", "bytes",
+                                "operations", "bound_share", "frames",
+                                "inter_cells", "per_frame")}},
     ]}))
     log(card_line())
     print(json.dumps({"ok": True, "device": {

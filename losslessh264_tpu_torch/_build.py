@@ -69,6 +69,12 @@ _SIGNATURES = {
     "pip_mc_bucket": [_P, _I, _P, _P, _P, _P] + [_P, _L, _I, _I] * 2
     + [_P, _L, _I, _I, _I, _P, _P, _L, _I, _I, _I, _I]
     + [_P, _P, _P, _I, _I, _I, _P],
+    # (ref_slot, mv, wp_luma, wp_cb, wp_cr, wp_cmask (all four or none
+    #  null); luma ring, slot stride, row stride, Hp, Wp; U ring, V ring,
+    #  slot stride, row stride, Hcp, Wcp; R; pred_y, pred_u, pred_v, mb_w,
+    #  mb_h, pad, stream)
+    "pip_mc_cells": [_P] * 6 + [_P, _L, _I, _I, _I, _P, _P, _L, _I, _I, _I,
+                                _I] + [_P, _P, _P, _I, _I, _I, _P],
     # (mb_class, qp, cbp_luma, cbp_chroma, transform8, luma_ac, luma_dc,
     #  luma8, chroma_ac, chroma_dc, ref_slot, pcm, w4 x6, w8 x2,
     #  use_scaling, chroma qp offsets x2, pred_y, pred_u, pred_v, Yw, Uw,

@@ -565,6 +565,114 @@ def bucketed_mc_frames(data, device):
             yield i, dec.ref_y, dec.ref_u, dec.ref_v, PAD, p, mb_w, mb_h
 
 
+def cells_mc_frames(data, device):
+    """Decode `data` by hand (_frames_by_hand) and yield, before each P
+    frame on the per-cell MC route is reconstructed (the plan does not
+    serve it: mc_fast False), that frame's route arguments: (frame,
+    mb_w, mb_h, p, ref_y, ref_u, ref_v), as decoder_torch._mc_cells takes
+    them."""
+    for i, dec, planes_np, p, mb_w, mb_h in _frames_by_hand(data, device):
+        if planes_np["mc_any"] and not planes_np["mc_fast"]:
+            yield i, mb_w, mb_h, p, dec.ref_y, dec.ref_u, dec.ref_v
+
+
+def k11_plain(ref_y, ref_u, ref_v, pad, p, mb_w, mb_h):
+    """K11's plain version, with ops/mc.mc_cells' arguments, on the
+    rings' device: _mc_legacy_cells' tiles as planes (the per-cell route
+    on the CPU, decoder_torch._mc_cells) with 0 on every cell whose
+    ref_slot is below 0, as K11 writes them (K7 reads the prediction of no
+    such cell)."""
+    from .decoder_torch import _mc_legacy_cells, _tiles_to_plane
+    tiles = _mc_legacy_cells(mb_w, mb_h, p, ref_y, ref_u, ref_v)
+    inter = _tiles_to_plane((p["ref_slot"] >= 0).reshape(-1, 4, 4), mb_w,
+                            mb_h, 4)
+    out = []
+    for t, s in zip(tiles, (16, 8, 8)):
+        keep = inter.repeat_interleave(s // 4, 0).repeat_interleave(s // 4,
+                                                                      1)
+        out.append(torch.where(keep, _tiles_to_plane(t, mb_w, mb_h, s), 0))
+    return tuple(out)
+
+
+# K11's cases: (name, mb_w, mb_h, seed, options of random_cells_case).
+# Every case sets the first 64 inter cells' MV fractions to the 64 chroma
+# phases (and so the 16 luma ones); "far" sends a share of the cells far
+# past the padded border (the iFullMV clip); WP weights every cell's luma
+# and a random part of the chroma (a partial wp_cmask), with denominators
+# -1 (off) to 7 and weights and offsets over int8; widths of 9, 11 and 13
+# MBs, the walk deployment's 40x22 and 720p.
+K11_CASES = [
+    ("9x4 every phase, 4 slots", 9, 4, 0, dict()),
+    ("9x4 far MVs", 9, 4, 1, dict(far=0.5)),
+    ("9x4 WP, partial chroma mask", 9, 4, 2, dict(wp=True)),
+    ("11x3 WP, far MVs, 19 slots", 11, 3, 3, dict(wp=True, far=0.3,
+                                                   slots=19)),
+    ("13x5 no intra MB", 13, 5, 4, dict(intra=0.0, far=0.1)),
+    ("640x352 WP, far MVs", 40, 22, 5, dict(wp=True, far=0.1)),
+    ("720p", 80, 45, 6, dict(far=0.05)),
+]
+
+
+def random_cells_case(mb_w, mb_h, seed, wp=False, far=0.0, intra=0.1,
+                      slots=4, device="cpu"):
+    """(ref_y, ref_u, ref_v, pad, p) for the per-cell MC route
+    (decoder_torch._mc_cells, K11): uint8 noise rings of `slots` slots
+    (pad 32) and a plane dict of ref_slot (int32 [n, 16], a slot of the
+    whole ring per cell, -1 on a share `intra` of the MBs) and mv (int16
+    [n, 16, 2]): |mv| <= 64 quarter-pels, but a share `far` of the cells
+    MC_MV_MAX + 1 to 4 (W + 2 pad) quarter-pels per component, which the
+    iFullMV clip pulls back into the padded planes; the first 64 inter
+    cells that are not far take the 64 eighth-pel phases (mvx & 7, mvy &
+    7). With `wp` the
+    four WP planes as the symbol layer gives them: wp_luma, wp_cb, wp_cr
+    int16 [n, 16, 3] (weight and offset -128..127, denominator -1 (off)
+    to 7) and wp_cmask uint8 [n, 8, 8], about half its samples set. The
+    plan keys mc_bucket, mc_fast (False) and mc_any make the dict one
+    decoder_torch._inter_pred routes to the per-cell path."""
+    from .decoder_torch import planes_to_torch
+    from .ops import mc as tmc
+    rng = np.random.RandomState(seed)
+    pad = 32
+    n = mb_w * mb_h
+    H, W = mb_h * 16, mb_w * 16
+    ref_y = rng.randint(0, 256, (slots, H + 2 * pad, W + 2 * pad))
+    ref_u = rng.randint(0, 256, (slots, H // 2 + pad, W // 2 + pad))
+    ref_v = rng.randint(0, 256, ref_u.shape)
+    ref_slot = rng.randint(0, slots, (n, 16)).astype(np.int32)
+    mv = rng.randint(-64, 65, (n, 16, 2))
+    is_far = rng.rand(n, 16, 1) < far
+    if far:
+        reach = 4 * (W + 2 * pad)
+        sign = rng.choice([-1, 1], (n, 16, 2))
+        long_ = sign * rng.randint(tmc.MC_MV_MAX + 1, reach + 1, (n, 16, 2))
+        mv = np.where(is_far, long_, mv)
+    intra_mb = rng.rand(n) < intra
+    ref_slot[intra_mb] = -1
+    mv[intra_mb] = 0
+    # short MVs never clip: the phases go to inter cells that are not far
+    cells = np.flatnonzero((ref_slot >= 0).reshape(-1)
+                           & ~is_far.reshape(-1))[:64]
+    flat = mv.reshape(-1, 2)
+    k = np.arange(len(cells))
+    flat[cells, 0] = (flat[cells, 0] & ~7) | (k % 8)
+    flat[cells, 1] = (flat[cells, 1] & ~7) | (k // 8)
+    planes = {"ref_slot": ref_slot, "mv": mv.astype(np.int16),
+              "mc_bucket": np.zeros((n, 16), np.uint8),
+              "mc_fast": np.bool_(False),
+              "mc_any": np.bool_(bool((ref_slot >= 0).any()))}
+    if wp:
+        for key in ("wp_luma", "wp_cb", "wp_cr"):
+            q = np.stack([rng.randint(-128, 128, (n, 16)),
+                          rng.randint(-128, 128, (n, 16)),
+                          rng.randint(-1, 8, (n, 16))], -1)
+            planes[key] = q.astype(np.int16)
+        planes["wp_cmask"] = (rng.rand(n, 8, 8) < 0.5).astype(np.uint8)
+    p = planes_to_torch(planes, device)
+    rings = [torch.as_tensor(a.astype(np.uint8), device=device)
+             for a in (ref_y, ref_u, ref_v)]
+    return (*rings, pad, p)
+
+
 def _coefficients(rng, shape, extremes):
     """Sparse int16 levels of `shape` [n, ...]: most 0, the rest small, and
     on every `extremes`-th MB (none with 0) levels at the int16 extremes,

@@ -253,22 +253,35 @@ def _plane_to_tiles(plane, mb_w, mb_h, t):
         .reshape(mb_w * mb_h, t, t)
 
 
+def _mc_cells(mb_w, mb_h, p, ref_y, ref_u, ref_v):
+    """The per-cell route: on CUDA one launch of K11 (ops/mc.mc_cells),
+    on the CPU _mc_legacy_cells' tiles as planes (K11 equals them on the
+    inter cells and writes 0 on the others, which K7 never reads)."""
+    if ref_y.device.type == "cuda":
+        return tmc.mc_cells(ref_y, ref_u, ref_v, PAD, p, mb_w, mb_h)
+    ty, tu, tv = _mc_legacy_cells(mb_w, mb_h, p, ref_y, ref_u, ref_v)
+    return (_tiles_to_plane(ty, mb_w, mb_h, 16),
+            _tiles_to_plane(tu, mb_w, mb_h, 8),
+            _tiles_to_plane(tv, mb_w, mb_h, 8))
+
+
 def _inter_pred(mb_w, mb_h, p, ref_y, ref_u, ref_v):
     """The frame's inter prediction planes ([H, W], [H/2, W/2], [H/2,
     W/2] int32): the bucketed dense-shift path (K1 and K6 on CUDA) when
     the host plan served the frame (mc_fast), the general per-cell path
-    otherwise; None on a frame whose plan has no inter cell (mc_any
-    False)."""
+    (K11 on CUDA) otherwise, WP frames always; None on a frame whose plan
+    has no inter cell (mc_any False)."""
     if "mc_bucket" in p and not p["mc_any"]:
         return None
     if "mc_bucket" in p and p["mc_fast"]:
         trace.count("dec.mc_bucketed")
         trace.count("dec.mc_slots", int(p["mc_nslots"]))
         return tmc.mc_bucketed(ref_y, ref_u, ref_v, PAD, p, mb_w, mb_h)
-    ty, tu, tv = _mc_legacy_cells(mb_w, mb_h, p, ref_y, ref_u, ref_v)
-    return (_tiles_to_plane(ty, mb_w, mb_h, 16),
-            _tiles_to_plane(tu, mb_w, mb_h, 8),
-            _tiles_to_plane(tv, mb_w, mb_h, 8))
+    with trace.span("dec.inter.cells"):
+        trace.count("dec.mc_cells")
+        if "wp_luma" in p:
+            trace.count("dec.mc_cells_wp")
+        return _mc_cells(mb_w, mb_h, p, ref_y, ref_u, ref_v)
 
 
 def _residual_and_inter(mb_w, mb_h, p, ref_y, ref_u, ref_v):
@@ -1131,8 +1144,11 @@ class TorchDecoder:
             plan, spilled = tmc.mc_plan(mb_w, mb_h, ref_slot, f["mv"], PAD)
             if has_wp:
                 plan["mc_fast"] = np.bool_(False)
-            plan["mc_any"] = np.bool_(bool((ref_slot >= 0).any()))
+            n_inter = int(np.count_nonzero(ref_slot >= 0))
+            plan["mc_any"] = np.bool_(n_inter > 0)
             planes.update(plan)
+            if n_inter and not plan["mc_fast"]:
+                trace.count("dec.mc_cells_n", n_inter)
         trace.count("dec.plan_compiled")
         if spilled:
             trace.count("dec.mc_spilled")

@@ -593,7 +593,7 @@ def _mc_fixups(out_y, out_u, out_v, ref_y, ref_u, ref_v, pad, p, mb_w,
             planes[1].to(torch.int32))
 
 
-def k6_operands(ref_y, ref_u, ref_v, pad, p, mb_w, mb_h):
+def k6_operands(ref_y, ref_u, ref_v, pad, p, mb_w, mb_h, host=False):
     """K6's operands on CUDA tensors: K1's planes of the active slots (K1
     launches here), the window checks on the host (_mc_prep; the table
     path does not clamp), the plan's device tensors (bucket, fix list,
@@ -601,9 +601,10 @@ def k6_operands(ref_y, ref_u, ref_v, pad, p, mb_w, mb_h):
     W/2+pad] (uint8, unit column stride) as they are, and the fresh int32
     outputs. Returns (args of
     pip_mc_bucket before the stream, (pred_y, pred_u, pred_v), the
-    tensors the args point into)."""
+    tensors the args point into). host=True takes CPU tensors, for the
+    kernel's CPU emulation (tools/cuda_emu.py)."""
     rings = (ref_y, ref_u, ref_v)
-    if any(r.device.type != "cuda" or r.device != ref_y.device
+    if any((r.device.type != "cuda" and not host) or r.device != ref_y.device
            for r in rings):
         raise ValueError("bucketed MC kernel takes CUDA tensors on one "
                          f"device, got {[str(r.device) for r in rings]}")
@@ -675,3 +676,81 @@ def mc_bucketed(ref_y, ref_u, ref_v, pad, p, mb_w, mb_h):
 
 
 mc_bucketed.launches = 0
+
+
+# the WP planes K11 reads, all present or all absent: (key, dtype, shape
+# per MB)
+K11_WP = (("wp_luma", torch.int16, (16, 3)), ("wp_cb", torch.int16, (16, 3)),
+          ("wp_cr", torch.int16, (16, 3)), ("wp_cmask", torch.uint8, (8, 8)))
+
+
+def k11_operands(ref_y, ref_u, ref_v, pad, p, mb_w, mb_h, host=False):
+    """K11's operands, checked: the plan dict's ref_slot (int32 [n, 16])
+    and mv (int16 [n, 16, 2]) and, on a WP frame, the four WP planes
+    (K11_WP; null pointers without WP), read in place; the rings [R,
+    H+2pad, W+2pad] and [R, H/2+pad, W/2+pad] (uint8, unit column stride)
+    as they are; and the fresh int32 outputs. Returns (the args of
+    pip_mc_cells before the stream, (pred_y, pred_u, pred_v), the tensors
+    the args point into). host=True takes CPU tensors, for the kernel's
+    CPU emulation (tools/cuda_emu.py)."""
+    rings = (ref_y, ref_u, ref_v)
+    dev = ref_y.device
+    if (dev.type != "cuda" and not host) or any(r.device != dev
+                                                for r in rings):
+        raise ValueError("per-cell MC kernel takes CUDA tensors on one "
+                         f"device, got {[str(r.device) for r in rings]}")
+    n = mb_w * mb_h
+    H, W = mb_h * 16, mb_w * 16
+    if any(r.dtype != torch.uint8 or r.dim() != 3 or r.stride(2) != 1
+           for r in rings) or ref_u.shape != ref_v.shape \
+            or ref_u.stride() != ref_v.stride() \
+            or ref_y.shape[0] != ref_u.shape[0] \
+            or tuple(ref_y.shape[1:]) != (H + 2 * pad, W + 2 * pad) \
+            or tuple(ref_u.shape[1:]) != (H // 2 + pad, W // 2 + pad):
+        raise ValueError("per-cell MC kernel takes uint8 rings [R, H+2pad, "
+                         "W+2pad] and [R, H/2+pad, W/2+pad] with unit column "
+                         "stride, U and V alike")
+    planes = [("ref_slot", torch.int32, (16,)), ("mv", torch.int16, (16, 2))]
+    wp = "wp_luma" in p
+    if wp != all(k in p for k, _, _ in K11_WP):
+        raise ValueError(f"per-cell MC kernel takes all of {K11_WP} or none")
+    keep = []
+    P = ctypes.c_void_p
+    args = []
+    for k, dtype, shape in planes + (list(K11_WP) if wp else []):
+        t = p[k]
+        if t.device != dev or t.dtype != dtype or \
+                tuple(t.shape) != (n,) + shape:
+            raise ValueError(f"per-cell MC {k}: {tuple(t.shape)} {t.dtype} "
+                             f"on {t.device}, the kernel takes "
+                             f"{(n,) + shape} {dtype} on {dev}")
+        t = t.contiguous()
+        keep.append(t)
+        args.append(P(t.data_ptr()))
+    args += [None] * (6 - len(args))
+    pred_y = torch.empty((H, W), dtype=torch.int32, device=dev)
+    pred_u = torch.empty((H // 2, W // 2), dtype=torch.int32, device=dev)
+    pred_v = torch.empty_like(pred_u)
+    args += [P(ref_y.data_ptr()), ref_y.stride(0), ref_y.stride(1),
+             ref_y.shape[1], ref_y.shape[2], P(ref_u.data_ptr()),
+             P(ref_v.data_ptr()), ref_u.stride(0), ref_u.stride(1),
+             ref_u.shape[1], ref_u.shape[2], ref_y.shape[0],
+             P(pred_y.data_ptr()), P(pred_u.data_ptr()),
+             P(pred_v.data_ptr()), mb_w, mb_h, pad]
+    return args, (pred_y, pred_u, pred_v), (*keep, *rings)
+
+
+def mc_cells(ref_y, ref_u, ref_v, pad, p, mb_w, mb_h):
+    """K11 wrapper: the frame's per-cell prediction planes (pred_y [H, W],
+    pred_u, pred_v [H/2, W/2] int32): decoder_torch._mc_legacy_cells'
+    planes on the inter cells and 0 on the others (cases.k11_plain), in
+    one launch of csrc/mc_cells.cu on CUDA tensors (CPU tensors raise:
+    the decoder takes the plain path there)."""
+    args, preds, _ = k11_operands(ref_y, ref_u, ref_v, pad, p, mb_w, mb_h)
+    rc = _build.lib().pip_mc_cells(*args, _build.stream(ref_y.device))
+    _build.check(rc, "per-cell MC")
+    _build.count_launch(mc_cells)
+    return preds
+
+
+mc_cells.launches = 0

@@ -36,7 +36,8 @@ from dataclasses import dataclass
 
 PREFIX = "pip:"   # the program's record_function ranges
 
-# K1-K9: the kernel wrappers whose `launches` _build.count_launch advances
+# K1-K9 and K11: the kernel wrappers whose `launches` _build.count_launch
+# advances
 LAUNCH_COUNTERS = (
     ("K1", "ops.mc", "halfpel_planes"),
     ("K2", "ops.deblock", "deblock_wavefront"),
@@ -47,6 +48,7 @@ LAUNCH_COUNTERS = (
     ("K7", "decoder_torch", "_residual_recon"),
     ("K8", "encoder_torch", "inter_residual"),
     ("K9", "ops.deblock", "edge_params_packed"),
+    ("K11", "ops.mc", "mc_cells"),
 )
 
 _rec = None   # the installed Recording
@@ -153,8 +155,8 @@ class _Span:
 
 class Recording:
     """What one `recording()` kept: `spans` (Span, in the order they
-    ended), `counters`, `launches` (K1-K9 launches between start and
-    stop), `t0`/`t1` (perf_counter_ns) and `thread` (the thread that
+    ended), `counters`, `launches` (K1-K9 and K11 launches between start
+    and stop), `t0`/`t1` (perf_counter_ns) and `thread` (the thread that
     installed it)."""
 
     def __init__(self, sync=False):

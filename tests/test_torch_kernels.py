@@ -7,8 +7,9 @@ ops/intra.intra_recon), K4 (csrc/intra_enc.cu,
 encoder_torch.intra_wavefront), K5 (csrc/me_dense.cu,
 ops/me.dense_full_search), K6 (csrc/mc_bucket.cu,
 ops/mc.mc_bucketed), K7 (csrc/residual_dec.cu,
-decoder_torch._residual_recon) and K8 (csrc/residual_enc.cu,
-encoder_torch.inter_residual) have no CPU mode. The tests marked
+decoder_torch._residual_recon), K8 (csrc/residual_enc.cu,
+encoder_torch.inter_residual) and K11 (csrc/mc_cells.cu,
+ops/mc.mc_cells) have no CPU mode. The tests marked
 `cuda` build them with nvcc and compare them on the card with
 torch.equal, and run the decoder and the encoder, which launch them, on
 the card against the committed goldens and the port's CPU run; they
@@ -34,15 +35,17 @@ from losslessh264_tpu_torch import encoder_torch as et
 from losslessh264_tpu_torch import native
 from losslessh264_tpu_torch.cases import (INTRA_CLASSES, K5_CASES, K6_CASES,
                                           K7_CASES, K8_CASES, K9_CASES,
-                                          HeldToPlain,
+                                          K11_CASES, HeldToPlain,
                                           bucketed_mc_frames,
                                           dense_search_case,
-                                          inter_residual_args, moving_frames,
+                                          inter_residual_args, k11_plain,
+                                          moving_frames,
                                           random_deblock_case,
                                           random_edge_case,
                                           random_inter_residual_case,
                                           random_intra_case,
                                           random_intra_encode_case,
+                                          random_cells_case,
                                           random_mc_case,
                                           random_residual_case)
 from losslessh264_tpu_torch.ops import deblock as tdb
@@ -1103,3 +1106,190 @@ def test_residual_enc_kernel_on_encode(cuda_device):
         for f in frames:
             enc.encode_frame(*f)
     assert held.calls == 4 and held.bad == []
+
+
+def _legacy_planes(mb_w, mb_h, p, *rings):
+    """_mc_legacy_cells' tiles as planes, and the [H/4, W/4] bool plane of
+    the inter cells (ref_slot >= 0)."""
+    tiles = dt._mc_legacy_cells(mb_w, mb_h, p, *rings)
+    planes = [dt._tiles_to_plane(t, mb_w, mb_h, s)
+              for t, s in zip(tiles, (16, 8, 8))]
+    inter = dt._tiles_to_plane((p["ref_slot"] >= 0).reshape(-1, 4, 4),
+                               mb_w, mb_h, 4)
+    return planes, inter
+
+
+def _assert_cells_equal_legacy(got, mb_w, mb_h, p, *rings):
+    """The per-cell route's planes `got` equal _mc_legacy_cells' on every
+    inter cell (max_abs_err 0) and are 0 on every other cell."""
+    want, inter = _legacy_planes(mb_w, mb_h, p, *rings)
+    for g, w, s in zip(got, want, (4, 2, 2)):
+        keep = inter.repeat_interleave(s, 0).repeat_interleave(s, 1)
+        assert g.dtype == torch.int32
+        assert int((g.long() - torch.where(keep, w, 0).long()).abs()
+                   .max()) == 0
+
+
+@pytest.mark.parametrize("name,mb_w,mb_h,seed,kw", K11_CASES[:5])
+def test_cells_cases(name, mb_w, mb_h, seed, kw):
+    """random_cells_case's frames are the ones K11's card cases name: the
+    64 chroma (so the 16 luma) MV phases among inter cells the clip leaves
+    alone, clipped cells with `far`, every ring slot, intra MBs with
+    `intra`, and with WP every denominator -1..7 and a partial chroma
+    mask; the plain route equals _mc_legacy_cells on the inter cells."""
+    *rings, pad, p = random_cells_case(mb_w, mb_h, seed, **kw)
+    n, H, W = mb_w * mb_h, 16 * mb_h, 16 * mb_w
+    rs = p["ref_slot"].reshape(-1)
+    mv = p["mv"].reshape(-1, 2).long()
+    k = torch.arange(16 * n)
+    cy = (k // 16 // mb_w) * 16 + (k % 16 // 4) * 4
+    cx = (k // 16 % mb_w) * 16 + (k % 4) * 4
+    fx, fy = 4 * cx + mv[:, 0], 4 * cy + mv[:, 1]
+    clipped = ((fx < (2 - pad) * 4) | (fx > (W + pad - 19) * 4)
+               | (fy < (2 - pad) * 4) | (fy > (H + pad - 19) * 4))
+    free = (rs >= 0) & ~clipped
+    phases = set(((mv[free, 0] & 7) * 8 + (mv[free, 1] & 7)).tolist())
+    assert phases == set(range(64))
+    assert bool(clipped[rs >= 0].any()) == bool(kw.get("far"))
+    assert set(rs[rs >= 0].tolist()) == set(range(kw.get("slots", 4)))
+    assert bool((rs < 0).any()) == (kw.get("intra", 0.1) > 0)
+    if kw.get("wp"):
+        assert set(p["wp_luma"][..., 2].reshape(-1).tolist()) == set(
+            range(-1, 8))
+        assert 0 < int(p["wp_cmask"].sum()) < p["wp_cmask"].numel()
+    got = dt._mc_cells(mb_w, mb_h, p, *rings)
+    want, _ = _legacy_planes(mb_w, mb_h, p, *rings)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    _assert_cells_equal_legacy(k11_plain(*rings, pad, p, mb_w, mb_h), mb_w,
+                               mb_h, p, *rings)
+
+
+def test_cells_route_takes_plain_version_on_cpu():
+    """On CPU tensors the per-cell route (_inter_pred with mc_fast False,
+    a WP frame) is _mc_legacy_cells' tiles as planes and launches nothing;
+    K11's own wrapper refuses CPU tensors."""
+    *rings, pad, p = random_cells_case(9, 4, 2, wp=True)
+    before = tmc.mc_cells.launches
+    got = dt._inter_pred(9, 4, p, *rings)
+    want, _ = _legacy_planes(9, 4, p, *rings)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert tmc.mc_cells.launches == before
+    with pytest.raises(ValueError, match="CUDA"):
+        tmc.mc_cells(*rings, pad, p, 9, 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,mb_w,mb_h,seed,kw", K11_CASES)
+def test_mc_cells_kernel_on_card(cuda_device, name, mb_w, mb_h, seed, kw):
+    """K11 equals _mc_legacy_cells on every inter cell and is 0 elsewhere
+    (max_abs_err 0), 3 launches: every luma and chroma MV phase, MVs far
+    past the padded border, every ring slot (19 in one case), WP on luma
+    and a partial chroma mask, 640x352 and 720p; and its planes' CRC is
+    the JAX package's (tests/data/k11_jax_crc.json, which
+    tests/test_torch_mc.py holds to decoder_jax._mc_legacy_cells)."""
+    *rings, pad, p = random_cells_case(mb_w, mb_h, seed, device=cuda_device,
+                                       **kw)
+    want = k11_plain(*rings, pad, p, mb_w, mb_h)
+    before = tmc.mc_cells.launches
+    for _ in range(3):
+        got = tmc.mc_cells(*rings, pad, p, mb_w, mb_h)
+        assert all(g.dtype == w.dtype == torch.int32 and torch.equal(g, w)
+                   for g, w in zip(got, want)), name
+        _assert_cells_equal_legacy(got, mb_w, mb_h, p, *rings)
+    assert tmc.mc_cells.launches == before + 3
+    with open(os.path.join(DATA, "k11_jax_crc.json")) as fh:
+        jax_crc = json.load(fh)["crc32"][name]
+    assert zlib.crc32(b"".join(g.cpu().numpy().tobytes()
+                               for g in got)) == jax_crc
+
+
+@pytest.mark.cuda
+def test_mc_cells_route_is_one_k11_launch(cuda_device, monkeypatch):
+    """On CUDA tensors the per-cell route of _inter_pred is one K11 launch
+    and no torch chain: _mc_legacy_cells is never called (a sentinel in
+    its place raises), nor K1 or K6."""
+    def sentinel(*args, **kw):
+        raise AssertionError("_mc_legacy_cells ran on the CUDA path")
+    for name, mb_w, mb_h, seed, kw in K11_CASES:
+        *rings, pad, p = random_cells_case(mb_w, mb_h, seed,
+                                           device=cuda_device, **kw)
+        want = k11_plain(*rings, pad, p, mb_w, mb_h)
+        with monkeypatch.context() as m:
+            m.setattr(dt, "_mc_legacy_cells", sentinel)
+            before = (tmc.mc_cells.launches, tmc.mc_bucketed.launches,
+                      tmc.halfpel_planes.launches)
+            got = dt._inter_pred(mb_w, mb_h, p, *rings)
+            after = (tmc.mc_cells.launches, tmc.mc_bucketed.launches,
+                     tmc.halfpel_planes.launches)
+        assert after == (before[0] + 1,) + before[1:], name
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key,dtype", [("ref_slot", torch.int64),
+                                       ("mv", torch.int32),
+                                       ("wp_luma", torch.int32),
+                                       ("wp_cmask", torch.bool),
+                                       ("wp_cr", None)])
+def test_mc_cells_kernel_refuses_planes(cuda_device, key, dtype):
+    """K11 reads the decoder's dtypes (ref_slot int32, mv and the WP
+    weights int16, wp_cmask uint8) and the four WP planes together; a
+    plane of another width, or a WP frame missing one, raises before the
+    launch."""
+    *rings, pad, p = random_cells_case(9, 4, 2, wp=True, device=cuda_device)
+    if dtype is None:
+        del p[key]
+    else:
+        p[key] = p[key].to(dtype)
+    before = tmc.mc_cells.launches
+    with pytest.raises(ValueError, match="per-cell MC"):
+        tmc.mc_cells(*rings, pad, p, 9, 4)
+    assert tmc.mc_cells.launches == before
+
+
+@pytest.mark.cuda
+def test_mc_bucket_fixups_every_phase(cuda_device):
+    """K6's fix-up cells (the code it shares with K11, csrc/mc_cell.cuh)
+    equal the plain bucketed MC on all 64 chroma (and 16 luma) MV phases
+    and clipped MVs, on every ring slot: a far case whose fix-up cells'
+    MVs take each phase in turn."""
+    *rings, pad, p = random_mc_case(80, 45, 6, 2, 1, 32, "far", cuda_device)
+    fix = p["mc_fix"][p["mc_fix"] >= 0].long()
+    mv = p["mv"].reshape(-1, 2)
+    k = torch.arange(len(fix), device=cuda_device)
+    mv[fix, 0] = (mv[fix, 0] & ~7) | (k % 8).to(torch.int16)
+    mv[fix, 1] = (mv[fix, 1] & ~7) | (k // 8 % 8).to(torch.int16)
+    assert len(fix) == 512
+    want = tmc.mc_bucketed_plain(*rings, pad, p, 80, 45)
+    got = tmc.mc_bucketed(*rings, pad, p, 80, 45)
+    assert all(g.dtype == w.dtype == torch.int32 and torch.equal(g, w)
+               for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_mc_cells_kernel_on_walk(cuda_device):
+    """K11 equals the plain route on every per-cell frame of the walk
+    stand-in's (bench_port/data/walk_analog_1331.264) first 24 frames and
+    of its third GOP (frames 200-299, the scene cut at 280 among them),
+    each decoded alone from its IDR, and the decodes' CRCs equal
+    NpDecoder's (bench_port/reference/crc/walk_analog_1331.json)."""
+    import sys
+    bench = os.path.join(os.path.dirname(DATA), "..", "bench_port")
+    sys.path.insert(0, bench)
+    from harness import gops, streams
+    with open(os.path.join(bench, "data", "walk_analog_1331.264"),
+              "rb") as fh:
+        data = fh.read()
+    with open(os.path.join(bench, "reference", "crc",
+                           "walk_analog_1331.json")) as fh:
+        gold = json.load(fh)["crc32"]
+    offsets = streams.access_unit_offsets(data)
+    for first, end in ((0, 24), (200, 300)):
+        clip = gops.gop_clip(data, first, end, offsets)
+        with HeldToPlain(tmc, "mc_cells", k11_plain) as held:
+            crcs = [zlib.crc32(b"".join(a.cpu().numpy().tobytes()
+                                        for a in yuv))
+                    for yuv in dt.TorchDecoder(clip,
+                                               device=cuda_device).frames()]
+        assert crcs == gold[first:end]
+        assert held.calls > 0 and held.bad == [], (first, held.bad)

@@ -5,7 +5,9 @@ with clipped MVs, the bucketed fast path, and the host plan copied
 from the JAX module. Where JAX reaches the Pallas kernel, the module
 attribute halfpel_planes_pallas is swapped for its plain twin
 halfpel_planes, as the JAX package's own CPU runs would need."""
+import json
 import os
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -14,7 +16,12 @@ import pytest
 import torch
 
 from losslessh264_tpu.ops import mc as jmc
+from losslessh264_tpu_torch.cases import (K11_CASES, k11_plain,
+                                          random_cells_case)
 from losslessh264_tpu_torch.ops import mc as tmc
+
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
+import gen_k11_jax_crc  # noqa: E402
 
 # one torch thread per test worker (see tests/test_torch_decoder.py)
 torch.set_num_threads(1)
@@ -260,3 +267,21 @@ def test_mc_fast_plan_copy_matches_original():
             break
     assert {(True, False), (True, True), (False, False)} <= kinds
 
+
+@pytest.mark.parametrize("name,mb_w,mb_h,seed,kw", K11_CASES)
+def test_cells_route_matches_jax(name, mb_w, mb_h, seed, kw):
+    """The per-cell route against the JAX package's _mc_legacy_cells on
+    K11's cases (every MV phase, MVs far past the padded border, every
+    ring slot, WP luma per cell and chroma in a partial wp_cmask with
+    denominators -1..7): K11's plain version (cases.k11_plain) equals
+    JAX's planes on the inter cells (max_abs_err 0; both 0 elsewhere), and
+    their CRC is the one tests/data/k11_jax_crc.json holds, which K11 is
+    held to on the card (tests/test_torch_kernels.py)."""
+    want = gen_k11_jax_crc.jax_planes(mb_w, mb_h, seed, kw)
+    *rings, pad, p = random_cells_case(mb_w, mb_h, seed, **kw)
+    got = [a.numpy() for a in k11_plain(*rings, pad, p, mb_w, mb_h)]
+    assert [g.shape for g in got] == [w.shape for w in want]
+    assert max(int(np.abs(g.astype(np.int64) - w).max())
+               for g, w in zip(got, want)) == 0
+    with open(os.path.join(DATA, "k11_jax_crc.json")) as fh:
+        assert gen_k11_jax_crc.crc(want) == json.load(fh)["crc32"][name]

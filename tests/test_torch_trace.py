@@ -33,8 +33,9 @@ SPANS = {
     "dec.symbols.alloc", "dec.symbols.export", "dec.plan", "dec.plan.refs",
     "dec.plan.slots", "dec.plan.intra", "dec.plan.avail", "dec.plan.nnz",
     "dec.plan.mc", "dec.plan.scaling", "dec.plan.deblock", "dec.upload",
-    "dec.inter", "dec.residual", "dec.intra", "dec.deblock",
-    "dec.deblock.params", "dec.deblock.filter", "dec.deblock.crop",
+    "dec.inter", "dec.inter.cells", "dec.residual", "dec.intra",
+    "dec.deblock", "dec.deblock.params", "dec.deblock.filter",
+    "dec.deblock.crop",
     "dec.store", "dec.conceal",
     "enc.frame", "enc.run", "enc.upload", "enc.qp_maps", "enc.pad_refs",
     "enc.search", "enc.residual", "enc.pack", "enc.mask_fetch",
@@ -44,7 +45,8 @@ SPANS = {
 }
 COUNTERS = {"dec.frames", "dec.h2d_bytes", "dec.h2d_copies",
             "dec.symbol_bytes", "dec.mc_bucketed", "dec.mc_slots",
-            "dec.plan_compiled", "dec.mc_spilled",
+            "dec.plan_compiled", "dec.mc_spilled", "dec.mc_cells",
+            "dec.mc_cells_n", "dec.mc_cells_wp",
             "enc.frames", "enc.h2d_bytes", "enc.d2h_bytes"}
 # the leaf spans of every frame of an undamaged decode outside a batch
 DECODE_LEAVES = {"dec.symbols.parse", "dec.symbols.alloc",
@@ -243,6 +245,49 @@ def test_plan_counters_on_runs720p(monkeypatch):
     assert rec.counters["dec.plan_compiled"] == calls["dec.plan.mc"] == n
     spills = sum(numpy_spills(*a) for a in seen)
     assert rec.counters["dec.mc_spilled"] == spills == 8
+
+
+def test_cells_route_counters_on_walk(monkeypatch):
+    """A recorded decode of walk_analog's first 6 frames (an IDR, then P
+    frames the plan spills) counts dec.mc_cells and opens dec.inter.cells
+    once per frame on the per-cell route (a plan with inter cells and
+    mc_fast False), dec.mc_cells_n their inter cells, and no WP frame;
+    the route's span sits inside dec.inter."""
+    from losslessh264_tpu_torch.ops import mc as tmc
+    from losslessh264_tpu_torch.parse import split_access_units
+    seen = []
+    plan = tmc.mc_plan
+
+    def keep(mb_w, mb_h, ref_slot, mv, pad):
+        out = plan(mb_w, mb_h, ref_slot, mv, pad)
+        seen.append((int((ref_slot >= 0).sum()), bool(out[0]["mc_fast"])))
+        return out
+    monkeypatch.setattr(tmc, "mc_plan", keep)
+    path = os.path.join(os.path.dirname(__file__), "data", "walk_analog.264")
+    with open(path, "rb") as fh:
+        data = fh.read()
+    clip = b"".join(raw for raw, _ in split_access_units(data)[:6])
+    with trace.recording() as rec:
+        n = len(list(dt.TorchDecoder(clip, device="cpu").frames()))
+    routed = [k for k, fast in seen if k and not fast]
+    assert n == len(seen) == 6 and len(routed) == 5
+    assert rec.counters["dec.mc_cells"] == rec.calls()["dec.inter.cells"] \
+        == len(routed)
+    assert rec.counters["dec.mc_cells_n"] == sum(routed)
+    assert "dec.mc_cells_wp" not in rec.counters
+    names = {s.id: s.name for s in rec.spans}
+    assert {names[s.parent] for s in rec.spans
+            if s.name == "dec.inter.cells"} == {"dec.inter"}
+
+
+def test_cells_route_counts_wp_frames():
+    """The per-cell route counts a frame with explicit weighted prediction
+    in dec.mc_cells_wp, beside dec.mc_cells."""
+    from losslessh264_tpu_torch.cases import random_cells_case
+    *rings, pad, p = random_cells_case(9, 4, 2, wp=True)
+    with trace.recording() as rec:
+        dt._inter_pred(9, 4, p, *rings)
+    assert rec.counters == {"dec.mc_cells": 1, "dec.mc_cells_wp": 1}
 
 
 def test_intra_batch_is_one_frame_span():

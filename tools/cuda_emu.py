@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Run K7 (csrc/residual_dec.cu) or K8 (csrc/residual_enc.cu) on the CPU,
-one std::thread per CUDA thread, against their plain versions, exact.
+"""Run K6 (csrc/mc_bucket.cu), K7 (csrc/residual_dec.cu), K8
+(csrc/residual_enc.cu) or K11 (csrc/mc_cells.cu) on the CPU, one
+std::thread per CUDA thread, against their plain versions, exact.
 
-    python3 tools/cuda_emu.py k7|k8 [SOURCE.cu] [--all] [--asan]
+    python3 tools/cuda_emu.py k6|k7|k8|k11 [SOURCE.cu] [--all] [--asan]
 
 The source (the port's own by default; another one needs transform.cuh
 beside it) is compiled by g++ against tools/cuda_emu/cuda_runtime.h, a
@@ -12,13 +13,14 @@ emu::launch, and the bodies of transform.cuh's cp.async and bar.sync
 helpers become the emulator's queued copies and barriers. The C entry is then called through ctypes
 on CPU tensors (the wrapper's operands, decoder_torch.k7_operands or
 encoder_torch.k8_operands with host=True) and every output is held to
-the plain version with torch.equal.
+the plain version with torch.equal (K6: ops/mc.k6_operands, K11:
+ops/mc.k11_operands, with host=True too).
 
-Cases: cases.K7_CASES or cases.K8_CASES below 100 MBs (K8 also a
-dc_shift case, whose no_res hinges on chroma DC levels); --all adds the
-720p ones (a minute or more each). --asan builds with AddressSanitizer
-and reruns itself with libasan preloaded, so a read past a buffer's end
-shows. It checks a kernel's arithmetic, indexing and synchronisation
+Cases: cases.K6_CASES, K7_CASES, K8_CASES or K11_CASES below 100 MBs
+(K8 also a dc_shift case, whose no_res hinges on chroma DC levels);
+--all adds the larger ones (a minute or more each). --asan builds with
+AddressSanitizer and reruns itself with libasan preloaded, so a read past
+a buffer's end shows. It checks a kernel's arithmetic, indexing and synchronisation
 before a card sees it; it times nothing. Not a test of the suite: it
 needs g++ with C++20 (std::barrier)."""
 import ctypes
@@ -36,16 +38,22 @@ sys.path.insert(0, ROOT)
 from losslessh264_tpu_torch import _build  # noqa: E402
 from losslessh264_tpu_torch import decoder_torch as dt  # noqa: E402
 from losslessh264_tpu_torch import encoder_torch as et  # noqa: E402
-from losslessh264_tpu_torch.cases import (K7_CASES, K8_CASES,  # noqa: E402
-                                          inter_residual_args,
+from losslessh264_tpu_torch.cases import (K6_CASES, K7_CASES,  # noqa: E402
+                                          K8_CASES, K11_CASES,
+                                          inter_residual_args, k11_plain,
+                                          random_cells_case,
                                           random_inter_residual_case,
+                                          random_mc_case,
                                           random_residual_case)
+from losslessh264_tpu_torch.ops import mc as tmc  # noqa: E402
 
 CSRC = os.path.join(ROOT, "losslessh264_tpu_torch", "csrc")
 STUB = os.path.join(ROOT, "tools", "cuda_emu")
 OUT = os.path.join(ROOT, "build", "cuda_emu")
-SOURCES = {"k7": "residual_dec.cu", "k8": "residual_enc.cu"}
-ENTRIES = {"k7": "pip_residual_dec", "k8": "pip_residual_enc"}
+SOURCES = {"k6": "mc_bucket.cu", "k7": "residual_dec.cu",
+           "k8": "residual_enc.cu", "k11": "mc_cells.cu"}
+ENTRIES = {"k6": "pip_mc_bucket", "k7": "pip_residual_dec",
+           "k8": "pip_residual_enc", "k11": "pip_mc_cells"}
 
 # transform.cuh's cp.async and named-barrier helpers: (the definition's
 # head, the body that replaces the asm)
@@ -132,6 +140,28 @@ def k8_cases(all_sizes):
             9, 4, 9, 2, "mb", 144, dc_shift=True)))
 
 
+def k6_cases(all_sizes):
+    for name, mb_w, mb_h, *rest in K6_CASES:
+        if mb_w * mb_h < 100 or all_sizes:
+            yield name, (*random_mc_case(mb_w, mb_h, *rest), mb_w, mb_h)
+
+
+def k11_cases(all_sizes):
+    for name, mb_w, mb_h, seed, kw in K11_CASES:
+        if mb_w * mb_h < 100 or all_sizes:
+            yield name, (*random_cells_case(mb_w, mb_h, seed, **kw), mb_w,
+                         mb_h)
+
+
+# kernel: (operands, plain version, cases)
+KERNELS = {
+    "k6": (tmc.k6_operands, tmc.mc_bucketed_plain, k6_cases),
+    "k7": (dt.k7_operands, dt._residual_recon_plain, k7_cases),
+    "k8": (et.k8_operands, et.inter_residual_plain, k8_cases),
+    "k11": (tmc.k11_operands, k11_plain, k11_cases),
+}
+
+
 def main():
     argv = sys.argv[1:]
     if not argv or argv[0] not in SOURCES:
@@ -148,10 +178,7 @@ def main():
     torch.set_num_threads(1)
     lib = build(src, asan)
     entry = getattr(lib, ENTRIES[kernel])
-    operands, plain = ((dt.k7_operands, dt._residual_recon_plain)
-                       if kernel == "k7" else
-                       (et.k8_operands, et.inter_residual_plain))
-    cases = k7_cases if kernel == "k7" else k8_cases
+    operands, plain, cases = KERNELS[kernel]
     bad = 0
     for name, args in cases(all_sizes):
         ops, outs, _ = operands(*args, host=True)
