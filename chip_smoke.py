@@ -500,10 +500,11 @@ def k2_bytes(mb_w, mb_h):
 
 
 # a decoded frame's stage columns and the tracer's spans that fill them
-# (their self times in a sync=True recording, per frame)
+# (their self times in a sync=True recording, per frame; the symbol
+# parse-ahead worker's spans belong to no frame, so the symbol layer is
+# the main thread's wait for a frame)
 DECODE_STAGE_SPANS = {
-    "host_ms": ("dec.symbols", "dec.symbols.parse", "dec.symbols.alloc",
-                "dec.symbols.export", "dec.frame", "dec.plan",
+    "host_ms": ("dec.symbols", "dec.symbols.wait", "dec.frame", "dec.plan",
                 "dec.plan.refs", "dec.plan.slots", "dec.plan.intra",
                 "dec.plan.avail", "dec.plan.nnz", "dec.plan.mc",
                 "dec.plan.scaling", "dec.plan.deblock", "dec.upload"),

@@ -1,5 +1,6 @@
 """Build and load the port's compiled code at first use: the CUDA
-kernels (csrc/*.cu) and the decoder's host plan (csrc/*.cpp).
+kernels (csrc/*.cu) and the decoder's host code (csrc/*.cpp: the plan and
+the symbol layer's parse-ahead thread).
 
 The kernels are compiled by nvcc into one shared library with a plain C
 interface, build/kernels/libpip_kernels.so under the checkout, and
@@ -34,7 +35,7 @@ COMPILE_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                  "-O3", "-Xcompiler", "-fPIC"]
 # one source (or the objects) straight to a shared library
 NVCC_FLAGS = COMPILE_FLAGS + ["-shared"]
-GXX_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared"]
+GXX_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared", "-pthread"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -87,7 +88,8 @@ _SIGNATURES = {
     "pip_residual_enc": [_P] * 3 + [_I] * 3 + [_P] * 10 + [_I] * 3
     + [_P] * 10 + [_I, _I, _P],
 }
-# the host plan's C entry points (all return int, 0 or 1 for bad sizes)
+# the host code's C entry points (all return int; the plan's 0, or 1 for
+# bad sizes)
 _HOST_SIGNATURES = {
     # (mb_class, transform8, cbp_luma [n] uint8, luma_ac [n, 16, 4, 4],
     #  luma8 [n, 4, 8, 8] int16, n, out [n, 16] int64)
@@ -97,6 +99,17 @@ _HOST_SIGNATURES = {
     #  out: uniq [MC_CAP, 16], slots [MC_SLOT_CAP] int32, bucket [n, 16]
     #  uint8, fix [MC_FIX_CAP], info [4] int32)
     "pip_plan_mc": [_P, _P] + [_I] * 7 + [_P] * 6,
+    # the symbol layer's parse-ahead worker (csrc/sym_ahead.cpp):
+    # (native handle, pip_sym_next, pip_sym_planes, pip_sym_close, depth,
+    #  sizes [2, 31] int64; out: the worker)
+    "pip_ahead_start": [_P] * 4 + [_I, _P, _P],
+    # (worker, block; out: [9] int64, err, err_cap)
+    "pip_ahead_take": [_P, _I, _P, _P, ctypes.c_size_t],
+    "pip_ahead_queued": [_P],
+    "pip_ahead_stop": [_P],
+    # (buffer, its bytes)
+    "pip_ahead_free": [_P, ctypes.c_size_t],
+    "pip_ahead_live": [],
 }
 
 _lib = None

@@ -3,7 +3,8 @@
 `native/libh264pip.so` is the repo's C++ layer: Annex-B parsing,
 CAVLC/CABAC entropy decode into per-frame symbol planes, the lossless
 recompressor and its `.pip` container. The port uses the streaming
-`SymbolDecoder` (native/src/capi_sym.cc) for the pixel decode, and the
+`SymbolDecoder` (native/src/capi_sym.cc), parsed ahead on a native thread
+(csrc/sym_ahead.cpp), for the pixel decode, and the
 recompressor's entry points (`compress`, `compress_sharded`,
 `decompress`, the GOP cut points and shard plan) for its CLI, its GOP
 sharding (parallel/) and checkpointing. This module is the port's own
@@ -23,13 +24,14 @@ from __future__ import annotations
 
 import ctypes
 import fcntl
+import functools
 import os
 import subprocess
 from dataclasses import dataclass
 
 import numpy as np
 
-from . import trace
+from . import _build, trace
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NATIVE_DIR = os.path.join(_ROOT, "native")
@@ -286,10 +288,170 @@ def selftest_arith() -> None:
         raise RuntimeError(f"arith selftest failed: {err.value.decode()}")
 
 
+# pip_sym_planes' buffers in its argument order: (name, dtype, shape,
+# per MB: the shape after the MB count, else the whole shape). meta,
+# scaling, ref_list and dpb_live are read into the frame dict; the rest
+# are its per-MB planes.
+_SYM_BUFFERS = (
+    ("mb_class", np.uint8, (), True),
+    ("qp", np.uint8, (), True),
+    ("cbp_luma", np.uint8, (), True),
+    ("cbp_chroma", np.uint8, (), True),
+    ("transform8", np.uint8, (), True),
+    ("i16_mode", np.uint8, (), True),
+    ("chroma_mode", np.uint8, (), True),
+    ("i4_modes", np.int8, (16,), True),
+    ("luma_ac", np.int16, (16, 4, 4), True),
+    ("luma_dc", np.int16, (4, 4), True),
+    ("luma8", np.int16, (4, 8, 8), True),
+    ("chroma_ac", np.int16, (8, 4, 4), True),
+    ("chroma_dc", np.int16, (2, 2, 2), True),
+    ("mv", np.int16, (16, 2), True),
+    ("ref_frame", np.int16, (16,), True),
+    ("pcm", np.uint8, (384,), True),
+    ("slice_id", np.uint8, (), True),
+    ("deblock_idc", np.uint8, (), True),
+    ("alpha_off", np.int8, (), True),
+    ("beta_off", np.int8, (), True),
+    ("meta", np.int32, (12,), False),
+    ("scaling", np.uint8, (96 + 384,), False),
+    # weighted prediction: per luma cell (w, o, log2denom); denom -1 =
+    # unweighted. wp_cmask: per chroma pixel (8x8/MB), the reference's
+    # quarter-size weighting region.
+    ("wp_luma", np.int16, (16, 3), True),
+    ("wp_cb", np.int16, (16, 3), True),
+    ("wp_cr", np.int16, (16, 3), True),
+    ("wp_cmask", np.uint8, (8, 8), True),
+    # raw ref_idx per cell (-1 intra); deblock bS compares these
+    # (reference semantics), not resolved output frames
+    ("ref_idx", np.int8, (16,), True),
+    ("decoded", np.uint8, (), True),
+    # 1 at the top-left cell of each motion partition: the sample set
+    # MV-copy error concealment averages over
+    ("part_tl", np.uint8, (16,), True),
+    ("ref_list", np.int32, (19,), False),
+    ("dpb_live", np.int32, (18,), False),
+)
+
+
+def _nbytes(dtype, shape):
+    return int(np.prod(shape)) * np.dtype(dtype).itemsize
+
+
+# the buffers' sizes for the parse-ahead worker: [bytes per MB, then
+# fixed bytes] of each, in _SYM_BUFFERS' order
+_SYM_SIZES = np.array(
+    [[_nbytes(d, s) if per_mb else 0 for _, d, s, per_mb in _SYM_BUFFERS],
+     [0 if per_mb else _nbytes(d, s) for _, d, s, per_mb in _SYM_BUFFERS]],
+    np.int64)
+
+
+@functools.lru_cache(maxsize=8)
+def _sym_layout(n):
+    """The buffers of an n-MB frame inside one allocation, as
+    csrc/sym_ahead.cpp lays them out: (its bytes, the buffers' own bytes,
+    ((name, dtype, shape, byte offset), ...) in pip_sym_planes' order,
+    each at a 64-byte boundary)."""
+    out, off, own = [], 0, 0
+    for name, dtype, shape, per_mb in _SYM_BUFFERS:
+        shape = (n,) + shape if per_mb else shape
+        nbytes = _nbytes(dtype, shape)
+        out.append((name, np.dtype(dtype), shape, off))
+        off += -(-nbytes // 64) * 64
+        own += nbytes
+    return off, own, tuple(out)
+
+
+@functools.lru_cache(maxsize=8)
+def _block_type(size):
+    """The ctypes type of a `size`-byte frame buffer of the parse-ahead
+    worker: the arrays over one keep it alive, and the last to go hands
+    it back to the worker's library (pip_ahead_free)."""
+    free, addressof = _build.host_lib().pip_ahead_free, ctypes.addressof
+
+    class Block(ctypes.c_uint8 * size):
+        def __del__(self):
+            free(addressof(self), size)
+    return Block
+
+
+def _frame(w, h, ptr, size):
+    """The frame dict over a worker's buffer at `ptr`: its per-MB planes
+    are views of the buffer, and the rest is read from it."""
+    total, own, layout = _sym_layout(w * h)
+    if size != total:
+        raise RuntimeError(f"parse-ahead buffer of {size} bytes, the "
+                           f"layout's is {total}")
+    raw = np.frombuffer(_block_type(size).from_address(ptr), np.uint8)
+    if trace.on():
+        trace.count("dec.symbol_bytes", own)
+    f = {"mb_w": w, "mb_h": h}
+    view = np.ndarray
+    for name, dtype, shape, off in layout:
+        f[name] = view(shape, dtype, raw, off)
+    # the buffers that are not planes, read into the dict's other keys
+    meta = f.pop("meta").tolist()
+    scaling = f.pop("scaling")
+    ref_list = f.pop("ref_list").tolist()
+    dpb_live = f.pop("dpb_live").tolist()
+    # frame-level L0 ref list (ref_idx -> output index)
+    f["ref_list"] = ref_list[1:1 + ref_list[0]]
+    # full post-marking DPB (eviction liveness, long-term pictures
+    # outside the active L0 range included)
+    f["dpb_live"] = dpb_live[1:1 + dpb_live[0]]
+    f["use_scaling"] = bool(meta[0])
+    f["chroma_qp_offset"] = meta[1]
+    f["second_chroma_qp_offset"] = meta[2]
+    f["is_ref"] = bool(meta[3])
+    f["is_idr"] = bool(meta[4])
+    f["constrained_intra"] = bool(meta[5])
+    # SPS frame cropping in luma samples (4:2:0 frame_mbs_only:
+    # CropUnitX = CropUnitY = 2, spec 7.4.2.1.1)
+    f["crop_px"] = tuple(meta[6 + i] * 2 for i in range(4))
+    f["lost_slices"] = meta[10]
+    f["scaling4"] = scaling[:96].reshape(6, 16)
+    f["scaling8"] = scaling[96:].reshape(6, 64)
+    return f
+
+
+def _sym_functions(lib):
+    """The addresses of pip_sym_next, pip_sym_planes and pip_sym_close,
+    which the parse-ahead worker calls."""
+    return [ctypes.cast(getattr(lib, name), ctypes.c_void_p).value
+            for name in ("pip_sym_next", "pip_sym_planes", "pip_sym_close")]
+
+
+# pip_ahead_take's results (csrc/sym_ahead.cpp)
+_NOT_READY, _FRAME, _END, _NEXT_FAILED, _PLANES_FAILED = 2, 1, 0, -1, -2
+
+
 class SymbolDecoder:
     """Streaming symbol-plane decoder: parses a .264 and yields one dict
-    of numpy planes per frame (native/src/decsupport.cc). A copy of
-    losslessh264_tpu.native.SymbolDecoder; a test pins the two."""
+    of numpy planes per frame (native/src/decsupport.cc). It yields what
+    losslessh264_tpu.native.SymbolDecoder yields, frame for frame; a
+    test pins the two.
+
+    The parse runs ahead on a native worker thread of its own
+    (csrc/sym_ahead.cpp), started by the first `__next__`: a decoder
+    never iterated starts none. The worker runs pip_sym_next and the
+    planes' copy-out, pip_sym_planes, up to `_DEPTH` frames ahead of the
+    consumer while the consumer plans and issues the frames before, and
+    never takes the interpreter lock. `__next__` takes the next frame's
+    buffer and makes its dict (the per-MB planes are views of the
+    buffer, freed with the last of them); it raises StopIteration at the
+    end, and the native layer's RuntimeError after the frames parsed
+    before it, as the serial parse did. A decoder dropped mid-stream
+    stops its worker, which closes the handle once it has left the
+    native calls for good.
+
+    Traced, `__next__` records the worker's steps as the worker's spans
+    (`dec.symbols.parse`, `.alloc`, `.export`, timed there), its wait
+    for a frame the worker has not finished as `dec.symbols.wait`, and
+    each frame that was ready as `dec.symbols_ahead`.
+    """
+
+    # frames parsed ahead: a 720p frame's buffer is ~8 MB
+    _DEPTH = 3
 
     def __init__(self, data: bytes):
         self._lib = load()
@@ -297,120 +459,59 @@ class SymbolDecoder:
         self._h = self._lib.pip_sym_open(data, len(data), err, len(err))
         if not self._h:
             raise RuntimeError(f"pip_sym_open failed: {err.value.decode()}")
+        self._ahead = None
+        self._done = False
 
     def __del__(self):
-        if getattr(self, "_h", None):
+        if getattr(self, "_ahead", None):
+            # the worker closes the handle
+            self._host.pip_ahead_stop(self._ahead)
+        elif getattr(self, "_h", None):
             self._lib.pip_sym_close(self._h)
-            self._h = None
+        self._ahead = self._h = None
 
     def __iter__(self):
         return self
 
+    def _start(self):
+        host = _build.host_lib()
+        ahead = ctypes.c_void_p()
+        if host.pip_ahead_start(self._h, *_sym_functions(self._lib),
+                                self._DEPTH, _SYM_SIZES.ctypes.data,
+                                ctypes.byref(ahead)) != 0:
+            raise RuntimeError("pip_ahead_start failed: no worker thread")
+        self._host, self._ahead, self._h = host, ahead.value, None
+        self._out = np.zeros(9, np.int64)
+        self._err = ctypes.create_string_buffer(512)
+        # pip_ahead_take's arguments after `block`
+        self._take_args = (self._out.ctypes.data, self._err, len(self._err))
+
     def __next__(self):
-        with trace.span("dec.symbols.parse"):
-            w = ctypes.c_int()
-            h = ctypes.c_int()
-            err = ctypes.create_string_buffer(512)
-            rc = self._lib.pip_sym_next(self._h, ctypes.byref(w),
-                                        ctypes.byref(h), err, len(err))
-        if rc == 0:
+        if self._done:
             raise StopIteration
-        if rc < 0:
-            raise RuntimeError(f"pip_sym_next failed: {err.value.decode()}")
-        with trace.span("dec.symbols.alloc"):
-            f, meta, scaling, ref_list, dpb_live = self._planes(w.value,
-                                                                h.value)
-        with trace.span("dec.symbols.export"):
-            return self._export(f, meta, scaling, ref_list, dpb_live)
-
-    @staticmethod
-    def _planes(w, h):
-        """The fresh numpy planes pip_sym_planes fills for a w x h MB
-        frame: (the frame dict, meta, scaling, ref_list, dpb_live)."""
-        n = w * h
-        f = {
-            "mb_w": w,
-            "mb_h": h,
-            "mb_class": np.zeros(n, np.uint8),
-            "qp": np.zeros(n, np.uint8),
-            "cbp_luma": np.zeros(n, np.uint8),
-            "cbp_chroma": np.zeros(n, np.uint8),
-            "transform8": np.zeros(n, np.uint8),
-            "i16_mode": np.zeros(n, np.uint8),
-            "chroma_mode": np.zeros(n, np.uint8),
-            "i4_modes": np.zeros((n, 16), np.int8),
-            "luma_ac": np.zeros((n, 16, 4, 4), np.int16),
-            "luma_dc": np.zeros((n, 4, 4), np.int16),
-            "luma8": np.zeros((n, 4, 8, 8), np.int16),
-            "chroma_ac": np.zeros((n, 8, 4, 4), np.int16),
-            "chroma_dc": np.zeros((n, 2, 2, 2), np.int16),
-            "mv": np.zeros((n, 16, 2), np.int16),
-            "ref_frame": np.zeros((n, 16), np.int16),
-            "pcm": np.zeros((n, 384), np.uint8),
-            "slice_id": np.zeros(n, np.uint8),
-            "deblock_idc": np.zeros(n, np.uint8),
-            "alpha_off": np.zeros(n, np.int8),
-            "beta_off": np.zeros(n, np.int8),
-            # weighted prediction: per luma cell (w, o, log2denom); denom
-            # -1 = unweighted. wp_cmask: per chroma pixel (8x8/MB), the
-            # reference's quarter-size weighting region.
-            "wp_luma": np.zeros((n, 16, 3), np.int16),
-            "wp_cb": np.zeros((n, 16, 3), np.int16),
-            "wp_cr": np.zeros((n, 16, 3), np.int16),
-            "wp_cmask": np.zeros((n, 8, 8), np.uint8),
-            # raw ref_idx per cell (-1 intra); deblock bS compares these
-            # (reference semantics), not resolved output frames
-            "ref_idx": np.zeros((n, 16), np.int8),
-            "decoded": np.zeros(n, np.uint8),
-            # 1 at the top-left cell of each motion partition: the
-            # sample set MV-copy error concealment averages over
-            "part_tl": np.zeros((n, 16), np.uint8),
-        }
-        meta = np.zeros(12, np.int32)
-        scaling = np.zeros(96 + 384, np.uint8)
-        ref_list = np.zeros(19, np.int32)
-        dpb_live = np.zeros(18, np.int32)
+        if self._ahead is None:
+            self._start()
+        take = self._host.pip_ahead_take
+        rc = take(self._ahead, 0, *self._take_args)
+        if rc == _NOT_READY:
+            with trace.span("dec.symbols.wait"):
+                rc = take(self._ahead, 1, *self._take_args)
+        elif rc == _FRAME:
+            trace.count("dec.symbols_ahead")
+        w, h, ptr, size, t0, t1, t2, t3, thread = self._out.tolist()
         if trace.on():
-            trace.count_bytes("dec.symbol_bytes", meta, scaling, ref_list,
-                              dpb_live, *(a for a in f.values()
-                                          if isinstance(a, np.ndarray)))
-        return f, meta, scaling, ref_list, dpb_live
-
-    def _export(self, f, meta, scaling, ref_list, dpb_live):
-        """Copy the parsed frame's symbols into its planes and finish the
-        frame dict."""
-        def ptr(a):
-            return a.ctypes.data_as(ctypes.c_void_p)
-
-        rc = self._lib.pip_sym_planes(
-            self._h, ptr(f["mb_class"]), ptr(f["qp"]), ptr(f["cbp_luma"]),
-            ptr(f["cbp_chroma"]), ptr(f["transform8"]), ptr(f["i16_mode"]),
-            ptr(f["chroma_mode"]), ptr(f["i4_modes"]), ptr(f["luma_ac"]),
-            ptr(f["luma_dc"]), ptr(f["luma8"]), ptr(f["chroma_ac"]),
-            ptr(f["chroma_dc"]), ptr(f["mv"]), ptr(f["ref_frame"]),
-            ptr(f["pcm"]), ptr(f["slice_id"]), ptr(f["deblock_idc"]),
-            ptr(f["alpha_off"]), ptr(f["beta_off"]), ptr(meta), ptr(scaling),
-            ptr(f["wp_luma"]), ptr(f["wp_cb"]), ptr(f["wp_cr"]),
-            ptr(f["wp_cmask"]), ptr(f["ref_idx"]), ptr(f["decoded"]),
-            ptr(f["part_tl"]), ptr(ref_list), ptr(dpb_live),
-        )
-        if rc != 0:
+            trace.add_span("dec.symbols.parse", t0, t1, thread)
+            if rc == _FRAME:
+                trace.add_span("dec.symbols.alloc", t1, t2, thread)
+                trace.add_span("dec.symbols.export", t2, t3, thread)
+        if rc == _FRAME:
+            return _frame(w, h, ptr, size)
+        self._done = True
+        if rc == _END:
+            raise StopIteration
+        if rc == _NEXT_FAILED:
+            raise RuntimeError(
+                f"pip_sym_next failed: {self._err.value.decode()}")
+        if rc == _PLANES_FAILED:
             raise RuntimeError("pip_sym_planes failed")
-        # frame-level L0 ref list (ref_idx -> output index)
-        f["ref_list"] = ref_list[1:1 + int(ref_list[0])].tolist()
-        # full post-marking DPB (eviction liveness, long-term pictures
-        # outside the active L0 range included)
-        f["dpb_live"] = dpb_live[1:1 + int(dpb_live[0])].tolist()
-        f["use_scaling"] = bool(meta[0])
-        f["chroma_qp_offset"] = int(meta[1])
-        f["second_chroma_qp_offset"] = int(meta[2])
-        f["is_ref"] = bool(meta[3])
-        f["is_idr"] = bool(meta[4])
-        f["constrained_intra"] = bool(meta[5])
-        # SPS frame cropping in luma samples (4:2:0 frame_mbs_only:
-        # CropUnitX = CropUnitY = 2, spec 7.4.2.1.1)
-        f["crop_px"] = tuple(int(meta[6 + i]) * 2 for i in range(4))
-        f["lost_slices"] = int(meta[10])
-        f["scaling4"] = scaling[:96].reshape(6, 16)
-        f["scaling8"] = scaling[96:].reshape(6, 64)
-        return f
+        raise MemoryError("no memory for a frame's symbol planes")

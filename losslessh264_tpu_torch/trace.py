@@ -76,6 +76,16 @@ def span(name, frame=None):
     return _Span(rec, name, frame)
 
 
+def add_span(name, t0, t1, thread):
+    """Record a span that a thread outside the interpreter timed (`t0`,
+    `t1` on perf_counter_ns's clock, CLOCK_MONOTONIC) as that thread's:
+    no parent, no frame id, no synchronize, no profiler range."""
+    rec = _rec
+    if rec is None:
+        return
+    rec.spans.append(Span(next(rec._ids), name, None, thread, None, t0, t1))
+
+
 def count(name, n=1):
     """Add n to the counter `name` of the installed recording."""
     rec = _rec

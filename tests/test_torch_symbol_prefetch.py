@@ -1,0 +1,390 @@
+"""The port's SymbolDecoder parses ahead on a native worker thread
+(losslessh264_tpu_torch/native.py, csrc/sym_ahead.cpp). These tests hold
+it to the serial
+parse of the JAX package's losslessh264_tpu.native.SymbolDecoder: the
+same frames, planes and keys in the same order; the same end; the native
+layer's RuntimeError after the same frames; and a decoder dropped
+mid-stream stops its worker and frees its handle. Exact equality
+throughout; no JAX is imported."""
+import ctypes
+import functools
+import gc
+import os
+import random
+import sys
+import threading
+import time
+import weakref
+
+import numpy as np
+import pytest
+
+from losslessh264_tpu import native as jnative
+from losslessh264_tpu_torch import native as tnative
+from losslessh264_tpu_torch import trace
+from losslessh264_tpu_torch.parse import split_access_units
+
+tnative.load()
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+RUNS = os.path.join(ROOT, "tests", "data", "runs720p.264")
+WALK = os.path.join(ROOT, "bench_port", "data", "walk_analog_1331.264")
+
+
+def _read(path):
+    with open(path, "rb") as fh:
+        return fh.read()
+
+
+@pytest.fixture(scope="module")
+def runs():
+    return _read(RUNS)
+
+
+@pytest.fixture(scope="module")
+def runs_aus(runs):
+    return [raw for raw, _ in split_access_units(runs)]
+
+
+def _walk_gop0():
+    """The walk stand-in's first GOP: its IDR (with the stream's
+    parameter sets) and the 99 P frames after it."""
+    return b"".join(raw for raw, _ in split_access_units(_read(WALK))[:100])
+
+
+def _drain(dec):
+    """(the frame dicts an iterator yields, the exception that ended it,
+    or None at a clean end)."""
+    out = []
+    try:
+        for f in dec:
+            out.append(f)
+    except RuntimeError as e:
+        return out, e
+    return out, None
+
+
+def _assert_same_frame(got, want, what):
+    assert set(got) == set(want), what
+    for k, w in want.items():
+        if isinstance(w, np.ndarray):
+            g = got[k]
+            assert g.shape == w.shape and g.dtype == w.dtype, (what, k)
+            np.testing.assert_array_equal(g, w, err_msg=f"{what} {k}")
+        else:
+            assert type(got[k]) is type(w) and got[k] == w, (what, k)
+
+
+def _assert_same_decode(data):
+    """The port's parse-ahead and the JAX package's serial parse of
+    `data`: equal frames, and the same end or error after as many
+    frames; returns (frames, error)."""
+    got, got_err = _drain(tnative.SymbolDecoder(data))
+    want, want_err = _drain(jnative.SymbolDecoder(data))
+    assert len(got) == len(want)
+    for i, (g, w) in enumerate(zip(got, want)):
+        _assert_same_frame(g, w, f"frame {i}")
+    assert (got_err is None) == (want_err is None)
+    if want_err is not None:
+        assert str(got_err) == str(want_err)
+    return got, got_err
+
+
+def _wait_for(cond, timeout=30.0):
+    t0 = time.monotonic()
+    while not cond():
+        if time.monotonic() - t0 > timeout:
+            return False
+        time.sleep(0.005)
+    return True
+
+
+@pytest.mark.parametrize("stream", ["runs720p", "walk_gop0"])
+def test_frames_equal_the_serial_parse(stream, runs):
+    data = runs if stream == "runs720p" else _walk_gop0()
+    frames, err = _assert_same_decode(data)
+    assert err is None
+    assert len(frames) == (12 if stream == "runs720p" else 100)
+
+
+@pytest.mark.parametrize("au,frac", [(2, 0.5), (5, 0.3), (9, 0.7)])
+def test_cut_mid_slice_ends_as_the_serial_parse(runs_aus, au, frac):
+    """A stream cut inside a slice: the same frames, the cut one with
+    its lost MBs, and the same end."""
+    data = b"".join(runs_aus[:au]) + runs_aus[au][:int(
+        len(runs_aus[au]) * frac)]
+    frames, err = _assert_same_decode(data)
+    assert err is None and len(frames) == au + 1
+
+
+# parameter sets the native layer cannot parse: pip_sym_next fails on the
+# picture that is open when it reaches one
+BAD_PARAMETER_SETS = [b"\x68", b"\x68\xff", b"\x67\x42",
+                      b"\x67\x64\x00\x1f\x00\x00\x03\x00"]
+
+
+@pytest.mark.parametrize("bad", BAD_PARAMETER_SETS)
+@pytest.mark.parametrize("at", [1, 5, 11])
+def test_native_error_after_the_same_frames(runs_aus, bad, at):
+    data = (b"".join(runs_aus[:at]) + b"\x00\x00\x00\x01" + bad
+            + b"".join(runs_aus[at:]))
+    frames, err = _assert_same_decode(data)
+    assert isinstance(err, RuntimeError) and len(frames) == at - 1
+    assert str(err).startswith("pip_sym_next failed")
+
+
+def test_after_the_end_or_an_error_the_worker_stops(runs_aus):
+    data = (b"".join(runs_aus[:3]) + b"\x00\x00\x00\x01\x68"
+            + b"".join(runs_aus[3:]))
+    live = tnative._build.host_lib().pip_ahead_live
+    before = live()
+    dec = tnative.SymbolDecoder(data)
+    frames, err = _drain(dec)
+    assert err is not None and len(frames) == 2
+    with pytest.raises(StopIteration):
+        next(dec)
+    ended = tnative.SymbolDecoder(b"".join(runs_aus[:2]))
+    assert len(list(ended)) == 2
+    with pytest.raises(StopIteration):
+        next(ended)
+    # both workers have left, though their decoders are still held
+    assert _wait_for(lambda: live() == before)
+    del dec, ended
+
+
+def _native_functions(monkeypatch, next_=None, planes=None, close=None):
+    """Hand the worker stand-ins for pip_sym_next, pip_sym_planes or
+    pip_sym_close: each is called as `fn(real, *args)` from the worker's
+    thread, `real` the native function. Returns the callbacks, which the
+    caller keeps alive while a worker may call them."""
+    real = tnative._sym_functions(tnative.load())
+    P, I = ctypes.c_void_p, ctypes.c_int
+    protos = [ctypes.CFUNCTYPE(I, P, P, P, P, ctypes.c_size_t),
+              ctypes.CFUNCTYPE(I, *[P] * 32),
+              ctypes.CFUNCTYPE(None, P)]
+    keep, addrs = [], []
+    for proto, addr, fn in zip(protos, real, (next_, planes, close)):
+        if fn is None:
+            addrs.append(addr)
+            continue
+        cb = proto(functools.partial(fn, proto(addr)))
+        keep.append(cb)
+        addrs.append(ctypes.cast(cb, ctypes.c_void_p).value)
+    monkeypatch.setattr(tnative, "_sym_functions", lambda lib: addrs)
+    return keep
+
+
+def test_planes_failure_comes_in_stream_order(monkeypatch, runs):
+    """pip_sym_planes failing on the third frame: the consumer gets the
+    two frames before it, then the failure, then the end."""
+    calls = []
+
+    def third_fails(real, *args):
+        calls.append(1)
+        return -1 if len(calls) == 3 else real(*args)
+    keep = _native_functions(monkeypatch, planes=third_fails)
+    dec = tnative.SymbolDecoder(runs)
+    want = list(jnative.SymbolDecoder(runs))[:2]
+    for i, w in enumerate(want):
+        _assert_same_frame(next(dec), w, f"frame {i}")
+    with pytest.raises(RuntimeError, match="pip_sym_planes failed"):
+        next(dec)
+    with pytest.raises(StopIteration):
+        next(dec)
+    assert len(calls) == 3
+    del dec, keep
+
+
+def test_depth_one_gives_the_same_bytes(monkeypatch):
+    """The queue's depth changes when a frame is parsed, not what it
+    holds: depth 1 against the class's own depth, byte for byte."""
+    data = _walk_gop0()
+    ours = list(tnative.SymbolDecoder(data))
+    monkeypatch.setattr(tnative.SymbolDecoder, "_DEPTH", 1)
+    ones = list(tnative.SymbolDecoder(data))
+    assert tnative.SymbolDecoder._DEPTH == 1 and len(ours) == len(ones) == 100
+    for i, (a, b) in enumerate(zip(ours, ones)):
+        assert list(a) == list(b)
+        for k in a:
+            if isinstance(a[k], np.ndarray):
+                assert a[k].dtype == b[k].dtype and a[k].shape == b[k].shape
+                assert a[k].tobytes() == b[k].tobytes(), (i, k)
+            else:
+                assert a[k] == b[k], (i, k)
+
+
+def _host():
+    return tnative._build.host_lib()
+
+
+def test_worker_stays_within_its_depth(runs):
+    """While the consumer holds still, the worker parses `_DEPTH` frames
+    ahead and no further."""
+    dec = tnative.SymbolDecoder(runs)
+    next(dec)
+    depth = tnative.SymbolDecoder._DEPTH
+    assert 2 <= depth <= 4
+
+    def queued():
+        return _host().pip_ahead_queued(dec._ahead)
+    assert _wait_for(lambda: queued() == depth)
+    time.sleep(0.1)
+    assert queued() == depth
+    assert len(list(dec)) == 11
+
+
+def test_never_iterated_starts_no_thread_and_frees_its_handle(monkeypatch,
+                                                               runs):
+    lib = tnative.load()
+    closed = []
+    close = lib.pip_sym_close
+    monkeypatch.setattr(lib, "pip_sym_close",
+                        lambda h: (closed.append(h), close(h)))
+    live = _host().pip_ahead_live()
+    before = threading.active_count()
+    dec = tnative.SymbolDecoder(runs)
+    assert dec._ahead is None and _host().pip_ahead_live() == live
+    assert threading.active_count() == before
+    h = dec._h
+    del dec
+    assert closed == [h]
+
+
+def test_dropped_decoders_stop_their_workers(monkeypatch, runs):
+    """200 decoders, each dropped after 0, 1 or 2 frames: every worker
+    ends and closes its handle once, nothing else is left running, and
+    no reference to the decoder outlives it."""
+    closed = []
+
+    def counted(real, h):
+        closed.append(h)
+        real(h)
+    keep = _native_functions(monkeypatch, close=counted)
+    lib = tnative.load()
+    opened = []
+    open_ = lib.pip_sym_open
+
+    def counted_open(*a):
+        h = open_(*a)
+        opened.append(h)
+        return h
+    monkeypatch.setattr(lib, "pip_sym_open", counted_open)
+    closes = lib.pip_sym_close
+    monkeypatch.setattr(lib, "pip_sym_close",
+                        lambda h: (closed.append(h), closes(h)))
+    gc.collect()
+    before = threading.active_count()
+    live = _host().pip_ahead_live()
+    for i in range(200):
+        dec = tnative.SymbolDecoder(runs)
+        for _ in range(i % 3):
+            next(dec)
+        if i == 1:
+            assert _host().pip_ahead_live() == live + 1
+            ref = weakref.ref(dec)
+        del dec
+        if i == 1:
+            # refcounting alone frees it
+            assert ref() is None
+    assert _wait_for(lambda: _host().pip_ahead_live() == live)
+    assert threading.active_count() == before
+    assert _wait_for(lambda: len(closed) == 200)
+    # (a freed handle's address may come back for a later decoder)
+    assert len(opened) == 200 and sorted(closed) == sorted(opened)
+    del keep
+
+
+def test_frames_outlive_their_decoder_and_free_their_buffer(runs):
+    """A frame's planes are views of one buffer of the worker's, which
+    stays while any of them does and is freed with the last."""
+    frames = list(tnative.SymbolDecoder(runs))
+    want = list(jnative.SymbolDecoder(runs))
+    gc.collect()
+    luma = [f["luma_ac"] for f in frames]
+    block = luma[0].base.base
+    freed = weakref.ref(block)
+    del frames, block
+    gc.collect()
+    assert freed() is not None
+    for i, (g, w) in enumerate(zip(luma, want)):
+        np.testing.assert_array_equal(g, w["luma_ac"], err_msg=f"{i}")
+    del luma, g
+    assert freed() is None
+
+
+def test_ahead_counter_and_wait_span(monkeypatch, runs):
+    """A consumer slower than the parse finds every frame but the first
+    ready (`dec.symbols_ahead`); a parse slower than the consumer makes
+    each `__next__` wait (`dec.symbols.wait`) and none ahead. The
+    worker's steps are its own spans, timed on its thread."""
+    with trace.recording() as rec:
+        dec = tnative.SymbolDecoder(runs)
+        n = 0
+        for _ in dec:
+            n += 1
+            time.sleep(0.05)
+    assert n == 12
+    assert rec.counters["dec.symbols_ahead"] >= n - 1
+    assert rec.calls().get("dec.symbols.wait", 0) <= 1
+    worker = {s.thread for s in rec.spans
+              if s.name.startswith("dec.symbols.") and s.name != "dec.symbols.wait"}
+    assert len(worker) == 1 and rec.thread not in worker
+    calls = rec.calls()
+    assert calls["dec.symbols.parse"] == n + 1
+    assert calls["dec.symbols.alloc"] == calls["dec.symbols.export"] == n
+
+    def slow(real, *args):
+        time.sleep(0.02)
+        return real(*args)
+    keep = _native_functions(monkeypatch, next_=slow)
+    with trace.recording() as rec:
+        assert len(list(tnative.SymbolDecoder(runs))) == n
+    assert "dec.symbols_ahead" not in rec.counters
+    calls = rec.calls(thread=rec.thread)
+    assert calls["dec.symbols.wait"] == n + 1
+    assert rec.total_ms(thread=rec.thread)["dec.symbols.wait"] >= 0.02e3 * n
+    # the parse spans hold the worker's sleeps
+    assert rec.total_ms()["dec.symbols.parse"] >= 0.02e3 * (n + 1)
+    del keep
+
+
+def test_decoders_on_many_threads_at_once(runs):
+    """More consumer threads than cores, each iterating decoders of two
+    streams and dropping some mid-stream, with a short switch interval:
+    every frame equals the serial parse's at its place, and every worker
+    ends."""
+    walk = _walk_gop0()[:400000]
+    streams = {"runs": runs, "walk": walk}
+    want = {k: list(jnative.SymbolDecoder(d)) for k, d in streams.items()}
+    live = tnative._build.host_lib().pip_ahead_live
+    before = live()
+    bad = []
+
+    def consume(seed):
+        rng = random.Random(seed)
+        for _ in range(12):
+            k = rng.choice(sorted(streams))
+            stop = rng.choice([0, 1, 3, None])
+            for i, f in enumerate(tnative.SymbolDecoder(streams[k])):
+                w = want[k][i]
+                if not (np.array_equal(f["luma_ac"], w["luma_ac"])
+                        and np.array_equal(f["mv"], w["mv"])
+                        and f["ref_list"] == w["ref_list"]):
+                    bad.append((k, i))
+                if stop is not None and i + 1 >= stop:
+                    break
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=consume, args=(s,))
+                   for s in range(2 * (os.cpu_count() or 4))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert bad == []
+    gc.collect()
+    assert _wait_for(lambda: live() == before)

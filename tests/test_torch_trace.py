@@ -29,8 +29,9 @@ PKG = os.path.dirname(os.path.abspath(trace.__file__))
 
 # every span the port opens, and every counter it adds to
 SPANS = {
-    "dec.open", "dec.frame", "dec.symbols", "dec.symbols.parse",
-    "dec.symbols.alloc", "dec.symbols.export", "dec.plan", "dec.plan.refs",
+    "dec.open", "dec.frame", "dec.symbols", "dec.symbols.wait",
+    "dec.symbols.parse", "dec.symbols.alloc", "dec.symbols.export",
+    "dec.plan", "dec.plan.refs",
     "dec.plan.slots", "dec.plan.intra", "dec.plan.avail", "dec.plan.nnz",
     "dec.plan.mc", "dec.plan.scaling", "dec.plan.deblock", "dec.upload",
     "dec.inter", "dec.inter.cells", "dec.residual", "dec.intra",
@@ -44,16 +45,20 @@ SPANS = {
     "enc.writer.rows_wait", "enc.writer.unpack", "enc.writer.write",
 }
 COUNTERS = {"dec.frames", "dec.h2d_bytes", "dec.h2d_copies",
-            "dec.symbol_bytes", "dec.mc_bucketed", "dec.mc_slots",
+            "dec.symbol_bytes", "dec.symbols_ahead", "dec.mc_bucketed", "dec.mc_slots",
             "dec.plan_compiled", "dec.mc_spilled", "dec.mc_cells",
             "dec.mc_cells_n", "dec.mc_cells_wp",
             "enc.frames", "enc.h2d_bytes", "enc.d2h_bytes"}
-# the leaf spans of every frame of an undamaged decode outside a batch
-DECODE_LEAVES = {"dec.symbols.parse", "dec.symbols.alloc",
-                 "dec.symbols.export", "dec.plan.refs", "dec.plan.slots",
+# the main thread's leaf spans of every frame of an undamaged decode
+# outside a batch
+DECODE_LEAVES = {"dec.plan.refs", "dec.plan.slots",
                  "dec.plan.intra", "dec.plan.avail", "dec.plan.nnz",
                  "dec.plan.mc", "dec.plan.scaling", "dec.upload",
                  "dec.inter", "dec.residual", "dec.intra", "dec.store"}
+# the parse-ahead worker's spans (native.SymbolDecoder, trace.add_span):
+# one native thread per iterated decoder, no frame id
+DECODE_WORKER = {"dec.symbols.parse", "dec.symbols.alloc",
+                 "dec.symbols.export"}
 
 
 def _names_in_sources(call):
@@ -70,7 +75,8 @@ def _names_in_sources(call):
 
 
 def test_span_and_counter_names_are_pinned():
-    assert _names_in_sources("span") == SPANS
+    assert _names_in_sources("span") | _names_in_sources(
+        "add_span") == SPANS
     assert _names_in_sources("count") | _names_in_sources(
         "count_bytes") == COUNTERS
 
@@ -167,6 +173,22 @@ def test_sync_mode_synchronizes_at_each_edge(monkeypatch):
     assert len(calls) == 2 + 4
 
 
+def test_worker_spans_never_synchronize(monkeypatch, tiny):
+    """Under recording(sync=True) the main thread's spans synchronize at
+    their edges and the parse-ahead worker's spans not at all: a
+    synchronize there would time the main thread's kernels as parse."""
+    who = []
+    monkeypatch.setattr(trace.Recording, "_synchronize",
+                        lambda self: who.append(threading.get_ident()))
+    with trace.recording(sync=True) as rec:
+        n = len(list(dt.TorchDecoder(tiny, device="cpu").frames()))
+    worker = {s.thread for s in rec.spans if s.name in DECODE_WORKER}
+    assert n == 6 and len(worker) == 1 and rec.thread not in worker
+    assert set(who) == {rec.thread}
+    main = [s for s in rec.spans if s.thread == rec.thread]
+    assert len(who) == 2 + 2 * len(main)
+
+
 def test_spans_open_profiler_ranges_while_recording():
     assert _spans_under_profiler(trace.recording) == [
         trace.PREFIX + n for n in ("dec.frame", "dec.upload", "enc.frame")]
@@ -181,9 +203,11 @@ def test_launches_are_deltas_of_the_wrappers():
 
 
 def test_decode_spans_and_counters(monkeypatch, tiny):
-    """Each leaf span once per frame, the frames' spans sharing their
-    frame id, and the upload counters equal to the plane dicts'
-    bytes."""
+    """Each main-thread leaf span once per frame, the frames' spans
+    sharing their frame id; the parse-ahead worker's spans once per
+    parse, on a thread of their own; each read of a frame either found
+    it queued (dec.symbols_ahead) or waited (dec.symbols.wait); the
+    upload counters equal to the plane dicts' bytes."""
     uploaded = []
     to_torch = dt.planes_to_torch
 
@@ -196,10 +220,25 @@ def test_decode_spans_and_counters(monkeypatch, tiny):
         n = len(list(dt.TorchDecoder(tiny, device="cpu").frames()))
     calls = rec.calls()
     assert n == 6 and rec.counters["dec.frames"] == n
-    for name in DECODE_LEAVES | {"dec.frame", "dec.plan", "dec.deblock"}:
+    for name in (DECODE_LEAVES | DECODE_WORKER
+                 | {"dec.frame", "dec.plan", "dec.deblock"}):
         # the parse is tried once more, to find the stream's end
         assert calls[name] == n + (name == "dec.symbols.parse"), name
     assert calls["dec.open"] == 1 and "dec.conceal" not in calls
+    threads = {}
+    for s in rec.spans:
+        threads.setdefault(s.thread, set()).add(s.name)
+    others = [t for t in threads if t != rec.thread]
+    assert len(others) == 1 and threads[others[0]] == DECODE_WORKER
+    assert not DECODE_WORKER & threads[rec.thread]
+    names = {s.id: s.name for s in rec.spans}
+    waits = [s for s in rec.spans if s.name == "dec.symbols.wait"]
+    assert {names[s.parent] for s in waits} <= {"dec.symbols"}
+    assert all(s.frame is None for s in rec.spans
+               if s.name in DECODE_WORKER)
+    # n + 1 reads: each frame's, and the one that found the end
+    ahead = rec.counters.get("dec.symbols_ahead", 0)
+    assert ahead <= n and ahead + len(waits) in (n, n + 1)
     tensors = [t for p in uploaded for v in p.values()
                if isinstance(v, (list, torch.Tensor))
                for t in (v if isinstance(v, list) else [v])]
@@ -212,13 +251,13 @@ def test_decode_spans_and_counters(monkeypatch, tiny):
         if isinstance(a, np.ndarray)) + n * 4 * (12 + 19 + 18)
     # a frame id per frame, and one for the read that found the end
     frames = list(rec.by_frame().values())
-    assert len(frames) == n + 1 and set(frames[-1]) == {
-        "dec.symbols", "dec.symbols.parse"}
+    assert len(frames) == n + 1 and "dec.symbols" in frames[-1] and set(
+        frames[-1]) <= {"dec.symbols", "dec.symbols.wait"}
     for row in frames[:-1]:
-        assert DECODE_LEAVES <= set(row)
+        assert DECODE_LEAVES | {"dec.symbols"} <= set(row)
     # the main thread's spans do not overlap: their self times add up to
     # at most the recording's wall time
-    assert sum(rec.self_ms().values()) <= rec.wall_ms
+    assert sum(rec.self_ms(thread=rec.thread).values()) <= rec.wall_ms
 
 
 def test_plan_counters_on_runs720p(monkeypatch):
