@@ -1149,7 +1149,6 @@ class TorchDecoder:
             planes.update(plan)
             if n_inter and not plan["mc_fast"]:
                 trace.count("dec.mc_cells_n", n_inter)
-        trace.count("dec.plan_compiled")
         if spilled:
             trace.count("dec.mc_spilled")
         return planes, diags, diags is not None, full_intra
@@ -1175,11 +1174,12 @@ class TorchDecoder:
     # module imports jax
 
     @staticmethod
-    def _needs_deblock(f, nnz=None):
+    def _needs_deblock(f, nnz):
         """Host-side proof that EVERY edge in the frame has bS == 0, in
         which case the deblock wavefront is an identity and is skipped
         (all-skip P frames on static content). Conservative: any
-        intra/PCM MB, any nonzero coefficient, any ref mismatch, or any
+        intra/PCM MB, any nonzero luma block (nnz: the frame's [n, 16]
+        plane, _nnz_plane / nnz_plane), any ref mismatch, or any
         adjacent-cell MV delta >= 4 quarter-pels keeps the filter on
         (8.7 bS derivation)."""
         if (f["deblock_idc"] == 1).all():
@@ -1187,12 +1187,7 @@ class TorchDecoder:
         cls = f["mb_class"]
         if np.isin(cls, [0, 1, 2, 8]).any():
             return True
-        if nnz is not None:
-            if nnz.any():
-                return True
-        elif (f["luma_ac"].any() or f["luma8"].any()
-              or f["luma_dc"].any() or f["chroma_ac"].any()
-              or f["chroma_dc"].any()):
+        if nnz.any():
             return True
         mb_w, mb_h = f["mb_w"], f["mb_h"]
 

@@ -1,39 +1,35 @@
 """H.264 encoder with the analysis on PyTorch (one frame at a time).
 
 Port of losslessh264_tpu/encoder_jax.py (`JaxEncoder.encode_frame` and its
-frame programs `_i_frame`, `_p_analyze`, `_p_finish`, `_p_intra_fixup`,
-`_encode_i_aq`, `_encode_p_aq`). Per P frame, on the device: the dense
-integer-pel search per reference (ops/me.py), optionally around a detected
-scroll, the partition decision, the half-pel planes of the
-width-concatenated reference (the K1 kernel on CUDA), quarter-pel
-refinement, the intra-fallback test, chroma MC and the forward transform /
-quantization / recon of every MB; intra MBs (all of an IDR, the fallback
-MBs of a P frame) go through the intra wavefront (the K4 kernel,
-csrc/intra_enc.cu, on CUDA; in plain torch a slope-2 wavefront of 16
-sequential I4x4 blocks per MB, batched over a diagonal's MBs), and the
-reference is deblocked by the K2 kernel on CUDA. The host reads the
-frame's symbol planes, decides P_Skip with the native writer's MV
-predictors, and writes the slices with the native CAVLC / CABAC writer
-(encoder_native.py).
+frame programs `_i_frame`, `_p_analyze`, `_p_finish`, `_p_intra_fixup`).
+Per P frame, on the device: the dense integer-pel search per reference
+(K5, ops/me.py), optionally around a detected scroll, the partition
+decision, the half-pel planes of the width-concatenated reference (K1),
+quarter-pel refinement, the intra-fallback test, chroma MC and the
+residual of every MB (K8); intra MBs (all of an IDR, the fallback MBs of
+a P frame) go through the intra wavefront (K4), and the reference is
+deblocked (K9 then K2). CPU tensors take each kernel's plain version.
 
-Every option of JaxEncoder is here: rate control (ratectl.py: frame skip,
-per-frame QP, the per-row GOM plane), AQ and background detection (the
-per-MB QP path), scroll-recentred search, denoise (processing.py), scene
-cuts, temporal layers 2-4 (non-reference T1 frames; hierarchical P with
-RPLR and MMCO), long-term references, size-capped slices (row plans from
-the writer's measured row bits, with one re-encode), several slices, two
-references, parameter-set ids (simulcast.py), trellis-lite and cropping.
+Every frame path runs these steps: an IDR `_i_frame`; a P frame
+`_p_analyze`, the fetch of its intra-fallback mask (per frame, inside
+its inter MBs' rows), then `_p_intra_fixup` where MBs fell back or else
+`_p_finish`, and its symbol rows from `_p_rows`; the host decides P_Skip with the native
+writer's MV predictors and writes the slices (`_write_p`, the native
+CAVLC / CABAC writer of encoder_native.py). The per-MB QP path (aq,
+gom_rc, bgd) runs the steps without their deblock and filters the
+reference after the write with the writer's QP chain; `encode_frames`
+chains runs of P frames on the device (`_p_batch`) and writes them on a
+writer thread (`_drain_p_run`) while the next run's device work goes on.
 
-`encode_frames(frames, batch)` chains runs of `batch` P frames on the
-device (`_p_batch`, `_dispatch_p_run`) and writes each run's entropy on a
-writer thread (`_drain_p_run`) while the next run's device work goes on,
-with the bytes of per-frame `encode_frame` calls.
-
-Left out on purpose (TPU workarounds of JaxEncoder): the sparse int8 +
-bitmask transport of `_p_batch`'s symbols, the int8 packing of the
-per-frame symbol fetch with its int16 re-fetch, and the masked lanes of
-the intra wavefront: a diagonal step runs only the MBs it encodes, and
-diagonals without one are skipped.
+Every option of JaxEncoder is here: rate control (ratectl.py), AQ and
+background detection, scroll-recentred search, denoise (processing.py),
+scene cuts, temporal layers 2-4, long-term references, size-capped
+slices (with one re-encode), several slices, two references,
+parameter-set ids (simulcast.py), trellis-lite and cropping. Left out on
+purpose (TPU workarounds of JaxEncoder): the sparse int8 + bitmask
+transport of `_p_batch`'s symbols, the int8 packing of the per-frame
+symbol fetch with its int16 re-fetch, and the masked lanes of the intra
+wavefront (a diagonal step runs only the MBs it encodes).
 
 Byte- and recon-exact vs JaxEncoder on the CPU (tests/test_torch_encoder*.py).
 """
@@ -782,20 +778,6 @@ def _split_src(mb_h, mb_w, buf):
     return buf[:H], buf[H:H + H // 2, :W // 2], buf[H:H + H // 2, W // 2:]
 
 
-def _pad_refs(recY, recU, recV):
-    """Edge-pad [R,H,W] reference stacks (R = number of refs)."""
-    return (_edge_pad(recY, PAD), _edge_pad(recU, PAD // 2),
-            _edge_pad(recV, PAD // 2))
-
-
-def _finalize_inter(mb_w, mb_h, tile_y, tile_u, tile_v):
-    """Recon planes of a P frame without intra MBs."""
-    u8 = torch.uint8
-    return (_tiles_to_plane(tile_y.to(u8), mb_w, mb_h, 16),
-            _tiles_to_plane(tile_u.to(u8), mb_w, mb_h, 8),
-            _tiles_to_plane(tile_v.to(u8), mb_w, mb_h, 8))
-
-
 def _deblock_recon(mb_w, mb_h, recY, recU, recV, cls, qp, nnz, mv_cells,
                    slice_id, idc, ref_cells=None, stage=_no_stage):
     """The shared in-loop filter (ops/deblock: K9 then K2 on CUDA) over
@@ -845,13 +827,41 @@ def _meta_rows(mvx, mvy, use_intra, no_res, part, mv8, ref_sel):
 
 
 def _unpack(rows):
-    """Host views (luma_dc, luma_ac [n,16,16], chroma_dc [n,2,4],
-    chroma_ac [n,8,16], i16_mode, chroma_mode, intra_cls, i4_modes) of
-    fetched [n, 427] symbol rows."""
-    return (rows[:, 0:16], rows[:, 16:272].reshape(-1, 16, 16),
-            rows[:, 272:280].reshape(-1, 2, 4),
-            rows[:, 280:408].reshape(-1, 8, 16), rows[:, 408], rows[:, 409],
-            rows[:, 410], rows[:, 411:427])
+    """Host views of fetched rows: (meta, intra_cls, planes). planes: the
+    writer's symbol planes by its keywords (luma_dc, luma_ac [n,16,16],
+    chroma_dc [n,2,4], chroma_ac [n,8,16], i16_mode, chroma_mode,
+    i4_modes); meta: None for [n, 427] symbol rows, and for a P frame's
+    [n, META_W + 427] rows its meta columns by name (mv [n,2], use_intra,
+    no_res, part, mv8 [n,8], ref_idx). Views only: nothing is read."""
+    m = rows.shape[1] - 427
+    meta = None if m == 0 else {
+        "mv": rows[:, 0:2], "use_intra": rows[:, 2], "no_res": rows[:, 3],
+        "part": rows[:, 4], "mv8": rows[:, 5:13], "ref_idx": rows[:, 13]}
+    planes = {"luma_dc": rows[:, m:m + 16],
+              "luma_ac": rows[:, m + 16:m + 272].reshape(-1, 16, 16),
+              "chroma_dc": rows[:, m + 272:m + 280].reshape(-1, 2, 4),
+              "chroma_ac": rows[:, m + 280:m + 408].reshape(-1, 8, 16),
+              "i16_mode": rows[:, m + 408], "chroma_mode": rows[:, m + 409],
+              "i4_modes": rows[:, m + 411:m + 427]}
+    return meta, rows[:, m + 410], planes
+
+
+def _p_rows(packed, use_intra=None, intra_rows=None):
+    """A P frame's [n, META_W + 427] int16 rows on the device (meta ++
+    symbol columns, the fetch layout), from _p_analyze's packed rows: the
+    inter MBs' levels with an inter MB's constant intra columns, and where
+    MBs fell back to intra (use_intra, the device mask) their rows of
+    _p_intra_fixup's (intra_rows)."""
+    n = packed.shape[0]
+    zero = torch.zeros((), dtype=torch.int32, device=packed.device)
+    syms = _sym_rows(zero.expand(n, 16), packed[:, META_W:META_W + 256],
+                     packed[:, META_W + 256:META_W + 264],
+                     packed[:, META_W + 264:META_W + 392], zero.expand(n),
+                     zero.expand(n), (zero + 1).expand(n),
+                     (zero + 2).expand(n, 16))
+    if intra_rows is not None:
+        syms = torch.where(use_intra[:, None], intra_rows, syms)
+    return torch.cat([packed[:, :META_W], syms], 1)
 
 
 def _p_analyze(mb_w, mb_h, radius, buf, refY, refU, refV, qp, qpc,
@@ -862,7 +872,9 @@ def _p_analyze(mb_w, mb_h, radius, buf, refY, refU, refV, qp, qpc,
     n = mb_w * mb_h
     Y, U, V = _split_src(mb_h, mb_w, buf)
     with trace.span("enc.pad_refs"):
-        refY_s, refU_s, refV_s = _pad_refs(refY, refU, refV)
+        refY_s, refU_s, refV_s = (_edge_pad(refY, PAD),
+                                  _edge_pad(refU, PAD // 2),
+                                  _edge_pad(refV, PAD // 2))
     (mvx, mvy, use_intra, part, ref_sel, mv8, mvq, qac_zz, cdc, cac,
      tile_y, tile_u, tile_v, no_res) = encode_inter_mbs(
         mb_w, mb_h, radius, Y, U, V, refY_s, refU_s, refV_s, qp, qpc,
@@ -887,7 +899,8 @@ def _p_analyze(mb_w, mb_h, radius, buf, refY, refU, refV, qp, qpc,
 def _p_finish(mb_w, mb_h, idc, tile_y, tile_u, tile_v, cls_d, nnz_d, mvc,
               refc, qp_plane, slice_id, stage=_no_stage):
     """Recon planes of an all-inter P frame + in-loop deblock."""
-    recY, recU, recV = _finalize_inter(mb_w, mb_h, tile_y, tile_u, tile_v)
+    recY, recU, recV = (_tiles_to_plane(t.to(torch.uint8), mb_w, mb_h, s)
+                        for t, s in ((tile_y, 16), (tile_u, 8), (tile_v, 8)))
     if idc == 1:
         return recY, recU, recV
     return _deblock_recon(mb_w, mb_h, recY, recU, recV, cls_d, qp_plane,
@@ -899,17 +912,16 @@ def _p_intra_fixup(mb_w, mb_h, idc, Y, U, V, tile_y, tile_u, tile_v,
                    qpc, qp_plane, slice_id, row_slice, stage=_no_stage):
     """Some P MBs fell back to intra: the intra wavefront over them, on
     top of the inter recon, then the deblock of the merged recon. Returns
-    the intra MBs' [k, 427] symbol rows (MBs in raster order) and the
-    recon planes."""
+    the wavefront's [n, 427] symbol rows (the intra MBs' symbols, an
+    inter MB's constants elsewhere) and the recon planes."""
     m = (~use_intra)[:, None, None]
     (i16_mode, intra_cls, i4_modes, chroma_mode, ldc_i, lac_i, cdc_i,
      cac_i, recY, recU, recV) = intra_wavefront(
         mb_w, mb_h, Y, U, V, torch.where(m, tile_y, 0),
         torch.where(m, tile_u, 0), torch.where(m, tile_v, 0),
         use_intra_host, qp, qpc, row_slice)
-    idx = torch.as_tensor(np.flatnonzero(use_intra_host), device=Y.device)
     rows = _sym_rows(ldc_i, lac_i, cdc_i, cac_i, i16_mode, chroma_mode,
-                     intra_cls, i4_modes)[idx]
+                     intra_cls, i4_modes)
     stage("intra")
     if idc != 1:
         cls2 = torch.where(use_intra, intra_cls, cls_d)
@@ -943,6 +955,13 @@ def _i_frame(mb_w, mb_h, idc, buf, qp, qpc, qp_plane, slice_id, row_slice,
     return rows, recY, recU, recV
 
 
+def _fetch(t):
+    """A host numpy copy of t (a synchronizing fetch)."""
+    host = t.cpu().numpy()
+    trace.count_bytes("enc.d2h_bytes", host)
+    return host
+
+
 def _to_host(t):
     """(a host copy of t, None) on the CPU; on CUDA (a pinned host tensor
     that a non-blocking copy fills, the CUDA event that marks the copy
@@ -972,9 +991,6 @@ def _p_batch(mb_w, mb_h, radius, idc, bufs, refY, refU, refV, qp, qpc,
     bufs: [K, H + H/2, W] uint8 source frames (_upload layout); refY,
     refU, refV: the unpadded recon planes of the frame before. Returns
     ([(rows, ready, intra MBs)] per frame, the last frame's recon)."""
-    n = mb_w * mb_h
-    dev = bufs.device
-    zero = torch.zeros((), dtype=torch.int32, device=dev)
     rec = (refY, refU, refV)
     out = []
     for buf in bufs:
@@ -983,29 +999,22 @@ def _p_batch(mb_w, mb_h, radius, idc, bufs, refY, refU, refV, qp, qpc,
                                         *(p[None] for p in rec), qp, qpc,
                                         rd_lam=rd_lam)
         with trace.span("enc.mask_fetch"):
-            use_intra = use_intra_d.cpu().numpy()
-            trace.count_bytes("enc.d2h_bytes", use_intra)
-        with trace.span("enc.pack"):
-            # the inter MBs' symbol rows (the constants _encode_p writes)
-            syms = _sym_rows(zero.expand(n, 16), packed[:, META_W:270],
-                             packed[:, 270:278], packed[:, 278:406],
-                             zero.expand(n), zero.expand(n),
-                             (zero + 1).expand(n), (zero + 2).expand(n, 16))
+            use_intra = _fetch(use_intra_d)
+        intra_rows = None
         if use_intra.any():
             with trace.span("enc.intra_fixup"):
-                rows, *rec = _p_intra_fixup(
+                intra_rows, *rec = _p_intra_fixup(
                     mb_w, mb_h, idc, Yd, Ud, Vd, tile_y, tile_u, tile_v,
                     use_intra, use_intra_d, cls_d, nnz_d, mvc, refc, qp, qpc,
                     qp, slice_id, row_slice)
-                syms[torch.as_tensor(np.flatnonzero(use_intra),
-                                     device=dev)] = rows
         else:
             with trace.span("enc.finish"):
                 rec = _p_finish(mb_w, mb_h, idc, tile_y, tile_u, tile_v,
                                 cls_d, nnz_d, mvc, refc, qp, slice_id)
+        with trace.span("enc.pack"):
+            rows = _p_rows(packed, use_intra_d, intra_rows)
         with trace.span("enc.to_host"):
-            out.append((*_to_host(torch.cat([packed[:, :META_W], syms], 1)),
-                        int(use_intra.sum())))
+            out.append((*_to_host(rows), int(use_intra.sum())))
     return out, tuple(rec)
 
 
@@ -1022,12 +1031,12 @@ class TorchEncoder:
     asserts). device="cuda" (the default) raises when no GPU is present;
     there is no fallback to the CPU.
 
-    Two frame paths, as in JaxEncoder: the fused path (flat QP) and, with
-    aq, gom_rc or bgd, the per-MB QP path (`_encode_i_aq` /
-    `_encode_p_aq`), which filters the reference after the write with the
-    writer's QP chain. `encodes` lists what the last encode_frame call ran,
-    one (kind "I"/"P", path "fused"/"aq", is_ref, intra MBs) per encode
-    (two when a size-capped slice forced the one re-encode)."""
+    The frame paths (the module's docstring): the fused path (flat QP),
+    the per-MB QP path with aq, gom_rc or bgd, and encode_frames' runs.
+    `encodes` lists what the last encode_frame call ran, one (kind
+    "I"/"P", path "fused"/"aq", is_ref, intra MBs) per encode (two when a
+    size-capped slice forced the one re-encode).
+    """
 
     ME_RADIUS = 16
 
@@ -1115,7 +1124,7 @@ class TorchEncoder:
         self._idr_id = 0
         self._cur_is_ref = True
         self._prev_src = None  # device luma of the previous source frame
-        self._qp_plane = None  # the per-MB QP plane of the per-MB QP path
+        self._qp_plane = None  # the per-MB QP path's QP plane (None: fused)
         self._out_qp = None    # the writer's per-MB QP chain (7.4.5)
         rows_per = -(-self.mb_h // self.slices)
         self._set_row_slice((np.arange(self.mb_h) // rows_per).astype(
@@ -1352,229 +1361,123 @@ class TorchEncoder:
 
     # -- frame paths ------------------------------------------------------
     def _encode_i(self, buf):
+        """An IDR: the intra wavefront (_i_frame), the fetch of its symbol
+        rows, the write. On the per-MB QP plane the write takes mb_qp and
+        the reference is filtered after it (_apply_deblock)."""
         n = self.mb_w * self.mb_h
-        if self._per_mb_qp:
-            return self._encode_i_aq(buf)
-        self.encodes.append(("I", "fused", self._cur_is_ref, n))
+        aq = self._per_mb_qp
+        self.encodes.append(("I", "aq" if aq else "fused", self._cur_is_ref,
+                             n))
         with trace.span("enc.qp_maps"):
-            qp_d, qpc_d = self._qp_maps()
+            qp_d, qpc_d = self._qp_maps(buf[:self.mb_h * 16])
         with trace.span("enc.idr"):
-            rows_d, recY, recU, recV = _i_frame(
-                self.mb_w, self.mb_h, self.deblock_idc, buf, qp_d, qpc_d,
-                qp_d, self._slice_id, self._row_slice_np, self._stage)
-        self.ref = (recY, recU, recV)
+            rows_d, *rec = _i_frame(
+                self.mb_w, self.mb_h, 1 if aq else self.deblock_idc, buf,
+                qp_d, qpc_d, qp_d, self._slice_id, self._row_slice_np,
+                self._stage)
+        self.ref = tuple(rec)
         with trace.span("enc.to_host"):
-            rows = rows_d.cpu().numpy()      # the frame's one symbol fetch
-            trace.count_bytes("enc.d2h_bytes", rows)
+            rows = _fetch(rows_d)            # the frame's one symbol fetch
             self._stage("fetch")
-            (ldc, lac, cdc, cac, i16m, cm, cls, m4) = _unpack(rows)
+            _, cls, planes = _unpack(rows)
         mb_class = np.where(cls == 0, 0, 1).astype(np.uint8)
         mv = np.zeros((n, 2), np.int16)
-        # n_refs on an IDR only sizes the SPS DPB (max_num_ref_frames)
+        # n_refs on an IDR only sizes the SPS DPB (max_num_ref_frames);
+        # the per-MB QP path predicts from one reference
         with trace.span("enc.write"):
-            return self._write(1, mb_class, mv, i16m, cm, ldc, lac, cdc,
-                               cac, i4_modes=m4, n_refs=self.refs)
+            data = self._write(1, mb_class, mv, **planes,
+                               mb_qp=self._qp_plane,
+                               n_refs=1 if aq else self.refs)
+        if aq:
+            with trace.span("enc.finish"):
+                self._apply_deblock(mb_class, planes["luma_ac"], mv)
+        return data
 
     def _encode_p(self, buf):
-        if self._per_mb_qp:
-            return self._encode_p_aq(buf)
-        n = self.mb_w * self.mb_h
+        """A P frame: the analysis (_p_analyze), the fetch of its inter
+        MBs' rows (_p_rows, which hold the intra-fallback mask), then where
+        MBs fell back the intra fixup (_p_intra_fixup) and the fetch of the
+        merged rows, or else, on a reference frame, the recon (_p_finish);
+        then the host tail (_write_p). The per-MB QP path predicts from one reference,
+        runs the steps without their deblock (idc 1), writes with mb_qp,
+        then filters self.ref with the writer's QP chain (_apply_deblock);
+        like JaxEncoder, on a non-reference frame too, where self.ref is
+        still the previous reference (ROADMAP §3)."""
+        aq = self._per_mb_qp
+        idc = 1 if aq else self.deblock_idc
+        refs = [self.ref]
+        if not aq and self.refs == 2 and self._ref2 is not None:
+            refs.append(self._ref2)
         with trace.span("enc.qp_maps"):
-            qp_d, qpc_d = self._qp_maps()
-        if self.refs == 2 and self._ref2 is not None:
-            n_refs = 2
-            stack = [torch.stack([a, b]) for a, b in zip(self.ref,
-                                                         self._ref2)]
-        else:
-            n_refs = 1
-            stack = [p[None] for p in self.ref]
+            qp_d, qpc_d = self._qp_maps(buf[:self.mb_h * 16])
         (packed_d, tile_y, tile_u, tile_v, Yd, Ud, Vd, use_intra_d, cls_d,
          nnz_d, mvc_d, refc_d) = _p_analyze(
-            self.mb_w, self.mb_h, self.ME_RADIUS, buf, *stack, qp_d, qpc_d,
+            self.mb_w, self.mb_h, self.ME_RADIUS, buf,
+            *(torch.stack(p) for p in zip(*refs)), qp_d, qpc_d,
             self._scroll_dy, self.trellis_lam, self._stage)
+        intra_rows = rec = None
         with trace.span("enc.to_host"):
-            packed = packed_d.cpu().numpy()  # the frame's one symbol fetch
-            trace.count_bytes("enc.d2h_bytes", packed)
-            meta = packed[:, :META_W]
-            use_intra = meta[:, 2] != 0
-            lac = packed[:, 14:270].reshape(n, 16, 16).copy()
-            cdc = packed[:, 270:278].reshape(n, 2, 4).copy()
-            cac = packed[:, 278:406].reshape(n, 8, 16).copy()
-            ldc = np.zeros((n, 16), np.int16)
-            i16m = np.zeros(n, np.int16)
-            cm = np.zeros(n, np.int16)
-            cls = np.ones(n, np.int16)
-            m4 = np.full((n, 16), 2, np.int16)
-            self._stage("fetch")   # the fetch and its unpacking on the host
-        self.encodes.append(("P", "fused", self._cur_is_ref,
+            # the inter MBs' rows, the frame's unless MBs fell back
+            rows = _unpack(_fetch(_p_rows(packed_d)))
+            use_intra = rows[0]["use_intra"] != 0
+            self._stage("fetch")
+        self.encodes.append(("P", "aq" if aq else "fused", self._cur_is_ref,
                              int(use_intra.sum())))
-        rec = None
         if use_intra.any():
             with trace.span("enc.intra_fixup"):
-                rows_d, *rec = _p_intra_fixup(
-                    self.mb_w, self.mb_h, self.deblock_idc, Yd, Ud, Vd,
-                    tile_y, tile_u, tile_v, use_intra, use_intra_d, cls_d,
-                    nnz_d, mvc_d, refc_d, qp_d, qpc_d, qp_d, self._slice_id,
+                intra_rows, *rec = _p_intra_fixup(
+                    self.mb_w, self.mb_h, idc, Yd, Ud, Vd, tile_y, tile_u,
+                    tile_v, use_intra, use_intra_d, cls_d, nnz_d, mvc_d,
+                    refc_d, qp_d, qpc_d, qp_d, self._slice_id,
                     self._row_slice_np, self._stage)
             with trace.span("enc.to_host"):
-                # the intra MBs' symbols: a second, small fetch
-                idx = np.flatnonzero(use_intra)
-                rows = rows_d.cpu().numpy()
-                trace.count_bytes("enc.d2h_bytes", rows)
-                (ldc[idx], lac[idx], cdc[idx], cac[idx], i16m[idx], cm[idx],
-                 cls[idx], m4[idx]) = _unpack(rows)
+                rows = _unpack(_fetch(_p_rows(packed_d, use_intra_d,
+                                              intra_rows)))
                 self._stage("fetch")
         elif self._cur_is_ref:
             # a non-reference frame (T1) never becomes a reference: no
-            # recon and no deblock for it
+            # recon for it
             with trace.span("enc.finish"):
-                rec = _p_finish(self.mb_w, self.mb_h, self.deblock_idc,
-                                tile_y, tile_u, tile_v, cls_d, nnz_d, mvc_d,
-                                refc_d, qp_d, self._slice_id, self._stage)
+                rec = _p_finish(self.mb_w, self.mb_h, idc, tile_y, tile_u,
+                                tile_v, cls_d, nnz_d, mvc_d, refc_d, qp_d,
+                                self._slice_id, self._stage)
         if self._cur_is_ref:
-            self._ref2 = self.ref if self.refs == 2 else None
+            if not aq:
+                self._ref2 = self.ref if self.refs == 2 else None
             self.ref = tuple(rec)
         with trace.span("enc.write"):
-            return self._write_p(meta, ldc, lac, cdc, cac, i16m, cm, cls,
-                                 m4, n_refs)
+            data, mb_class, mv = self._write_p(*rows, len(refs),
+                                               self._qp_plane)
+        if aq:
+            meta, _, planes = rows
+            with trace.span("enc.finish"):
+                self._apply_deblock(mb_class, planes["luma_ac"], mv,
+                                    meta["mv8"])
+        return data
 
-    def _write_p(self, meta, ldc, lac, cdc, cac, i16m, cm, cls, m4, n_refs):
-        """The host tail of a P frame of the fused path, from its meta
-        rows and symbol planes: MB classes, P_Skip where the residual is
-        zero and the MV equals the writer's skip predictor, the write."""
-        n = self.mb_w * self.mb_h
-        use_intra = meta[:, 2] != 0
-        no_res = meta[:, 3] != 0
-        part = meta[:, 4]
-        mv8 = np.ascontiguousarray(meta[:, 5:13], np.int16)
-        ref_plane = np.ascontiguousarray(meta[:, 13], np.int8)
+    def _write_p(self, meta, cls, planes, n_refs, mb_qp=None):
+        """The host tail of every P frame, from its fetched [n, META_W +
+        427] rows (_p_rows) as _unpack views them: MB classes, P_Skip where
+        the residual is zero, the reference the first and the MV the
+        writer's skip predictor, the write. Returns (bytes, the MB
+        classes, the MVs)."""
+        use_intra = meta["use_intra"] != 0
+        part = meta["part"]
+        mv8 = np.ascontiguousarray(meta["mv8"], np.int16)
+        ref_plane = np.ascontiguousarray(meta["ref_idx"], np.int8)
         ref_plane[use_intra] = 0
-        mv = np.zeros((n, 2), np.int16)
-        mv[:, 0] = meta[:, 0]
-        mv[:, 1] = meta[:, 1]
+        mv = np.array(meta["mv"], np.int16)
         mv[use_intra] = 0
         # part -> MbClass: 0/1/2/3 = P16x16/P16x8/P8x16/P8x8 (3/4/5/6)
         mb_class = np.where(use_intra, 1, 3 + part).astype(np.uint8)
         skip_pred, _ = self._mv_preds(mb_class, mv, mv8, ref_plane)
-        is_skip = (no_res & ~use_intra & (part == 0) & (ref_plane == 0)
-                   & (mv[:, 0] == skip_pred[:, 0])
-                   & (mv[:, 1] == skip_pred[:, 1]))
+        is_skip = ((meta["no_res"] != 0) & ~use_intra & (part == 0)
+                   & (ref_plane == 0) & (mv == skip_pred).all(1))
         mb_class[is_skip] = 11
         mb_class[use_intra & (cls == 0)] = 0  # I4x4 fallback MBs
-        return self._write(0, mb_class, mv, i16m, cm, ldc, lac, cdc, cac,
-                           i4_modes=m4, mv8=mv8, n_refs=n_refs,
-                           ref_plane=ref_plane)
-
-    def _encode_i_aq(self, buf):
-        """IDR on the per-MB QP plane: the intra wavefront, the write with
-        mb_qp, then the deblock of the reference."""
-        n = self.mb_w * self.mb_h
-        self.encodes.append(("I", "aq", self._cur_is_ref, n))
-        Yd, Ud, Vd = _split_src(self.mb_h, self.mb_w, buf)
-        with trace.span("enc.qp_maps"):
-            qp_d, qpc_d = self._qp_maps(Yd)
-        with trace.span("enc.idr"):
-            zt16 = torch.zeros((n, 16, 16), dtype=torch.int32,
-                               device=self.device)
-            zt8 = torch.zeros((n, 8, 8), dtype=torch.int32,
-                              device=self.device)
-            (i16_mode, intra_cls, i4_modes, chroma_mode, ldc, lac, cdc, cac,
-             recY, recU, recV) = intra_wavefront(
-                self.mb_w, self.mb_h, Yd, Ud, Vd, zt16, zt8, zt8,
-                np.ones(n, bool), qp_d, qpc_d, self._row_slice_np)
-            self._stage("intra")
-        self.ref = (recY, recU, recV)
-        with trace.span("enc.to_host"):
-            rows = _sym_rows(ldc, lac, cdc, cac, i16_mode, chroma_mode,
-                             intra_cls, i4_modes).cpu().numpy()
-            trace.count_bytes("enc.d2h_bytes", rows)
-            self._stage("fetch")
-            (ldc, lac, cdc, cac, i16m, cm, cls, m4) = _unpack(rows)
-        mb_class = np.where(cls == 0, 0, 1).astype(np.uint8)
-        mv = np.zeros((n, 2), np.int16)
-        with trace.span("enc.write"):
-            data = self._write(1, mb_class, mv, i16m, cm, ldc, lac, cdc, cac,
-                               i4_modes=m4, mb_qp=self._qp_plane)
-        with trace.span("enc.finish"):
-            self._apply_deblock(mb_class, lac, mv)
-        return data
-
-    def _encode_p_aq(self, buf):
-        """P frame on the per-MB QP plane (one reference): the inter
-        analysis, the intra wavefront over its fallback MBs, the write with
-        mb_qp, then the deblock of self.ref. Like JaxEncoder, this runs
-        the deblock on a non-reference frame too, where self.ref is still
-        the previous reference (ROADMAP §3)."""
-        n = self.mb_w * self.mb_h
-        Yd, Ud, Vd = _split_src(self.mb_h, self.mb_w, buf)
-        with trace.span("enc.pad_refs"):
-            refY_s, refU_s, refV_s = _pad_refs(*(p[None] for p in self.ref))
-        with trace.span("enc.qp_maps"):
-            qp_d, qpc_d = self._qp_maps(Yd)
-        (mvx, mvy, use_intra_d, part_d, ref_sel_d, mv8_d, mvq_d, qac_zz,
-         cdc_d, cac_d, tile_y, tile_u, tile_v, no_res_d) = encode_inter_mbs(
-            self.mb_w, self.mb_h, self.ME_RADIUS, Yd, Ud, Vd, refY_s, refU_s,
-            refV_s, qp_d, qpc_d, self._scroll_dy, self.trellis_lam,
-            self._stage)
-        with trace.span("enc.mask_fetch"):
-            meta = _meta_rows(mvx, mvy, use_intra_d, no_res_d, part_d,
-                              mv8_d, ref_sel_d).cpu().numpy()
-            trace.count_bytes("enc.d2h_bytes", meta)
-        use_intra = meta[:, 2] != 0
-        no_res = meta[:, 3] != 0
-        part = meta[:, 4]
-        mv8 = np.ascontiguousarray(meta[:, 5:13], np.int16)
-        mv = np.zeros((n, 2), np.int16)
-        mv[:, 0] = meta[:, 0]
-        mv[:, 1] = meta[:, 1]
-        mv[use_intra] = 0
-        mb_class = np.where(use_intra, 1, 3 + part).astype(np.uint8)
-        self.encodes.append(("P", "aq", self._cur_is_ref,
-                             int(use_intra.sum())))
-        zero = torch.zeros((), dtype=torch.int32, device=self.device)
-        if use_intra.any():
-            m = (~use_intra_d)[:, None, None]
-            with trace.span("enc.intra_fixup"):
-                (i16_mode, intra_cls, i4_modes, chroma_mode, ldc_i, lac_i,
-                 cdc_i, cac_i, recY, recU, recV) = intra_wavefront(
-                    self.mb_w, self.mb_h, Yd, Ud, Vd,
-                    torch.where(m, tile_y, 0), torch.where(m, tile_u, 0),
-                    torch.where(m, tile_v, 0), use_intra, qp_d, qpc_d,
-                    self._row_slice_np)
-                self._stage("intra")
-            sel = use_intra_d[:, None, None]
-            rows_d = _sym_rows(
-                torch.where(use_intra_d[:, None], ldc_i, zero),
-                torch.where(sel, lac_i, qac_zz), torch.where(sel, cdc_i, cdc_d),
-                torch.where(sel[..., None], cac_i, cac_d), i16_mode,
-                chroma_mode, intra_cls, i4_modes)
-        else:
-            recY, recU, recV = _finalize_inter(self.mb_w, self.mb_h, tile_y,
-                                               tile_u, tile_v)
-            rows_d = _sym_rows(
-                torch.zeros((n, 16), dtype=torch.int32, device=self.device),
-                qac_zz, cdc_d, cac_d, zero.expand(n), zero.expand(n),
-                (zero + 1).expand(n), (zero + 2).expand(n, 16))
-        with trace.span("enc.to_host"):
-            rows = rows_d.cpu().numpy()
-            trace.count_bytes("enc.d2h_bytes", rows)
-            self._stage("fetch")
-            (ldc, lac, cdc, cac, i16m, cm, cls, m4) = _unpack(rows)
-        # P_Skip: zero residual and the MV equals the skip predictor
-        skip_pred, _ = self._mv_preds(mb_class, mv, mv8)
-        is_skip = (no_res & ~use_intra & (part == 0)
-                   & (mv[:, 0] == skip_pred[:, 0])
-                   & (mv[:, 1] == skip_pred[:, 1]))
-        mb_class[is_skip] = 11
-        mb_class[use_intra & (cls == 0)] = 0  # I4x4 fallback MBs
-        if self._cur_is_ref:
-            self.ref = (recY, recU, recV)
-        with trace.span("enc.write"):
-            data = self._write(0, mb_class, mv, i16m, cm, ldc, lac, cdc, cac,
-                               i4_modes=m4, mb_qp=self._qp_plane, mv8=mv8)
-        with trace.span("enc.finish"):
-            self._apply_deblock(mb_class, lac, mv, mv8)
-        return data
+        return (self._write(0, mb_class, mv, **planes, mb_qp=mb_qp, mv8=mv8,
+                            n_refs=n_refs, ref_plane=ref_plane),
+                mb_class, mv)
 
     def force_intra_frame(self):
         """Make the next encoded frame an IDR (the reference's
@@ -1736,9 +1639,9 @@ class TorchEncoder:
         [n, META_W + 427] int16 rows (_p_batch); `frame` its trace frame
         id."""
         with trace.span("enc.writer.unpack", frame=frame):
-            planes = _unpack(packed[:, META_W:])
+            rows = _unpack(packed)
         with trace.span("enc.writer.write", frame=frame):
-            return self._write_p(packed[:, :META_W], *planes, n_refs=1)
+            return self._write_p(*rows, 1)[0]
 
     def _dispatch_p_run(self, frames):
         """Chain K consecutive P frames on the device (_p_batch); self.ref

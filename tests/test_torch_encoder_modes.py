@@ -87,6 +87,10 @@ RECIPES = {
     "slices3_cabac": lambda: (64, 96, moving_frames(3, 64, 96),
                               dict(qp=26, slices=3, cabac=True)),
     "refs2": lambda: (64, 48, _occlusion(), dict(qp=30, refs=2)),
+    # the per-MB QP path predicts from one reference whatever refs says,
+    # and its IDR's SPS says so (max_num_ref_frames 1)
+    "refs2_bgd": lambda: (64, 48, _occlusion(), dict(qp=30, refs=2,
+                                                     bgd=True)),
     "deblock_on": lambda: (64, 48, _gradient(), dict(qp=38)),
     "deblock_off": lambda: (64, 48, _gradient(), dict(qp=38, deblock=False)),
     "p8x8": lambda: (64, 64, _quadrants(), dict(qp=30)),
@@ -114,8 +118,8 @@ def _classes(data):
 # the partition and cropping recipes' streams are in
 # tests/test_torch_encoder_partitions.py: two files, so that the tier-1
 # run's workers share the compilations
-HERE = ("slices3_cavlc", "slices3_cabac", "refs2", "deblock_on",
-        "deblock_off", "trellis_qp26", "trellis_qp48")
+HERE = ("slices3_cavlc", "slices3_cabac", "refs2", "refs2_bgd",
+        "deblock_on", "deblock_off", "trellis_qp26", "trellis_qp48")
 
 
 @pytest.mark.parametrize("name", HERE)
@@ -136,6 +140,8 @@ def check_recipe(name):
     elif name == "refs2":
         assert (syms[3][1] == 1).any()               # t-2 reference used
         assert len(r["torch"][3]) < len(r["torch"][2]) // 10
+    elif name == "refs2_bgd":
+        assert all(path == "aq" for _, path, _, _ in r["enc"][1].encodes)
 
 
 def test_in_loop_filter_changes_the_recon():

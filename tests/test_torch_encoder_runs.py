@@ -129,3 +129,199 @@ def test_runs_on_card(cuda_device):
         want.encode_frames(frames, batch=3)
     assert same_recon(enc.recon, want.recon)
     assert enc.prof["frames"] == 6
+
+
+# ---------------------------------------------------------------------------
+# the encoder's contract with the benchmark's encode harness
+# (bench_port/harness/encoding.py): the StageTimer names it reads, in
+# order, the tracer's spans, the device steps each path calls, and the
+# module attributes it wraps
+# ---------------------------------------------------------------------------
+# each path: (encoder options, frames encoded before the recorded call,
+# the recorded call: ("frame", i) or ("run", first, last, batch))
+CONTRACT_PATHS = {
+    "fused_idr": ({}, 0, ("frame", 0)),
+    "fused_p": ({}, 1, ("frame", 1)),
+    "fused_p_intra": ({}, 4, ("frame", 4)),
+    "aq_idr": ({"aq": True}, 0, ("frame", 0)),
+    "aq_p": ({"aq": True}, 1, ("frame", 1)),
+    "aq_p_intra": ({"aq": True}, 4, ("frame", 4)),
+    "run": ({}, 0, ("run", 0, 7, 3)),
+}
+# the device steps that launch the kernels on the card (K1, K4, K5, K8,
+# and K9 + K2 in _deblock_recon): (module, attribute)
+CONTRACT_STEPS = (("ops.mc", "_halfpel_planes_u8"),
+                  ("encoder_torch", "intra_wavefront"),
+                  ("ops.me", "dense_full_search"),
+                  ("encoder_torch", "inter_residual"),
+                  ("encoder_torch", "_deblock_recon"))
+_P_STEPS = ["dense_search", "subpel_k1", "residual"]
+_DEBLOCK = ["deblock_edge_params", "deblock_k2"]
+_AQ_DEBLOCK = ["deblock_host_planes", "deblock_upload"] + _DEBLOCK
+_STEP_NAMES = [a for _, a in CONTRACT_STEPS]
+
+
+def _steps(*counts):
+    return dict(zip(_STEP_NAMES, counts))
+
+
+CONTRACT = {
+    "fused_idr": dict(
+        encodes=[("I", "fused", True, 12)],
+        stages=["upload", "intra"] + _DEBLOCK + ["fetch", "write"],
+        spans={"enc.frame": 1, "enc.upload": 1, "enc.qp_maps": 1,
+               "enc.idr": 1, "enc.to_host": 1, "enc.write": 1},
+        steps=_steps(0, 1, 0, 0, 1)),
+    "fused_p": dict(
+        encodes=[("P", "fused", True, 0)],
+        stages=["upload"] + _P_STEPS + ["fetch"] + _DEBLOCK + ["write"],
+        spans={"enc.frame": 1, "enc.upload": 1, "enc.qp_maps": 1,
+               "enc.pad_refs": 1, "enc.search": 1, "enc.residual": 1,
+               "enc.pack": 1, "enc.to_host": 1, "enc.finish": 1,
+               "enc.write": 1},
+        steps=_steps(1, 0, 1, 1, 1)),
+    "fused_p_intra": dict(
+        encodes=[("P", "fused", True, 1)],
+        stages=["upload"] + _P_STEPS + ["fetch", "intra"] + _DEBLOCK
+        + ["fetch", "write"],
+        spans={"enc.frame": 1, "enc.upload": 1, "enc.qp_maps": 1,
+               "enc.pad_refs": 1, "enc.search": 1, "enc.residual": 1,
+               "enc.pack": 1, "enc.to_host": 2, "enc.intra_fixup": 1,
+               "enc.write": 1},
+        steps=_steps(1, 1, 1, 1, 1)),
+    "aq_idr": dict(
+        encodes=[("I", "aq", True, 12)],
+        stages=["upload", "aq_maps", "intra", "fetch", "write"]
+        + _AQ_DEBLOCK,
+        spans={"enc.frame": 1, "enc.upload": 1, "enc.qp_maps": 1,
+               "enc.idr": 1, "enc.to_host": 1, "enc.write": 1,
+               "enc.finish": 1},
+        steps=_steps(0, 1, 0, 0, 1)),
+    # the per-MB QP path fetches as the fused path does; its recon
+    # (_p_finish with idc 1) and its filter after the write are each an
+    # enc.finish
+    "aq_p": dict(
+        encodes=[("P", "aq", True, 0)],
+        stages=["upload", "aq_maps"] + _P_STEPS + ["fetch", "write"]
+        + _AQ_DEBLOCK,
+        spans={"enc.frame": 1, "enc.upload": 1, "enc.qp_maps": 1,
+               "enc.pad_refs": 1, "enc.search": 1, "enc.residual": 1,
+               "enc.pack": 1, "enc.to_host": 1, "enc.write": 1,
+               "enc.finish": 2},
+        steps=_steps(1, 0, 1, 1, 1)),
+    "aq_p_intra": dict(
+        encodes=[("P", "aq", True, 1)],
+        stages=["upload", "aq_maps"] + _P_STEPS + ["fetch", "intra",
+                                                   "fetch", "write"]
+        + _AQ_DEBLOCK,
+        spans={"enc.frame": 1, "enc.upload": 1, "enc.qp_maps": 1,
+               "enc.pad_refs": 1, "enc.search": 1, "enc.residual": 1,
+               "enc.pack": 1, "enc.intra_fixup": 1, "enc.to_host": 2,
+               "enc.write": 1, "enc.finish": 1},
+        steps=_steps(1, 1, 1, 1, 1)),
+    # the IDR by encode_frame, then two runs of 3; the harness's clock
+    # reaches a run's steps only through the three module functions
+    "run": dict(
+        encodes=[("I", "fused", True, 12)] + [("P", "run", True, 0)] * 3
+        + [("P", "run", True, 1)] + [("P", "run", True, 0)] * 2,
+        stages=["upload", "intra"] + _DEBLOCK + ["fetch", "write"]
+        + (_P_STEPS + _DEBLOCK) * 3 + _P_STEPS + ["intra"] + _DEBLOCK
+        + (_P_STEPS + _DEBLOCK) * 2,
+        spans={"enc.frame": 1, "enc.upload": 3, "enc.qp_maps": 3,
+               "enc.idr": 1, "enc.to_host": 7, "enc.write": 1,
+               "enc.run": 2, "enc.pad_refs": 6, "enc.search": 6,
+               "enc.residual": 6, "enc.pack": 12, "enc.mask_fetch": 6,
+               "enc.finish": 5, "enc.intra_fixup": 1, "enc.writer_wait": 2,
+               "enc.writer.rows_wait": 6, "enc.writer.unpack": 6,
+               "enc.writer.write": 6},
+        steps=_steps(6, 2, 6, 6, 7)),
+}
+
+
+@pytest.mark.parametrize("path", sorted(CONTRACT_PATHS))
+def test_benchmark_contract(monkeypatch, path):
+    """Each frame path of the encoder (the fused IDR and P frames with and
+    without intra-fallback MBs, the per-MB QP path's, and encode_frames'
+    runs) marks the StageTimer names the benchmark reads, in order, opens
+    the tracer's spans and calls the device steps as many times as
+    pinned here, with no kernel launched on the CPU. Within
+    _dispatch_p_run, _p_analyze, _p_finish and _p_intra_fixup get no
+    `stage` argument (the benchmark's stage clock hands its own to such
+    calls through the module attributes, as this test does) and
+    _p_batch is reached through the module attribute."""
+    import functools
+    import importlib
+    import inspect
+    import threading
+    from losslessh264_tpu_torch import encoder_torch as et
+    from losslessh264_tpu_torch import trace
+
+    opts, before, call = CONTRACT_PATHS[path]
+    want = CONTRACT[path]
+    frames = run_frames()
+    enc = TorchEncoder(64, 48, qp=28, device="cpu", **opts)
+    for f in frames[:before]:
+        enc.encode_frame(*f)
+
+    names = []
+    main = threading.get_ident()
+
+    class Marks:
+        """The marks of the main thread, as the benchmark's stage clock
+        keeps them (the writer thread's pass through untimed)."""
+        def start(self):
+            pass
+
+        def __call__(self, name):
+            if threading.get_ident() == main:
+                names.append(name)
+
+    enc.stages = Marks()
+    steps = dict.fromkeys(_STEP_NAMES, 0)
+    for mod, attr in CONTRACT_STEPS:
+        owner = importlib.import_module("losslessh264_tpu_torch." + mod)
+
+        def counted(*a, _fn=getattr(owner, attr), _attr=attr, **k):
+            steps[_attr] += 1
+            return _fn(*a, **k)
+        monkeypatch.setattr(owner, attr,
+                            functools.wraps(getattr(owner, attr))(counted))
+    # per call of _p_analyze, _p_finish or _p_intra_fixup once a run has
+    # started: whether it carried a stage argument
+    in_run = []
+    batches = []    # the frames of each _p_batch call
+
+    for name in ("_p_analyze", "_p_finish", "_p_intra_fixup"):
+        fn = getattr(et, name)
+
+        def clocked(*a, _fn=fn, **k):
+            staged = "stage" in inspect.signature(_fn).bind(
+                *a, **k).arguments
+            if batches:
+                in_run.append(staged)
+            if not staged:
+                k["stage"] = enc.stages
+            return _fn(*a, **k)
+        monkeypatch.setattr(et, name, clocked)
+    p_batch = et._p_batch
+
+    def batch(*a, **k):
+        batches.append(len(a[4]))
+        return p_batch(*a, **k)
+    monkeypatch.setattr(et, "_p_batch", batch)
+
+    with trace.recording() as rec:
+        if call[0] == "frame":
+            enc.encode_frame(*frames[call[1]])
+        else:
+            enc.encode_frames(frames[call[1]:call[2]], batch=call[3])
+    assert enc.encodes == want["encodes"]
+    assert names == want["stages"]
+    assert rec.calls() == want["spans"]
+    assert steps == want["steps"]
+    assert not any(rec.launches.values())
+    if call[0] == "run":
+        assert batches == [3, 3]
+        assert len(in_run) == 12 and not any(in_run)
+    else:
+        assert not batches
