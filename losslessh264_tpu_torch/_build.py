@@ -9,9 +9,13 @@ the CUDA stream, launches on that stream, and returns
 cudaGetLastError(); `check` raises when that is not 0. The host sources
 are plain C++ that g++ compiles into build/host/libpip_plan.so, apart
 from the kernels, so that a machine without nvcc (the CPU tests') builds
-and runs them. Each library is rebuilt only when one of its sources (for
-the kernels, a header csrc/*.cuh too) is newer than it. Nothing here runs
-at import: the CPU tests import every module on a machine without nvcc.
+and runs them; that library includes native/src's headers and links
+against native/libh264pip.so (the symbol parse, csrc/sym_planes.cpp), so
+native.load() builds that first. Each library is rebuilt only when one
+of its sources (for the kernels, a header csrc/*.cuh too; for the host
+library, a header native/src/*.h, whose struct layouts are compiled into
+both libraries) is newer than it. Nothing here runs at import: the CPU
+tests import every module on a machine without nvcc.
 """
 from __future__ import annotations
 
@@ -26,16 +30,20 @@ import numpy as np
 import torch
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
+_ROOT = os.path.dirname(_PKG)
 _SRC_DIR = os.path.join(_PKG, "csrc")
-BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
+BUILD_DIR = os.path.join(_ROOT, "build", "kernels")
 LIB_PATH = os.path.join(BUILD_DIR, "libpip_kernels.so")
-HOST_BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "host")
+HOST_BUILD_DIR = os.path.join(_ROOT, "build", "host")
 HOST_LIB_PATH = os.path.join(HOST_BUILD_DIR, "libpip_plan.so")
 COMPILE_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                  "-O3", "-Xcompiler", "-fPIC"]
 # one source (or the objects) straight to a shared library
 NVCC_FLAGS = COMPILE_FLAGS + ["-shared"]
 GXX_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared", "-pthread"]
+# native/libh264pip.so, found beside the host library's checkout at load
+HOST_LINK = ["-L", os.path.join(_ROOT, "native"), "-lh264pip",
+             "-Wl,-rpath,$ORIGIN/../../native"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -100,16 +108,25 @@ _HOST_SIGNATURES = {
     #  uint8, fix [MC_FIX_CAP], info [4] int32)
     "pip_plan_mc": [_P, _P] + [_I] * 7 + [_P] * 6,
     # the symbol layer's parse-ahead worker (csrc/sym_ahead.cpp):
-    # (native handle, pip_sym_next, pip_sym_planes, pip_sym_close, depth,
-    #  sizes [2, 31] int64; out: the worker)
+    # (handle, its next, planes and close functions (pip_pooled_next,
+    #  pip_pooled_planes, pip_pooled_close), depth, sizes [2, 31] int64;
+    #  out: the worker)
     "pip_ahead_start": [_P] * 4 + [_I, _P, _P],
-    # (worker, block; out: [9] int64, err, err_cap)
+    # (worker, block; out: [11] int64, err, err_cap)
     "pip_ahead_take": [_P, _I, _P, _P, ctypes.c_size_t],
     "pip_ahead_queued": [_P],
     "pip_ahead_stop": [_P],
     # (buffer, its bytes)
     "pip_ahead_free": [_P, ctypes.c_size_t],
     "pip_ahead_live": [],
+    # the port's handle on the native parse (csrc/sym_planes.cpp), whose
+    # next, planes and close the worker calls: (data, size, err, err_cap)
+    # -> the handle or null
+    "pip_pooled_open": ([ctypes.c_char_p, ctypes.c_size_t, ctypes.c_char_p,
+                         ctypes.c_size_t], _P),
+    "pip_pooled_close": ([_P], None),
+    # (out: [2] int64, the FramePlanes the pool holds and their bytes)
+    "pip_pooled_kept": [_P],
 }
 
 _lib = None
@@ -130,8 +147,16 @@ def sources():
     return sorted(glob.glob(os.path.join(_SRC_DIR, "*.cu")))
 
 
-def host_sources():
-    return sorted(glob.glob(os.path.join(_SRC_DIR, "*.cpp")))
+def host_sources(root=_ROOT):
+    return sorted(glob.glob(os.path.join(
+        root, "losslessh264_tpu_torch", "csrc", "*.cpp")))
+
+
+def host_inputs(root=_ROOT):
+    """What the host library of the checkout at `root` is built from: its
+    sources and the native/src headers they may include."""
+    return host_sources(root) + sorted(glob.glob(os.path.join(
+        root, "native", "src", "*.h")))
 
 
 def _nvcc():
@@ -157,8 +182,9 @@ def needs_build():
                   + glob.glob(os.path.join(_SRC_DIR, "*.cuh")))
 
 
-def needs_host_build():
-    return _stale(HOST_LIB_PATH, host_sources())
+def needs_host_build(root=_ROOT):
+    return _stale(os.path.join(root, "build", "host", "libpip_plan.so"),
+                  host_inputs(root))
 
 
 def build():
@@ -201,10 +227,13 @@ def build():
 def build_host():
     """Compile csrc/*.cpp with g++ into HOST_LIB_PATH (through a file of
     this process's own, so that processes building at once do not
-    collide); returns g++'s output."""
+    collide), against native/libh264pip.so, which has to be built;
+    returns g++'s output."""
     os.makedirs(HOST_BUILD_DIR, exist_ok=True)
     tmp = f"{HOST_LIB_PATH}.{os.getpid()}.tmp"
-    cmd = ["g++"] + GXX_FLAGS + ["-o", tmp] + host_sources()
+    cmd = (["g++"] + GXX_FLAGS
+           + ["-I", os.path.join(_ROOT, "native", "src"), "-o", tmp]
+           + host_sources() + HOST_LINK)
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError("g++ failed:\n" + " ".join(cmd) + "\n"
@@ -214,11 +243,14 @@ def build_host():
 
 
 def _load(path, signatures):
+    """Load `path` and type its entry points: each signature is the
+    argtypes of a function returning int, or (argtypes, restype)."""
     so = ctypes.CDLL(path)
-    for name, args in signatures.items():
+    for name, sig in signatures.items():
+        args, res = sig if isinstance(sig, tuple) else (sig, ctypes.c_int)
         fn = getattr(so, name)
         fn.argtypes = args
-        fn.restype = ctypes.c_int
+        fn.restype = res
     return so
 
 
@@ -238,11 +270,13 @@ def lib():
 
 
 def host_lib():
-    """The loaded host-plan library, built first if a source changed,
-    under the same lock and rule as lib()."""
+    """The loaded host library, built first if a source changed, under
+    the same lock and rule as lib(), after native/libh264pip.so."""
     global _host_lib
     if _host_lib is not None:
         return _host_lib
+    from . import native
+    native.load()
     with _lib_lock:
         if _host_lib is None:
             if needs_host_build():

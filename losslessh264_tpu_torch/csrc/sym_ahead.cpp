@@ -1,17 +1,24 @@
 // Parse-ahead for the symbol layer (native.SymbolDecoder): one native
-// thread per iterated decoder runs native/'s pip_sym_next and
-// pip_sym_planes, through the function pointers the binding hands over,
-// up to `depth` frames ahead of the consumer, each frame into one buffer
-// of its own. Plain C++17 for the host, built by g++ into
-// build/host/libpip_plan.so (_build.host_lib) and called through ctypes.
+// thread per iterated decoder runs the handle's next and planes functions
+// (pip_sym_next and pip_sym_planes, or the port's pip_pooled_next and
+// pip_pooled_planes, sym_planes.cpp), through the function pointers the
+// binding hands over, up to `depth` frames ahead of the consumer, each
+// frame into one buffer of its own. next returns 2 for a frame parsed
+// into planes that held as large a frame before, any other positive
+// number for another frame; the frame's item carries which, and the
+// thread's minor page faults during the parse. Plain C++17 for the host,
+// built by g++ into build/host/libpip_plan.so (_build.host_lib) and
+// called through ctypes.
 //
 // The thread never enters the interpreter, so it never waits for the
 // interpreter lock nor makes the consumer wait for it: the consumer's
 // only calls are pip_ahead_take, which blocks outside the lock while the
 // thread is behind, and pip_ahead_stop. The thread owns the native
 // handle from pip_ahead_start on and closes it when it leaves for good:
-// after the stream's end, an error, or a stop. The worker state is freed
-// by whichever of the two sides lets go of it last.
+// after the stream's end or an error (before the consumer can take that
+// item, so that what the handle keeps is free for the next one), or a
+// stop. The worker state is freed by whichever of the two sides lets go
+// of it last.
 //
 // A frame's buffer holds pip_sym_planes' 31 output buffers in its
 // argument order, each at a 64-byte boundary; the binding computes the
@@ -24,6 +31,7 @@
 // into a kept buffer, which is faulted in already).
 
 #include <pthread.h>
+#include <sys/resource.h>
 
 #include <atomic>
 #include <condition_variable>
@@ -88,6 +96,11 @@ void give_back(void* p, size_t size) {
   std::free(p);
 }
 
+int64_t minor_faults() {
+  rusage ru;
+  return getrusage(RUSAGE_THREAD, &ru) == 0 ? int64_t(ru.ru_minflt) : 0;
+}
+
 int64_t now_ns() {
   timespec ts;
   clock_gettime(CLOCK_MONOTONIC, &ts);
@@ -100,6 +113,8 @@ struct Frame {
   void* buf = nullptr;
   size_t size = 0;
   int64_t t[4] = {0, 0, 0, 0};  // parse start, parse end, alloc end, copy end
+  int kept = 0;         // next returned 2
+  int64_t faults = 0;   // the thread's minor page faults during next
   std::string err;
 };
 
@@ -140,9 +155,12 @@ Frame parse_one(Ahead* a) {
   Frame f;
   char err[512];
   err[0] = 0;
+  const int64_t faults = minor_faults();
   f.t[0] = now_ns();
   int rc = a->next(a->h, &f.w, &f.h, err, sizeof err);
   f.t[1] = f.t[2] = f.t[3] = now_ns();
+  f.faults = minor_faults() - faults;
+  f.kept = rc == 2;
   if (rc == 0) return f;
   if (rc < 0) {
     f.rc = kNextFailed;
@@ -190,6 +208,10 @@ void run(Ahead* a) {
     }
     Frame f = parse_one(a);
     const bool last = f.rc != kFrame;
+    if (last) {
+      a->close(a->h);
+      a->h = nullptr;
+    }
     {
       std::lock_guard<std::mutex> lk(a->m);
       a->q.push_back(std::move(f));
@@ -197,7 +219,7 @@ void run(Ahead* a) {
     a->ready.notify_one();
     if (last) break;
   }
-  a->close(a->h);
+  if (a->h) a->close(a->h);
   release(a);
   g_live.fetch_sub(1);
 }
@@ -238,7 +260,9 @@ int pip_ahead_start(void* h, void* next, void* planes, void* close,
 }
 
 // The next item, in stream order, if `block` or if one is queued; returns
-// kFrame (out: w, h, buffer, its size, the four times, the thread id),
+// kFrame (out: w, h, buffer, its size, the four times, the thread id,
+// whether next parsed into planes that held as large a frame, the minor
+// page faults during next),
 // kEnd, kNextFailed (err: pip_sym_next's message), kPlanesFailed,
 // kNoMemory (out's times and thread id set for each), or kNotReady. The
 // caller takes nothing after an item other than a frame.
@@ -260,6 +284,8 @@ int pip_ahead_take(void* av, int block, int64_t* out, char* err,
   out[3] = int64_t(f.size);
   for (int i = 0; i < 4; ++i) out[4 + i] = f.t[i];
   out[8] = a->thread_id;
+  out[9] = f.kept;
+  out[10] = f.faults;
   if (err && err_cap) {
     std::strncpy(err, f.err.c_str(), err_cap - 1);
     err[err_cap - 1] = 0;

@@ -3,8 +3,9 @@
 `native/libh264pip.so` is the repo's C++ layer: Annex-B parsing,
 CAVLC/CABAC entropy decode into per-frame symbol planes, the lossless
 recompressor and its `.pip` container. The port uses the streaming
-`SymbolDecoder` (native/src/capi_sym.cc), parsed ahead on a native thread
-(csrc/sym_ahead.cpp), for the pixel decode, and the
+`SymbolDecoder` (native/src/decsupport.h) through a handle of its own
+that keeps the parse's planes (csrc/sym_planes.cpp), parsed ahead on a
+native thread (csrc/sym_ahead.cpp), for the pixel decode, and the
 recompressor's entry points (`compress`, `compress_sharded`,
 `decompress`, the GOP cut points and shard plan) for its CLI, its GOP
 sharding (parallel/) and checkpointing. This module is the port's own
@@ -124,18 +125,6 @@ def load():
     if _lib is None:
         _build_locked()
         lib = ctypes.CDLL(LIB_PATH)
-        lib.pip_sym_open.restype = ctypes.c_void_p
-        lib.pip_sym_open.argtypes = [
-            ctypes.c_char_p, ctypes.c_size_t, ctypes.c_char_p,
-            ctypes.c_size_t]
-        lib.pip_sym_next.restype = ctypes.c_int
-        lib.pip_sym_next.argtypes = [
-            ctypes.c_void_p, ctypes.POINTER(ctypes.c_int),
-            ctypes.POINTER(ctypes.c_int), ctypes.c_char_p, ctypes.c_size_t]
-        lib.pip_sym_planes.restype = ctypes.c_int
-        lib.pip_sym_planes.argtypes = [ctypes.c_void_p] * 32
-        lib.pip_sym_close.restype = None
-        lib.pip_sym_close.argtypes = [ctypes.c_void_p]
         _configure_pip(lib)
         _lib = lib
     return _lib
@@ -288,8 +277,9 @@ def selftest_arith() -> None:
         raise RuntimeError(f"arith selftest failed: {err.value.decode()}")
 
 
-# pip_sym_planes' buffers in its argument order: (name, dtype, shape,
-# per MB: the shape after the MB count, else the whole shape). meta,
+# pip_pooled_planes' (and pip_sym_planes') buffers in their argument
+# order: (name, dtype, shape, per MB: the shape after the MB count, else
+# the whole shape). meta,
 # scaling, ref_list and dpb_live are read into the frame dict; the rest
 # are its per-MB planes.
 _SYM_BUFFERS = (
@@ -415,10 +405,12 @@ def _frame(w, h, ptr, size):
 
 
 def _sym_functions(lib):
-    """The addresses of pip_sym_next, pip_sym_planes and pip_sym_close,
-    which the parse-ahead worker calls."""
+    """The addresses of the host library's pip_pooled_next,
+    pip_pooled_planes and pip_pooled_close, which the parse-ahead worker
+    calls."""
     return [ctypes.cast(getattr(lib, name), ctypes.c_void_p).value
-            for name in ("pip_sym_next", "pip_sym_planes", "pip_sym_close")]
+            for name in ("pip_pooled_next", "pip_pooled_planes",
+                         "pip_pooled_close")]
 
 
 # pip_ahead_take's results (csrc/sym_ahead.cpp)
@@ -431,11 +423,15 @@ class SymbolDecoder:
     losslessh264_tpu.native.SymbolDecoder yields, frame for frame; a
     test pins the two.
 
-    The parse runs ahead on a native worker thread of its own
+    The handle (csrc/sym_planes.cpp) parses every frame into one set of
+    planes that it takes from a process-wide pool and hands back when it
+    closes, so their memory is reused across frames and decoders. The
+    parse runs ahead on a native worker thread of its own
     (csrc/sym_ahead.cpp), started by the first `__next__`: a decoder
-    never iterated starts none. The worker runs pip_sym_next and the
-    planes' copy-out, pip_sym_planes, up to `_DEPTH` frames ahead of the
-    consumer while the consumer plans and issues the frames before, and
+    never iterated starts none. The worker runs the parse,
+    pip_pooled_next, and the planes' copy-out, pip_pooled_planes, up to
+    `_DEPTH` frames ahead of the consumer while the consumer plans and
+    issues the frames before, and
     never takes the interpreter lock. `__next__` takes the next frame's
     buffer and makes its dict (the per-MB planes are views of the
     buffer, freed with the last of them); it raises StopIteration at the
@@ -447,16 +443,19 @@ class SymbolDecoder:
     Traced, `__next__` records the worker's steps as the worker's spans
     (`dec.symbols.parse`, `.alloc`, `.export`, timed there), its wait
     for a frame the worker has not finished as `dec.symbols.wait`, and
-    each frame that was ready as `dec.symbols_ahead`.
+    each frame that was ready as `dec.symbols_ahead`, each frame parsed
+    into planes that held as large a frame before as
+    `dec.symbols_planes_kept`, and the worker's minor page faults during
+    the parse as `dec.symbols_faults`.
     """
 
     # frames parsed ahead: a 720p frame's buffer is ~8 MB
     _DEPTH = 3
 
     def __init__(self, data: bytes):
-        self._lib = load()
+        self._lib = _build.host_lib()
         err = ctypes.create_string_buffer(512)
-        self._h = self._lib.pip_sym_open(data, len(data), err, len(err))
+        self._h = self._lib.pip_pooled_open(data, len(data), err, len(err))
         if not self._h:
             raise RuntimeError(f"pip_sym_open failed: {err.value.decode()}")
         self._ahead = None
@@ -465,23 +464,22 @@ class SymbolDecoder:
     def __del__(self):
         if getattr(self, "_ahead", None):
             # the worker closes the handle
-            self._host.pip_ahead_stop(self._ahead)
+            self._lib.pip_ahead_stop(self._ahead)
         elif getattr(self, "_h", None):
-            self._lib.pip_sym_close(self._h)
+            self._lib.pip_pooled_close(self._h)
         self._ahead = self._h = None
 
     def __iter__(self):
         return self
 
     def _start(self):
-        host = _build.host_lib()
         ahead = ctypes.c_void_p()
-        if host.pip_ahead_start(self._h, *_sym_functions(self._lib),
-                                self._DEPTH, _SYM_SIZES.ctypes.data,
-                                ctypes.byref(ahead)) != 0:
+        if self._lib.pip_ahead_start(self._h, *_sym_functions(self._lib),
+                                     self._DEPTH, _SYM_SIZES.ctypes.data,
+                                     ctypes.byref(ahead)) != 0:
             raise RuntimeError("pip_ahead_start failed: no worker thread")
-        self._host, self._ahead, self._h = host, ahead.value, None
-        self._out = np.zeros(9, np.int64)
+        self._ahead, self._h = ahead.value, None
+        self._out = np.zeros(11, np.int64)
         self._err = ctypes.create_string_buffer(512)
         # pip_ahead_take's arguments after `block`
         self._take_args = (self._out.ctypes.data, self._err, len(self._err))
@@ -491,19 +489,22 @@ class SymbolDecoder:
             raise StopIteration
         if self._ahead is None:
             self._start()
-        take = self._host.pip_ahead_take
+        take = self._lib.pip_ahead_take
         rc = take(self._ahead, 0, *self._take_args)
         if rc == _NOT_READY:
             with trace.span("dec.symbols.wait"):
                 rc = take(self._ahead, 1, *self._take_args)
         elif rc == _FRAME:
             trace.count("dec.symbols_ahead")
-        w, h, ptr, size, t0, t1, t2, t3, thread = self._out.tolist()
+        (w, h, ptr, size, t0, t1, t2, t3, thread, kept,
+         faults) = self._out.tolist()
         if trace.on():
             trace.add_span("dec.symbols.parse", t0, t1, thread)
             if rc == _FRAME:
                 trace.add_span("dec.symbols.alloc", t1, t2, thread)
                 trace.add_span("dec.symbols.export", t2, t3, thread)
+                trace.count("dec.symbols_planes_kept", kept)
+                trace.count("dec.symbols_faults", faults)
         if rc == _FRAME:
             return _frame(w, h, ptr, size)
         self._done = True

@@ -1,6 +1,7 @@
 """The port's SymbolDecoder parses ahead on a native worker thread
-(losslessh264_tpu_torch/native.py, csrc/sym_ahead.cpp). These tests hold
-it to the serial
+(losslessh264_tpu_torch/native.py, csrc/sym_ahead.cpp), into planes that
+its handle keeps across frames and hands on to later decoders through a
+pool (csrc/sym_planes.cpp). These tests hold it to the serial
 parse of the JAX package's losslessh264_tpu.native.SymbolDecoder: the
 same frames, planes and keys in the same order; the same end; the native
 layer's RuntimeError after the same frames; and a decoder dropped
@@ -11,6 +12,8 @@ import functools
 import gc
 import os
 import random
+import re
+import shutil
 import sys
 import threading
 import time
@@ -20,6 +23,7 @@ import numpy as np
 import pytest
 
 from losslessh264_tpu import native as jnative
+from losslessh264_tpu_torch import _build
 from losslessh264_tpu_torch import native as tnative
 from losslessh264_tpu_torch import trace
 from losslessh264_tpu_torch.parse import split_access_units
@@ -27,8 +31,12 @@ from losslessh264_tpu_torch.parse import split_access_units
 tnative.load()
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-RUNS = os.path.join(ROOT, "tests", "data", "runs720p.264")
+DATA = os.path.join(ROOT, "tests", "data")
+RUNS = os.path.join(DATA, "runs720p.264")
 WALK = os.path.join(ROOT, "bench_port", "data", "walk_analog_1331.264")
+# every stream in tests/data: its frames
+DATA_STREAMS = {"ltr_gap_64x48": 24, "runs720p": 12, "synth720p": 25,
+                "walk_analog": 1000}
 
 
 def _read(path):
@@ -50,6 +58,104 @@ def _walk_gop0():
     """The walk stand-in's first GOP: its IDR (with the stream's
     parameter sets) and the 99 P frames after it."""
     return b"".join(raw for raw, _ in split_access_units(_read(WALK))[:100])
+
+
+class _Bits:
+    """An RBSP's bits, read as the syntax's u(n), ue(v) and se(v)."""
+
+    def __init__(self, rbsp):
+        self.bits = "".join(f"{b:08b}" for b in rbsp)
+        self.pos = 0
+
+    def u(self, n):
+        self.pos += n
+        return int(self.bits[self.pos - n:self.pos] or "0", 2)
+
+    def ue(self):
+        zeros = 0
+        while self.u(1) == 0:
+            zeros += 1
+        return (1 << zeros) - 1 + self.u(zeros)
+
+    def se(self):
+        k = self.ue()
+        return (k + 1) // 2 if k % 2 else -(k // 2)
+
+
+def _ue(v):
+    b = bin(v + 1)[2:]
+    return "0" * (len(b) - 1) + b
+
+
+def _se(v):
+    return _ue(2 * v - 1 if v > 0 else -2 * v)
+
+
+def _nal(header, bits):
+    """A NAL unit with a start code: `header` then the RBSP `bits` with
+    its stop bit, emulation prevention applied."""
+    bits += "1"
+    bits += "0" * (-len(bits) % 8)
+    out, zeros = bytearray(), 0
+    for i in range(0, len(bits), 8):
+        b = int(bits[i:i + 8], 2)
+        if zeros >= 2 and b <= 3:
+            out.append(3)
+            zeros = 0
+        out.append(b)
+        zeros = zeros + 1 if b == 0 else 0
+    return b"\x00\x00\x00\x01" + bytes([header]) + bytes(out)
+
+
+def _with_scaling_pps(stream):
+    """`stream` with each PPS rewritten to carry what the port's encoder
+    never writes: chroma QP offsets of -3 and +4 and six 4x4 scaling
+    lists (transform_8x8_mode 0, so the slices parse as before). The
+    symbol planes differ in `scaling4`, `use_scaling` and the offsets."""
+    out = []
+    for m in re.finditer(rb"\x00\x00\x01(.)", stream, re.S):
+        start = m.start()
+        end = stream.find(b"\x00\x00\x01", m.end())
+        end = len(stream) if end < 0 else end
+        nal = stream[m.start(1):end].rstrip(b"\x00")
+        if nal[0] & 0x1F != 8:
+            out.append(stream[start:end])
+            continue
+        r = _Bits(nal[1:])
+        bits = _ue(r.ue()) + _ue(r.ue()) + str(r.u(1)) + str(r.u(1))
+        assert r.ue() == 0  # one slice group
+        bits += _ue(0) + _ue(r.ue()) + _ue(r.ue()) + str(r.u(1))
+        bits += f"{r.u(2):02b}" + _se(r.se()) + _se(r.se())
+        r.se()
+        bits += _se(-3) + str(r.u(1)) + str(r.u(1)) + str(r.u(1))
+        bits += "0" + "1"  # transform_8x8_mode, pic_scaling_matrix_present
+        for lst in range(6):
+            bits += "1"
+            last = 8
+            for j in range(16):
+                v = 6 + (7 * lst + 3 * j) % 40
+                bits += _se((v - last + 128) % 256 - 128)
+                last = v
+        bits += _se(4)
+        out.append(_nal(nal[0], bits))
+    return b"".join(out)
+
+
+@functools.lru_cache(maxsize=None)
+def _scaled_cropped():
+    """60x44 (4x3 MBs, cropped by 4 columns and 4 rows), five frames of
+    the port's TorchEncoder on the CPU, its PPS rewritten by
+    _with_scaling_pps."""
+    import torch
+    torch.set_num_threads(1)
+    from losslessh264_tpu_torch.encoder_torch import TorchEncoder
+    rng = np.random.RandomState(7)
+    bg = rng.randint(0, 255, (100, 120)).astype(np.uint8)
+    enc = TorchEncoder(60, 44, qp=30, device="cpu")
+    grey = (np.full((22, 30), 90, np.uint8), np.full((22, 30), 160, np.uint8))
+    return _with_scaling_pps(b"".join(
+        enc.encode_frame(np.ascontiguousarray(bg[i:i + 44, 2 * i:2 * i + 60]),
+                         *grey) for i in range(5)))
 
 
 def _drain(dec):
@@ -75,19 +181,35 @@ def _assert_same_frame(got, want, what):
             assert type(got[k]) is type(w) and got[k] == w, (what, k)
 
 
+def _step(it):
+    """(the next frame or None at the end or an error, the error)."""
+    try:
+        return next(it), None
+    except StopIteration:
+        return None, None
+    except RuntimeError as e:
+        return None, e
+
+
 def _assert_same_decode(data):
     """The port's parse-ahead and the JAX package's serial parse of
-    `data`: equal frames, and the same end or error after as many
-    frames; returns (frames, error)."""
-    got, got_err = _drain(tnative.SymbolDecoder(data))
-    want, want_err = _drain(jnative.SymbolDecoder(data))
-    assert len(got) == len(want)
-    for i, (g, w) in enumerate(zip(got, want)):
-        _assert_same_frame(g, w, f"frame {i}")
+    `data`, frame by frame side by side: equal frames, and the same end
+    or error after as many frames; returns (frames, error)."""
+    got_it = tnative.SymbolDecoder(data)
+    want_it = jnative.SymbolDecoder(data)
+    n = 0
+    while True:
+        g, got_err = _step(got_it)
+        w, want_err = _step(want_it)
+        assert (g is None) == (w is None), f"frame {n}"
+        if w is None:
+            break
+        _assert_same_frame(g, w, f"frame {n}")
+        n += 1
     assert (got_err is None) == (want_err is None)
     if want_err is not None:
         assert str(got_err) == str(want_err)
-    return got, got_err
+    return n, got_err
 
 
 def _wait_for(cond, timeout=30.0):
@@ -99,12 +221,16 @@ def _wait_for(cond, timeout=30.0):
     return True
 
 
-@pytest.mark.parametrize("stream", ["runs720p", "walk_gop0"])
-def test_frames_equal_the_serial_parse(stream, runs):
-    data = runs if stream == "runs720p" else _walk_gop0()
+@pytest.mark.parametrize("stream", sorted(DATA_STREAMS) + ["walk_gop0"])
+def test_frames_equal_the_serial_parse(stream):
+    if stream == "walk_gop0":
+        data, want = _walk_gop0(), 100
+    else:
+        data = _read(os.path.join(DATA, stream + ".264"))
+        want = DATA_STREAMS[stream]
     frames, err = _assert_same_decode(data)
     assert err is None
-    assert len(frames) == (12 if stream == "runs720p" else 100)
+    assert frames == want
 
 
 @pytest.mark.parametrize("au,frac", [(2, 0.5), (5, 0.3), (9, 0.7)])
@@ -114,7 +240,7 @@ def test_cut_mid_slice_ends_as_the_serial_parse(runs_aus, au, frac):
     data = b"".join(runs_aus[:au]) + runs_aus[au][:int(
         len(runs_aus[au]) * frac)]
     frames, err = _assert_same_decode(data)
-    assert err is None and len(frames) == au + 1
+    assert err is None and frames == au + 1
 
 
 # parameter sets the native layer cannot parse: pip_sym_next fails on the
@@ -129,7 +255,7 @@ def test_native_error_after_the_same_frames(runs_aus, bad, at):
     data = (b"".join(runs_aus[:at]) + b"\x00\x00\x00\x01" + bad
             + b"".join(runs_aus[at:]))
     frames, err = _assert_same_decode(data)
-    assert isinstance(err, RuntimeError) and len(frames) == at - 1
+    assert isinstance(err, RuntimeError) and frames == at - 1
     assert str(err).startswith("pip_sym_next failed")
 
 
@@ -153,11 +279,12 @@ def test_after_the_end_or_an_error_the_worker_stops(runs_aus):
 
 
 def _native_functions(monkeypatch, next_=None, planes=None, close=None):
-    """Hand the worker stand-ins for pip_sym_next, pip_sym_planes or
-    pip_sym_close: each is called as `fn(real, *args)` from the worker's
-    thread, `real` the native function. Returns the callbacks, which the
-    caller keeps alive while a worker may call them."""
-    real = tnative._sym_functions(tnative.load())
+    """Hand the worker stand-ins for pip_pooled_next, pip_pooled_planes
+    or pip_pooled_close: each is called as `fn(real, *args)` from the
+    worker's thread, `real` the host library's function. Returns the
+    callbacks, which the caller keeps alive while a worker may call
+    them."""
+    real = tnative._sym_functions(_build.host_lib())
     P, I = ctypes.c_void_p, ctypes.c_int
     protos = [ctypes.CFUNCTYPE(I, P, P, P, P, ctypes.c_size_t),
               ctypes.CFUNCTYPE(I, *[P] * 32),
@@ -235,10 +362,10 @@ def test_worker_stays_within_its_depth(runs):
 
 def test_never_iterated_starts_no_thread_and_frees_its_handle(monkeypatch,
                                                                runs):
-    lib = tnative.load()
+    lib = _build.host_lib()
     closed = []
-    close = lib.pip_sym_close
-    monkeypatch.setattr(lib, "pip_sym_close",
+    close = lib.pip_pooled_close
+    monkeypatch.setattr(lib, "pip_pooled_close",
                         lambda h: (closed.append(h), close(h)))
     live = _host().pip_ahead_live()
     before = threading.active_count()
@@ -260,17 +387,17 @@ def test_dropped_decoders_stop_their_workers(monkeypatch, runs):
         closed.append(h)
         real(h)
     keep = _native_functions(monkeypatch, close=counted)
-    lib = tnative.load()
+    lib = _build.host_lib()
     opened = []
-    open_ = lib.pip_sym_open
+    open_ = lib.pip_pooled_open
 
     def counted_open(*a):
         h = open_(*a)
         opened.append(h)
         return h
-    monkeypatch.setattr(lib, "pip_sym_open", counted_open)
-    closes = lib.pip_sym_close
-    monkeypatch.setattr(lib, "pip_sym_close",
+    monkeypatch.setattr(lib, "pip_pooled_open", counted_open)
+    closes = lib.pip_pooled_close
+    monkeypatch.setattr(lib, "pip_pooled_close",
                         lambda h: (closed.append(h), closes(h)))
     gc.collect()
     before = threading.active_count()
@@ -388,3 +515,143 @@ def test_decoders_on_many_threads_at_once(runs):
     assert bad == []
     gc.collect()
     assert _wait_for(lambda: live() == before)
+
+
+def _pool():
+    """(FramePlanes in the pool, their bytes)."""
+    out = np.zeros(2, np.int64)
+    _build.host_lib().pip_pooled_kept(out.ctypes.data)
+    return tuple(out.tolist())
+
+
+def test_scaled_stream_sets_what_the_others_leave():
+    """The rewritten stream's frames carry the fields that no other
+    stream of these tests sets, so planes it leaves behind would show."""
+    f = next(jnative.SymbolDecoder(_scaled_cropped()))
+    assert (f["mb_w"], f["mb_h"], f["crop_px"]) == (4, 3, (0, 4, 0, 4))
+    assert f["use_scaling"] and f["scaling4"].min() >= 6
+    assert (f["chroma_qp_offset"], f["second_chroma_qp_offset"]) == (-3, 4)
+    g = next(jnative.SymbolDecoder(_read(os.path.join(
+        DATA, "ltr_gap_64x48.264"))))
+    assert (g["mb_w"], g["mb_h"], g["crop_px"]) == (4, 3, (0, 0, 0, 0))
+    assert not g["use_scaling"] and not g["scaling4"].any()
+
+
+def test_pooled_planes_across_sizes_decoders_and_threads(runs):
+    """Decoders of 64x48 (4x3 MBs: the scaled, cropped stream and the
+    long-term-reference stream take each other's planes), 640x352 and
+    720p, and streams that change size midway, in alternation on one
+    thread and then on several at once: every frame equals the serial
+    parse's, the planes pass from decoder to decoder, and the pool stays
+    within its bound."""
+    scaled = _scaled_cropped()
+    ltr = _read(os.path.join(DATA, "ltr_gap_64x48.264"))
+    walk = b"".join(raw for raw, _ in split_access_units(_read(WALK))[:12])
+    runs4 = b"".join(raw for raw, _ in split_access_units(runs)[:4])
+    streams = {"scaled": scaled, "ltr": ltr, "walk": walk, "runs": runs,
+               "grows": scaled + runs4, "shrinks": runs4 + scaled + ltr}
+    want = {k: list(jnative.SymbolDecoder(d)) for k, d in streams.items()}
+    assert [len(want[k]) for k in ("grows", "shrinks")] == [9, 33]
+
+    def decode(k, check):
+        n = 0
+        for i, f in enumerate(tnative.SymbolDecoder(streams[k])):
+            check(f, want[k][i], f"{k} frame {i}")
+            n += 1
+        assert n == len(want[k]), k
+    order = ["scaled", "ltr", "runs", "scaled", "walk", "ltr", "grows",
+             "scaled", "shrinks", "ltr", "runs", "walk", "scaled", "ltr"]
+    for k in order:
+        decode(k, _assert_same_frame)
+    # a second round: each decoder's planes come from one before it, but
+    # for the first 720p frame after "grows"' 4x3-MB frames, which makes
+    # them grow, and the next "scaled" one, whose 4x3-MB planes "grows"
+    # took unless the tests before left another
+    with trace.recording() as rec:
+        for k in order:
+            decode(k, _assert_same_frame)
+    frames = sum(len(want[k]) for k in order)
+    assert frames - 2 <= rec.counters["dec.symbols_planes_kept"] < frames
+
+    bad = []
+
+    def check(f, w, what):
+        try:
+            _assert_same_frame(f, w, what)
+        except AssertionError:
+            bad.append(what)
+
+    def consume(seed):
+        rng = random.Random(seed)
+        for _ in range(10):
+            decode(rng.choice(sorted(streams)), check)
+    threads = [threading.Thread(target=consume, args=(s,)) for s in range(6)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not any(t.is_alive() for t in threads)
+    assert bad == []
+    kept, nbytes = _pool()
+    assert 1 <= kept and nbytes <= 256 << 20
+
+
+def test_planes_kept_over_fresh_decoders(runs_aus):
+    """20 passes of 5-12 frames of runs720p, a fresh decoder each: the
+    planes of every frame but at most the first decoder's first were
+    taken from the pool or kept from the frame before."""
+    rng = random.Random(22)
+    frames = 0
+    with trace.recording() as rec:
+        for _ in range(20):
+            data = b"".join(runs_aus[:rng.randint(5, 12)])
+            frames += sum(1 for _ in tnative.SymbolDecoder(data))
+    assert frames >= 100
+    assert rec.counters["dec.symbols_planes_kept"] >= 0.99 * frames
+    assert rec.counters["dec.symbols_faults"] >= 0
+
+
+def _included(paths, dirs):
+    """The quoted #includes of `paths`, followed through `dirs`."""
+    seen, todo = set(), list(paths)
+    while todo:
+        with open(todo.pop()) as fh:
+            for name in re.findall(r'^#include "([^"]+)"', fh.read(), re.M):
+                for d in dirs:
+                    p = os.path.join(d, name)
+                    if os.path.exists(p) and p not in seen:
+                        seen.add(p)
+                        todo.append(p)
+                        break
+    return seen
+
+
+def test_host_library_rebuilds_for_the_native_headers_it_includes(tmp_path):
+    """In a copy of the host library's inputs: a library newer than all
+    of them is current, and one older than any native/src header that
+    its sources include is stale (FramePlanes' layout is compiled into
+    both libraries)."""
+    native_src = os.path.join(ROOT, "native", "src")
+    csrc = os.path.join(ROOT, "losslessh264_tpu_torch", "csrc")
+    headers = {p for p in _included(_build.host_sources(), [csrc, native_src])
+               if p.startswith(native_src + os.sep)}
+    assert os.path.join(native_src, "decsupport.h") in headers
+    inputs = _build.host_inputs(ROOT)
+    assert headers <= set(inputs)
+    t0 = time.time() - 1000
+    for p in inputs:
+        dst = tmp_path / os.path.relpath(p, ROOT)
+        dst.parent.mkdir(parents=True, exist_ok=True)
+        shutil.copyfile(p, dst)
+        os.utime(dst, (t0, t0))
+    lib = tmp_path / "build" / "host" / "libpip_plan.so"
+    lib.parent.mkdir(parents=True)
+    lib.write_bytes(b"")
+    os.utime(lib, (t0 + 10, t0 + 10))
+    assert not _build.needs_host_build(str(tmp_path))
+    for h in sorted(headers):
+        copy = tmp_path / os.path.relpath(h, ROOT)
+        os.utime(copy, (t0 + 20, t0 + 20))
+        assert _build.needs_host_build(str(tmp_path)), h
+        os.utime(copy, (t0, t0))
+    assert not _build.needs_host_build(str(tmp_path))

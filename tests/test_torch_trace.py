@@ -45,7 +45,9 @@ SPANS = {
     "enc.writer.rows_wait", "enc.writer.unpack", "enc.writer.write",
 }
 COUNTERS = {"dec.frames", "dec.h2d_bytes", "dec.h2d_copies",
-            "dec.symbol_bytes", "dec.symbols_ahead", "dec.mc_bucketed", "dec.mc_slots",
+            "dec.symbol_bytes", "dec.symbols_ahead",
+            "dec.symbols_planes_kept", "dec.symbols_faults",
+            "dec.mc_bucketed", "dec.mc_slots",
             "dec.mc_spilled", "dec.mc_cells",
             "dec.mc_cells_n", "dec.mc_cells_wp",
             "enc.frames", "enc.h2d_bytes", "enc.d2h_bytes"}
